@@ -1,0 +1,129 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, at first use, under ``build/kernels/`` beside
+the package. All sources build at once, one ``nvcc`` each, in parallel.
+A build is keyed by a hash of every source and header, so an edited
+source rebuilds and an unchanged one is reused. Libraries load through
+``ctypes``: pointers and the stream are ``c_void_p``, and each C entry
+point returns a ``cudaError_t`` that :func:`check` turns into an error.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: C signatures: name -> (argtypes, restype)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "merge_path": {
+        "sr_merge_stage": ([_P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
+        "sr_merge_stage_smem": ([_I, _I], _L),
+    },
+    "ring_exchange": {
+        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _P], _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(CUDA toolkit missing)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source that is not built yet; returns name -> .so."""
+    out_dir = BUILD_ROOT / _source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    targets = {p.stem: (p, out_dir / f"lib{p.stem}.so")
+               for p in sorted(CSRC.glob("*.cu"))}
+    todo = {k: v for k, v in targets.items() if not v[1].is_file()}
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for name, (src, lib) in todo.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, lib)
+        errors = []
+        for name, (proc, tmp, lib) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed on {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, lib)   # atomic: readers never see a stub
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return {k: v[1] for k, v in targets.items()}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (building all at first
+    use), with every entry point's argtypes and restype declared."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        paths = build_all()
+        for lib_name, path in paths.items():
+            if lib_name in _libs:
+                continue
+            cdll = ctypes.CDLL(str(path))
+            for fn, (args, res) in SIGNATURES.get(lib_name, {}).items():
+                f = getattr(cdll, fn)
+                f.argtypes = args
+                f.restype = res
+            _libs[lib_name] = cdll
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err:
+        raise RuntimeError(f"{what} failed: cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    """Raw pointer of PyTorch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+__all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT"]

@@ -1,0 +1,351 @@
+"""The slotted all-to-all exchange — the data plane, fused regime.
+
+Counterpart of ``sparkrdma_tpu.exchange.protocol`` for D partitions
+stacked on one device (``runtime/mesh.py``). A shuffle is planned first
+(:meth:`ShuffleExchange.plan`: the global counts matrix and the static
+geometry derived from it) and then executed (:meth:`exchange`):
+
+1. map side, per source partition: partition ids, stable bucketing by
+   destination, and round ``r``'s fixed-capacity window of every bucket
+   written straight into the send buffer in the transport layout;
+2. size exchange: each source's per-destination counts ride a one-word
+   prefix lane of round 0 (fused ring) or a plain permute (otherwise);
+3. data rounds through the configured transport: ``"xla"`` is the plain
+   stacked permute, ``"pallas_ring"`` the hand-written CUDA kernel of
+   ``exchange/ring.py`` (all rounds in one launch when ``ring_fused``);
+4. reduce side, per destination partition: compaction of the received
+   round-chunked stream, then the optional key-ordering sort — the
+   merge-path kernel when the geometry allows, as in the reference.
+
+Partition ``p`` lives on stacked partition ``p % D`` (round-robin).
+
+Not ported yet, and refused rather than approximated: the streaming
+regime (more rounds than ``max_rounds_in_flight``), combine/aggregate
+and pushdown, the pack/wide sort modes, buffer pooling and donation,
+and the reference's transport degradation ladder — the port never falls
+back from a kernel to something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sparkrdma_tpu_torch.config import ShuffleConf, size_class, size_class_fine
+from sparkrdma_tpu_torch.exchange.ring import (make_ring_all_to_all,
+                                               make_ring_exchange)
+from sparkrdma_tpu_torch.kernels.bucketing import (bucket_records,
+                                                   compact_segments,
+                                                   fill_round_slots,
+                                                   fill_round_slots_dest_major,
+                                                   histogram_pids)
+from sparkrdma_tpu_torch.kernels.merge_sort import (merge_sort_cols,
+                                                    supports_fast_sort)
+from sparkrdma_tpu_torch.kernels.sort import lexsort_cols
+from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
+
+
+@dataclasses.dataclass(frozen=True)
+class ShufflePlan:
+    """``counts[s, p]`` = records source ``s`` sends to partition ``p``;
+    ``num_rounds``, ``out_capacity`` and ``capacity`` are the static
+    geometry; ``split_factor > 1`` records hot-partition splitting."""
+
+    counts: np.ndarray          # int64 [mesh, num_parts * split_factor]
+    num_rounds: int
+    out_capacity: int           # per-partition compacted output capacity
+    capacity: int               # slot capacity
+    split_factor: int = 1
+
+    @property
+    def total_records(self) -> int:
+        return int(self.counts.sum())
+
+
+def split_partitioner(partitioner: Callable, num_parts: int,
+                      k: int) -> Callable:
+    """Spread each partition over ``k`` same-owner sub-partitions
+    ``p + num_parts * j``, ``j`` cycling by local record position."""
+
+    def wrapped(records):
+        base = partitioner(records).to(torch.int64)
+        j = torch.arange(records.shape[1], device=records.device) % k
+        return base + num_parts * j
+
+    wrapped.cache_key = ("split", k, num_parts,
+                         getattr(partitioner, "cache_key", id(partitioner)))
+    return wrapped
+
+
+def _device_partition_counts(counts_local: torch.Tensor, num_parts: int,
+                             mesh_size: int) -> torch.Tensor:
+    """``[num_parts]`` per-destination counts -> ``[mesh, ppd]`` with row
+    ``d`` holding the partitions owned by ``d`` (``d, d+mesh, ...``)."""
+    ppd = num_parts // mesh_size
+    idx = torch.arange(num_parts, device=counts_local.device)
+    idx = idx.reshape(ppd, mesh_size).T.reshape(-1)
+    return counts_local[idx].reshape(mesh_size, ppd)
+
+
+class ShuffleExchange:
+    """Planner and executor of exchanges over one stacked runtime."""
+
+    def __init__(self, runtime: MeshRuntime,
+                 conf: Optional[ShuffleConf] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        self.runtime = runtime
+        self.conf = conf or runtime.conf
+        self.mesh_size = runtime.num_partitions
+        self.metrics = metrics if metrics is not None \
+            else MetricsRegistry(enabled=False)
+
+    def transport(self) -> str:
+        return self.conf.transport
+
+    # ------------------------------------------------------------------
+    # phase 1: plan (the metadata fetch)
+    # ------------------------------------------------------------------
+    def plan(self, records: torch.Tensor, partitioner: Callable,
+             num_parts: Optional[int] = None,
+             capacity: Optional[int] = None) -> ShufflePlan:
+        """Global counts matrix, slot capacity, rounds, output capacity."""
+        num_parts = num_parts or self.mesh_size
+        if num_parts % self.mesh_size:
+            raise ValueError(f"num_parts {num_parts} not a multiple of "
+                             f"mesh size {self.mesh_size}")
+        classer = (size_class_fine
+                   if self.conf.geometry_classes == "fine" else size_class)
+        rt = self.runtime
+
+        def measure(part_fn, parts):
+            counts = torch.stack([
+                histogram_pids(part_fn(rt.partition(records, d)), parts)
+                for d in range(self.mesh_size)]).cpu().numpy()
+            counts = counts.astype(np.int64)
+            if int(counts.sum()) != records.shape[1]:
+                raise ValueError(
+                    f"partitioner produced out-of-range partition ids: "
+                    f"counted {int(counts.sum())} of {records.shape[1]} "
+                    f"records over {parts} partitions (ids must lie in "
+                    f"[0, num_parts))")
+            per_pair_max = int(counts.max(initial=0))
+            cap = capacity if capacity is not None else min(
+                classer(max(1, per_pair_max)), self.conf.slot_records)
+            return counts, cap, max(1, math.ceil(per_pair_max / cap))
+
+        counts, cap, num_rounds = measure(partitioner, num_parts)
+        split = 1
+        if num_rounds > self.conf.max_rounds:
+            split = math.ceil(num_rounds / self.conf.max_rounds)
+            sp = split_partitioner(partitioner, num_parts, split)
+            counts, cap, num_rounds = measure(sp, num_parts * split)
+        if num_rounds > self.conf.max_rounds:
+            raise ValueError(
+                f"partition skew needs {num_rounds} rounds > max_rounds "
+                f"{self.conf.max_rounds} even after {split}-way partition "
+                "splitting; raise slot_records or max_rounds")
+        owned = counts.sum(axis=0)
+        per_device_in = [int(owned[d::self.mesh_size].sum())
+                         for d in range(self.mesh_size)]
+        return ShufflePlan(counts=counts, num_rounds=num_rounds,
+                           out_capacity=classer(max(1, max(per_device_in))),
+                           capacity=cap, split_factor=split)
+
+    # ------------------------------------------------------------------
+    # transports and the reduce-side tail
+    # ------------------------------------------------------------------
+    def _ring_fused_active(self) -> bool:
+        return self.transport() == "pallas_ring" and self.conf.ring_fused
+
+    def _data_a2a(self) -> Callable:
+        """One round: dest-major ``[D_src, D_dst, ...]`` -> ``[D_dst,
+        D_src, ...]``."""
+        if self.transport() == "pallas_ring":
+            return make_ring_all_to_all(self.mesh_size, self.metrics)
+        return lambda send: send.transpose(0, 1).contiguous()
+
+    def _uses_fast_sort(self, out_capacity: int, sort_key_words: int,
+                        aggregator: str = "") -> bool:
+        """Does the tail run the merge-path sort? (Same rule as the
+        reference, so both take it on the same geometries.)"""
+        return (bool(sort_key_words) and not aggregator
+                and self.conf.fast_sort
+                and not self.conf.stable_key_sort
+                and supports_fast_sort(out_capacity, self.conf.fast_sort_run))
+
+    def sort_mode(self, record_words: int) -> str:
+        """The reference's precedence rule: pack > wide > plain."""
+        payload = record_words - self.conf.key_words
+        if self.conf.pack_sort_min_payload and \
+                payload >= self.conf.pack_sort_min_payload:
+            return "pack"
+        if self.conf.wide_sort_min_payload and \
+                payload >= self.conf.wide_sort_min_payload:
+            return "wide"
+        return "plain"
+
+    def _fuse_tail(self, out: torch.Tensor, total: int, out_capacity: int,
+                   sort_key_words: int, tight_out: bool = False
+                   ) -> Tuple[torch.Tensor, int]:
+        """Optional key-ordering sort of one partition's output.
+
+        Outside the merge-path geometry the port sorts by the key words
+        stably; the reference's default there is unstable, so equal keys
+        may come out in another (equally valid) order."""
+        if not sort_key_words:
+            return out, total
+        valid = None if tight_out else (
+            torch.arange(out_capacity, device=out.device) < total)
+        if self._uses_fast_sort(out_capacity, sort_key_words):
+            out = merge_sort_cols(out, valid, run=self.conf.fast_sort_run)
+        else:
+            out = lexsort_cols(out, sort_key_words, valid)
+        return out, total
+
+    def _map_side(self, records: torch.Tensor, partitioner: Callable,
+                  num_parts: int):
+        pids = partitioner(records)
+        return bucket_records(records, pids, num_parts)
+
+    # ------------------------------------------------------------------
+    # phase 2: execute
+    # ------------------------------------------------------------------
+    def exchange(self, records: torch.Tensor, partitioner: Callable,
+                 plan: ShufflePlan, num_parts: Optional[int] = None,
+                 shuffle_id: int = -1, sort_key_words: int = 0,
+                 aggregator: str = ""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Run the planned exchange.
+
+        Returns ``(out [W, D*out_capacity], totals int32[D], incoming
+        int32[D, D, ppd])``: partition ``d``'s columns are its compacted
+        received records (zero tail), ``totals[d]`` how many are valid,
+        and ``incoming[d, s, q]`` the count source ``s`` sent to ``d``'s
+        local partition ``q``."""
+        plan_parts = int(plan.counts.shape[1])
+        if (num_parts is not None
+                and num_parts * plan.split_factor != plan_parts):
+            raise ValueError(f"num_parts {num_parts} != plan's {plan_parts} "
+                             f"(split_factor {plan.split_factor})")
+        if plan.split_factor > 1:
+            partitioner = split_partitioner(
+                partitioner, plan_parts // plan.split_factor,
+                plan.split_factor)
+        if aggregator:
+            raise NotImplementedError(
+                "combine/aggregate reads are not ported yet")
+        if plan.num_rounds > self.conf.max_rounds_in_flight:
+            raise NotImplementedError(
+                f"plan needs {plan.num_rounds} rounds > "
+                f"max_rounds_in_flight {self.conf.max_rounds_in_flight}: "
+                "the streaming regime is not ported yet")
+        w = records.shape[0]
+        if self.sort_mode(w) != "plain":
+            raise NotImplementedError(
+                f"sort mode {self.sort_mode(w)!r} is not ported yet; set "
+                "pack_sort_min_payload=0 and wide_sort_min_payload=0")
+        if records.dtype != torch.int32:
+            raise TypeError(f"records must be int32 word views, got "
+                            f"{records.dtype}")
+        self.metrics.counter("exchange.exchanges").inc()
+        self.metrics.counter("exchange.rounds").inc(plan.num_rounds)
+        owned = plan.counts.sum(axis=0)
+        per_dev = np.array([owned[d::self.mesh_size].sum()
+                            for d in range(self.mesh_size)])
+        tight = bool((per_dev == plan.out_capacity).all())
+        return self._run(records, partitioner, plan_parts, plan.capacity,
+                         plan.num_rounds, plan.out_capacity,
+                         sort_key_words, tight)
+
+    def _run(self, records, partitioner, num_parts, capacity, num_rounds,
+             out_capacity, sort_key_words, tight):
+        """The fused regime: the reference's ``local_step``, looped over
+        the stacked partitions around one exchange launch."""
+        rt = self.runtime
+        mesh = self.mesh_size
+        ppd = num_parts // mesh
+        w = records.shape[0]
+        dev = records.device
+        oc = out_capacity
+        out = torch.zeros((w, mesh * oc), dtype=torch.int32, device=dev)
+        totals = torch.zeros((mesh,), dtype=torch.int32, device=dev)
+
+        if num_parts == 1 and num_rounds == 1 and mesh == 1:
+            # degenerate exchange (single partition, single source): the
+            # slot/window/compact machinery is the identity, so the tail
+            # runs on the batch directly, as in the reference
+            n = records.shape[1]
+            part = records if n == oc else torch.cat(
+                [records, records.new_zeros((w, oc - n))], dim=1)
+            part, total = self._fuse_tail(part, n, oc, sort_key_words,
+                                          tight)
+            out.copy_(part)
+            totals[0] = total
+            incoming = torch.full((1, 1, 1), n, dtype=torch.int32,
+                                  device=dev)
+            return out, totals, incoming
+
+        if self._ring_fused_active():
+            # dest-major fills written straight into the send buffer's
+            # payload lanes; lane 0 of round 0 carries the size exchange
+            send = torch.zeros((mesh, num_rounds, mesh, ppd, w,
+                                capacity + 1), dtype=torch.int32, device=dev)
+            for s in range(mesh):
+                sr, counts, offs = self._map_side(
+                    rt.partition(records, s), partitioner, num_parts)
+                for r in range(num_rounds):
+                    fill_round_slots_dest_major(
+                        sr, counts, offs, num_parts, mesh, capacity, r,
+                        out=send[s, r, :, :, :, 1:])
+                send[s, 0, :, :, 0, 0] = _device_partition_counts(
+                    counts, num_parts, mesh).to(torch.int32)
+                del sr
+            recv = make_ring_exchange(mesh, num_rounds, self.metrics)(send)
+            del send
+            # recv[d, r, s, q, w, 1 + c]
+            incoming = recv[:, 0, :, :, 0, 0].clone()
+            streams = [recv[d, :, :, :, :, 1:].permute(3, 2, 1, 0, 4)
+                       for d in range(mesh)]
+        else:
+            a2a = self._data_a2a()
+            mapped = [self._map_side(rt.partition(records, s), partitioner,
+                                     num_parts) for s in range(mesh)]
+            incoming = torch.stack([
+                _device_partition_counts(c, num_parts, mesh)
+                for _, c, _ in mapped]).transpose(0, 1).to(torch.int32)
+            rounds = []
+            for r in range(num_rounds):
+                send = torch.stack([
+                    fill_round_slots(sr, c, o, num_parts, capacity, r)[0]
+                    .reshape(w, ppd, mesh, capacity).permute(2, 1, 0, 3)
+                    for sr, c, o in mapped])     # [D_src, D_dst, ppd, W, C]
+                rounds.append(a2a(send))         # [D_dst, D_src, ppd, W, C]
+                del send
+            del mapped
+            # per destination: [S, ppd, R, W, C] -> (w; q, s, r, c)
+            streams = [torch.stack([rv[d] for rv in rounds], dim=2)
+                       .permute(3, 1, 0, 2, 4) for d in range(mesh)]
+
+        # reduce side: chunk (q, s, r) is prefix-valid with length
+        # clip(incoming[d, s, q] - r*C, 0, C), in stream order (q, s, r)
+        r_ix = torch.arange(num_rounds, device=dev)[None, :] * capacity
+        for d in range(mesh):
+            inc = incoming[d].T.reshape(ppd * mesh, 1).to(torch.int64)
+            chunk_len = torch.clamp(inc - r_ix, 0, capacity).reshape(-1)
+            stream = streams[d].reshape(w, -1)
+            streams[d] = None                    # free as we go
+            part, total = compact_segments(stream, chunk_len, oc)
+            del stream
+            part, total = self._fuse_tail(part, total, oc, sort_key_words,
+                                          tight)
+            out[:, d * oc:(d + 1) * oc] = part
+            totals[d] = total
+        return out, totals, incoming
+
+
+__all__ = ["ShuffleExchange", "ShufflePlan", "split_partitioner"]

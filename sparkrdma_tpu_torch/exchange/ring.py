@@ -1,0 +1,145 @@
+"""Stacked ring all-to-all — the kernel-level transport.
+
+The reference's ``exchange/ring.py`` posts one-sided remote DMAs between
+TPU chips from inside a Pallas kernel. Here the D partitions are stacked
+on one card, so the exchange is a permutation of device memory:
+
+    send [D_src, R, D_dst, ...]  ->  recv [D_dst, R, D_src, ...]
+    recv[d, r, s] = send[s, r, d]
+
+which is exactly R calls of ``lax.all_to_all(split_axis=0,
+concat_axis=0, tiled=True)`` on a D-device mesh. The hand-written kernel
+is ``csrc/ring_exchange.cu`` (its source note gives the bound and the
+design); one launch carries every round. ``make_ring_all_to_all`` is its
+R = 1 case, the counterpart of the reference's single-round kernel.
+
+On a CPU tensor :func:`ring_exchange` runs its plain version (indexing);
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import zlib
+from typing import Callable, Optional
+
+import torch
+
+from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+
+
+def derive_collective_id(key) -> int:
+    """Stable per-plan id in 1..63 from an exec-cache key — the
+    reference's barrier-semaphore id. Within one card it names nothing
+    yet; the multi-card transport keys its signal pads on it."""
+    return 1 + zlib.crc32(repr(key).encode("utf-8")) % 63
+
+
+def ring_exchange_plain(send: torch.Tensor) -> torch.Tensor:
+    """Plain version: the permutation as indexing."""
+    return send.transpose(0, 2).contiguous()
+
+
+def _check_send(send: torch.Tensor, what: str) -> None:
+    if send.dtype != torch.int32:
+        raise TypeError(f"{what} takes int32 word views, got {send.dtype}")
+    if send.is_cuda and not send.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous send buffer")
+
+
+def _launch(send: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch ``csrc/ring_exchange.cu`` on ``send [D, R, D, ...]``."""
+    from sparkrdma_tpu_torch import _build
+
+    d, r = send.shape[0], send.shape[1]
+    if out is None:
+        out = torch.empty_like(send)
+    elif (out.shape != send.shape or out.dtype != send.dtype
+          or out.device != send.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like send")
+    lib = _build.library("ring_exchange")
+    err = lib.sr_ring_exchange(
+        ctypes.c_void_p(send.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        d, r, send[0, 0, 0].numel(),
+        ctypes.c_void_p(_build.stream_ptr(send.device)))
+    _build.check(err, "ring_exchange launch")
+    return out
+
+
+def ring_exchange(send: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``recv[d, r, s] = send[s, r, d]`` for ``send [D, R, D, ...]``."""
+    if send.dim() < 3 or send.shape[0] != send.shape[2]:
+        raise ValueError(f"send must be [D, R, D, ...], got "
+                         f"{tuple(send.shape)}")
+    _check_send(send, "ring_exchange")
+    if not send.is_cuda:
+        return ring_exchange_plain(send)
+    ring_exchange.launches += 1
+    return _launch(send, out)
+
+
+ring_exchange.launches = 0
+
+
+def make_ring_exchange(num_partitions: int, num_rounds: int,
+                       metrics: Optional[MetricsRegistry] = None
+                       ) -> Callable:
+    """The fused multi-round exchange: ``send [D, R, D, ...] -> recv``."""
+    if metrics is None:
+        metrics = MetricsRegistry(enabled=False)
+
+    def exchange(send: torch.Tensor) -> torch.Tensor:
+        if send.shape[1] != num_rounds:
+            raise ValueError(
+                f"fused exchange built for {num_rounds} rounds, "
+                f"got send with round dim {send.shape[1]}")
+        if send.shape[0] != num_partitions:
+            raise ValueError(f"send holds {send.shape[0]} sources, "
+                             f"exchange built for {num_partitions}")
+        if num_partitions == 1:
+            return send
+        metrics.counter("transport.ring.fused_kernels").inc()
+        metrics.counter("transport.ring.fused_rounds").inc(num_rounds)
+        metrics.counter("transport.ring.overlap_rounds").inc(
+            max(num_rounds - 1, 0))
+        return ring_exchange(send)
+
+    return exchange
+
+
+def ring_all_to_all(send: torch.Tensor) -> torch.Tensor:
+    """Single round: ``recv[d, s] = send[s, d]`` for ``send [D, D, ...]``
+    — the R = 1 launch of the same kernel."""
+    if send.dim() < 2 or send.shape[0] != send.shape[1]:
+        raise ValueError(f"send must be [D, D, ...], got "
+                         f"{tuple(send.shape)}")
+    _check_send(send, "ring_all_to_all")
+    if not send.is_cuda:
+        return send.transpose(0, 1).contiguous()
+    ring_all_to_all.launches += 1
+    return _launch(send.unsqueeze(1), None).squeeze(1)
+
+
+ring_all_to_all.launches = 0
+
+
+def make_ring_all_to_all(num_partitions: int,
+                         metrics: Optional[MetricsRegistry] = None
+                         ) -> Callable:
+    """Per-round all-to-all of dest-major slots ``[D, D, ...]``."""
+    if metrics is None:
+        metrics = MetricsRegistry(enabled=False)
+
+    def a2a(send: torch.Tensor) -> torch.Tensor:
+        if num_partitions == 1:
+            return send
+        metrics.counter("transport.ring.kernels").inc()
+        return ring_all_to_all(send)
+
+    return a2a
+
+
+__all__ = ["make_ring_exchange", "make_ring_all_to_all",
+           "derive_collective_id", "ring_exchange", "ring_exchange_plain",
+           "ring_all_to_all"]

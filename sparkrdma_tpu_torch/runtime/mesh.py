@@ -1,0 +1,98 @@
+"""Stacked-partition runtime — the counterpart of ``MeshRuntime``.
+
+The reference runs one shuffle partition per device of a ``jax`` mesh.
+Here ``num_partitions`` partitions are stacked on ONE device: a record
+batch is one columnar tensor ``[W, D*n]`` whose column group ``d`` is
+partition ``d``'s records, the same layout the reference's sharded
+global array has. An all-to-all between partitions is then a
+permutation in device memory.
+
+Words are ``uint32`` in the reference; torch's ``uint32`` support is
+partial, so the port carries them as ``int32`` bit-views and compares
+them unsigned (``kernels/sort.py``). ``shard_records`` and ``host_rows``
+are the only places a host ``uint32`` array crosses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparkrdma_tpu_torch.config import ShuffleConf
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    absent — the port never carries on on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain versions on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ManagerId:
+    """Identity of one shuffle participant: (process, partition index)."""
+
+    process_index: int
+    device_index: int
+
+    def __str__(self) -> str:
+        return f"proc{self.process_index}/dev{self.device_index}"
+
+
+class MeshRuntime:
+    """D stacked partitions on one device."""
+
+    def __init__(self, conf: Optional[ShuffleConf] = None,
+                 num_partitions: int = 8, device="cuda"):
+        if num_partitions < 1:
+            raise ValueError("num_partitions must be >= 1")
+        self.conf = conf or ShuffleConf()
+        self.device = resolve_device(device)
+        self.num_partitions = int(num_partitions)
+
+    def manager_id(self, device_index: int) -> ManagerId:
+        if not 0 <= device_index < self.num_partitions:
+            raise ValueError(f"partition {device_index} out of range")
+        return ManagerId(process_index=0, device_index=device_index)
+
+    def shard_records(self, rows) -> torch.Tensor:
+        """Host rows ``uint32[N, W]`` -> columnar ``int32[W, N]`` on the
+        device (N a multiple of the partition count)."""
+        rows = np.asarray(rows, dtype=np.uint32)
+        if rows.ndim != 2 or rows.shape[0] % self.num_partitions:
+            raise ValueError(
+                f"rows must be [N, W] with N a multiple of "
+                f"{self.num_partitions}, got {rows.shape}")
+        cols = np.ascontiguousarray(rows.T).view(np.int32)
+        return torch.from_numpy(cols).to(self.device)
+
+    def host_rows(self, cols: torch.Tensor) -> np.ndarray:
+        """Columnar ``[W, N]`` -> host rows ``uint32[N, W]``."""
+        arr = cols.detach().cpu().contiguous().numpy().view(np.uint32)
+        return np.ascontiguousarray(arr.T)
+
+    def partition(self, cols: torch.Tensor, d: int) -> torch.Tensor:
+        """Partition ``d``'s column group of a stacked batch (a view)."""
+        n = cols.shape[1] // self.num_partitions
+        return cols[:, d * n:(d + 1) * n]
+
+    def stop(self) -> None:
+        """Nothing is pooled yet; kept for the reference's lifecycle."""
+
+    def __enter__(self) -> "MeshRuntime":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+__all__ = ["MeshRuntime", "ManagerId", "resolve_device"]
