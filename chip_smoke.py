@@ -9,7 +9,12 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
 
 1. kernel phases — each hand-written kernel at the shapes the main path
    gives it, compared bit-exact with its plain PyTorch version on the
-   same inputs (tolerance 0: integer data) and timed with CUDA events;
+   same inputs (tolerance 0: integer data) and timed with CUDA events.
+   The merge stage (split pass + merge kernel) runs at leg A's shape,
+   at leg B's ragged received prefix (sorted with ``n_valid`` as the
+   exchange's tail sorts it), on the padded rows that prefix used to
+   sort, and on all-ones records; one ``merge_shape`` line each gives
+   ``kernel_ms``, ``bound_ms`` by the rows merged and the share;
 2. TeraSort legs at the full width of the benchmark configuration
    (100-byte records, W = 25, 16,777,216 records):
      A  one partition, the single-partition branch (merge-path tail);
@@ -40,6 +45,8 @@ RECORDS = 1 << 24           # bench.py's 1-chip geometry, 1.68 GB at W=25
 KEY_WORDS, VAL_WORDS = 2, 23
 RUN = 1 << 15               # fast_sort_run
 SLOT_B = 1 << 21            # slot_records of legs B and C
+N_B = 1 << 22               # leg B's per-partition out_capacity
+TOTAL_B = (1 << 21) + 12345  # a ragged received prefix inside it
 
 
 def fail(msg: str) -> None:
@@ -83,11 +90,54 @@ def report(line: dict) -> None:
     print(json.dumps(line), flush=True)
 
 
-def merge_phase() -> dict:
-    """Merge stage at leg A's shape, W=25 N=2^24, over several stages."""
-    from sparkrdma_tpu_torch.kernels.merge_sort import (chunk_sort_cols,
+def merge_shape(name: str, cols: torch.Tensor, run: int, reps: int = 20
+                ) -> dict:
+    """Time one merge stage (split pass + merge kernel) on ``cols`` and
+    print it beside its bound by the rows merged."""
+    from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
                                                         merge_stage,
-                                                        merge_stage_plain)
+                                                        merge_stage_plain,
+                                                        pick_tile)
+
+    w, rows = cols.shape
+    out = torch.empty_like(cols)
+    tile = pick_tile(w, run)
+    ms = time_ms(lambda: merge_stage(cols, run, out=out), reps=reps)
+    split_ms = time_ms(lambda: merge_splits(cols, run, tile), reps=reps)
+    plain_ms = time_ms(lambda: merge_stage_plain(cols, run), reps=3, warm=1)
+    bound = 2 * w * rows * 4 / MEM_RATE * 1e3
+    line = {"merge_shape": name, "w": w, "rows_merged": rows, "run": run,
+            "tile": tile, "kernel_ms": ms, "split_ms": split_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "share_of_bound": bound / ms}
+    report(line)
+    return line
+
+
+def check_stage(cols: torch.Tensor, run: int) -> int:
+    """Split pass and stage against their plain versions; max error."""
+    from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
+                                                        merge_splits_plain,
+                                                        merge_stage,
+                                                        merge_stage_plain,
+                                                        pick_tile)
+
+    tile = pick_tile(cols.shape[0], run)
+    err = max_abs_err(merge_splits(cols, run, tile),
+                      merge_splits_plain(cols, run, tile))
+    got = merge_stage(cols, run)
+    torch.cuda.synchronize()
+    return max(err, max_abs_err(got, merge_stage_plain(cols, run)))
+
+
+def merge_phase() -> dict:
+    """The merge stage at leg A's shape (W=25, N=2^24) over several
+    stages, at leg B's shape (one partition of N=2^22 holding a ragged
+    received prefix, sorted as the exchange's tail sorts it), and on
+    all-ones records (every comparison a tie of all 25 words)."""
+    from sparkrdma_tpu_torch.kernels.merge_sort import (chunk_sort_cols,
+                                                        merge_sort_cols,
+                                                        merge_sort_cols_plain)
 
     w, n = KEY_WORDS + VAL_WORDS, RECORDS
     x = rand_words((w, n), seed=1)
@@ -95,23 +145,53 @@ def merge_phase() -> dict:
     form_ms = time_ms(lambda: chunk_sort_cols(x, RUN), reps=3, warm=1)
     err = 0
     for run in (RUN, 1 << 20, 1 << 23):
-        cols = chunk_sort_cols(x, run)
-        got = merge_stage(cols, run)
-        torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, merge_stage_plain(cols, run)))
-        del got
-    if err:
-        fail(f"merge_stage disagrees with its plain version: {err}")
+        err = max(err, check_stage(chunk_sort_cols(x, run), run))
     cols = chunk_sort_cols(x, RUN)
     del x
-    out = torch.empty_like(cols)
-    ms = time_ms(lambda: merge_stage(cols, RUN, out=out), reps=20)
-    plain_ms = time_ms(lambda: merge_stage_plain(cols, RUN), reps=3, warm=1)
+    shapes = [merge_shape("A", cols, RUN)]
+    del cols
+    torch.cuda.empty_cache()
+
+    # leg B: one partition's compacted output, rows [0, total) received
+    nb, total = N_B, TOTAL_B
+    part = rand_words((w, nb), seed=8)
+    part[:, total:] = 0
+    got = merge_sort_cols(part, run=RUN, n_valid=total)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, merge_sort_cols_plain(part, total)))
+    del got
+    rows = -(-total // RUN) * RUN
+    keep = torch.arange(rows, device="cuda") < total
+    pcols = chunk_sort_cols(torch.where(keep[None, :], part[:, :rows], -1),
+                            RUN)
+    err = max(err, check_stage(pcols, RUN))
+    shapes.append(merge_shape("B prefix", pcols, RUN))
+    del pcols
+    mask = torch.arange(nb, device="cuda") < total
+    sort_prefix_ms = time_ms(
+        lambda: merge_sort_cols(part, run=RUN, n_valid=total), reps=5)
+    sort_masked_ms = time_ms(
+        lambda: merge_sort_cols(part, mask, run=RUN), reps=5)
+    full = chunk_sort_cols(torch.where(mask[None, :], part, -1), RUN)
+    shapes.append(merge_shape("B padded (mask path)", full, RUN))
+    del full, part
+    shapes.append(merge_shape("random 2^22", chunk_sort_cols(
+        rand_words((w, nb), seed=9), RUN), RUN))
+    ones = torch.full((w, nb), -1, dtype=torch.int32, device="cuda")
+    err = max(err, check_stage(ones, RUN))
+    shapes.append(merge_shape("all-ones 2^22", ones, RUN))
+    del ones
+    torch.cuda.empty_cache()
+    if err:
+        fail(f"merge_stage disagrees with its plain version: {err}")
     line = {"phase": "merge_stage", "w": w, "n": n, "runs_checked":
-            [RUN, 1 << 20, 1 << 23], "max_abs_err": err, "kernel_ms": ms,
-            "bound_ms": 2 * w * n * 4 / MEM_RATE * 1e3,
-            "plain_ms": plain_ms, "library_ms": None,
-            "run_formation_ms": form_ms}
+            [RUN, 1 << 20, 1 << 23], "max_abs_err": err,
+            "kernel_ms": shapes[0]["kernel_ms"],
+            "bound_ms": shapes[0]["bound_ms"],
+            "plain_ms": shapes[0]["plain_ms"], "library_ms": None,
+            "run_formation_ms": form_ms,
+            "leg_b_total": total, "sort_prefix_ms": sort_prefix_ms,
+            "sort_masked_ms": sort_masked_ms}
     report(line)
     return line
 
@@ -169,9 +249,11 @@ def a2a_phase() -> dict:
 def counters():
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
                                                    ring_exchange)
-    from sparkrdma_tpu_torch.kernels.merge_sort import merge_stage
+    from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
+                                                        merge_stage)
 
-    return {"merge_stage": merge_stage, "ring_exchange": ring_exchange,
+    return {"merge_stage": merge_stage, "merge_splits": merge_splits,
+            "ring_exchange": ring_exchange,
             "ring_all_to_all": ring_all_to_all}
 
 
@@ -257,7 +339,9 @@ def profile_read(partitions: int) -> dict:
     line = {"profile": "leg B read", "read_ms": read_ms,
             "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / read_ms),
-            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:10]]}
+            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:10]],
+            "merge_kernels": [[k[:60], us / 1e3, c] for us, k, c in rows
+                              if "merge_s" in k]}
     report(line)
     return line
 
@@ -304,7 +388,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, name in (("merge_stage", "A"), ("merge_stage", "B"),
                     ("ring_exchange", "B"), ("merge_stage", "C"),
-                    ("ring_all_to_all", "C")):
+                    ("ring_all_to_all", "C"), ("merge_splits", "A"),
+                    ("merge_splits", "B"), ("merge_splits", "C")):
         if legs[name]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg {name}")
     profile_read(8)
@@ -317,6 +402,7 @@ def main() -> int:
          "source": "sparkrdma_tpu_torch/csrc/merge_path.cu",
          "replaces": "sparkrdma_tpu/kernels/merge_sort.py:309",
          "launches": launches("merge_stage"),
+         "split_launches": launches("merge_splits"),
          "max_abs_err": merge["max_abs_err"], "ms": merge["kernel_ms"],
          "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
          "bound_by": "bytes", "library_ms": None},

@@ -32,8 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "merge_path": {
-        "sr_merge_stage": ([_P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
-        "sr_merge_stage_smem": ([_I, _I], _L),
+        "sr_merge_splits": ([_P, _P, _I, _L, _L, _L, _I, _P], _I),
+        "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
     },
     "ring_exchange": {
         "sr_ring_exchange": ([_P, _P, _I, _I, _L, _P], _I),

@@ -199,11 +199,14 @@ class ShuffleExchange:
         may come out in another (equally valid) order."""
         if not sort_key_words:
             return out, total
-        valid = None if tight_out else (
-            torch.arange(out_capacity, device=out.device) < total)
         if self._uses_fast_sort(out_capacity, sort_key_words):
-            out = merge_sort_cols(out, valid, run=self.conf.fast_sort_run)
+            # the valid rows are the received prefix: sort only that
+            out = merge_sort_cols(
+                out, run=self.conf.fast_sort_run,
+                n_valid=None if tight_out else min(total, out_capacity))
         else:
+            valid = None if tight_out else (
+                torch.arange(out_capacity, device=out.device) < total)
             out = lexsort_cols(out, sort_key_words, valid)
         return out, total
 

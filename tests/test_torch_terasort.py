@@ -82,6 +82,41 @@ def test_read_matches_reference(rng, d, transport, per):
     m.stop()
 
 
+def test_read_prefix_sort_matches_reference(rng, monkeypatch):
+    """The tail's prefix sort through the SPI: 8 partitions of ~300
+    records in a padded 512-record ``out_capacity``, so each partition
+    sorts ceil(total / 128) runs (ragged stages, an odd run count) and
+    zeroes the rest; bit-exact against the reference's masked sort."""
+    from sparkrdma_tpu_torch.exchange import protocol
+    from sparkrdma_tpu_torch.kernels import merge_sort
+
+    seen = []
+
+    def spy(cols, valid=None, run=1 << 15, n_valid=None):
+        seen.append((cols.shape[1], valid, n_valid))
+        return merge_sort.merge_sort_cols(cols, valid, run, n_valid)
+
+    monkeypatch.setattr(protocol, "merge_sort_cols", spy)
+    d, per = 8, 300
+    x = rng.integers(0, 2**32, size=(d * per, 4), dtype=np.uint32)
+    spl, plan_r, out_r, tot_r = _reference(x, d, "pallas_ring")
+    conf = ShuffleConf(transport="pallas_ring", **KNOBS)
+    m = ShuffleManager(MeshRuntime(conf, num_partitions=d, device="cpu"))
+    recs = m.runtime.shard_records(x)
+    h = m.register_shuffle(1, d, range_partitioner(splitters_from_numpy(spl),
+                                                   conf.key_words))
+    plan = m.get_writer(h).write(recs).stop()
+    assert plan.out_capacity == plan_r.out_capacity == 512
+    out, totals = m.get_reader(h, key_ordering=True).read()
+    np.testing.assert_array_equal(totals.numpy(), tot_r)
+    np.testing.assert_array_equal(records_from_torch(out), out_r)
+    assert len(seen) == d
+    for (cap, valid, n_valid), total in zip(seen, tot_r):
+        assert (cap, valid, n_valid) == (512, None, int(total))
+    assert any(-(-int(t) // 128) % 2 for t in tot_r)    # odd run counts
+    m.stop()
+
+
 @pytest.mark.parametrize("d,transport,fused,per", [
     (8, "xla", True, 300), (8, "pallas_ring", True, 300),
     (8, "pallas_ring", False, 300), (1, "xla", True, 2048)])
