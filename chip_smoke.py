@@ -15,6 +15,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    exchange's tail sorts it), on the padded rows that prefix used to
    sort, and on all-ones records; one ``merge_shape`` line each gives
    ``kernel_ms``, ``bound_ms`` by the rows merged and the share;
+   The ring exchange is also checked and timed at leg E's width (W=3),
+   and a ``combine`` phase times the float segmented scan (the mirrored
+   reference tree) against the uint32 closed forms at leg D's shape;
 2. TeraSort legs at the full width of the benchmark configuration
    (100-byte records, W = 25, 16,777,216 records):
      A  one partition, the single-partition branch (merge-path tail);
@@ -23,7 +26,21 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    each with its launch counts zeroed just before and read just after,
    its device-side verification, and a 2^20-record run that passes the
    host-side permutation check;
-3. one ``{"kernels": [...]}`` line and, last, the device line.
+3. the aggregation path:
+     D        ``reduce_by_key`` at ``bench.py``'s combine leg: 16,777,216
+              Zipf-keyed 16-byte records, 8 stacked partitions, map-side
+              combine on, fused ring; checked on the host against numpy;
+     D-small  2^20 records of the same mix through the same entry
+              points on the card and on the CPU, bit-identical, and
+              equal to numpy: uint32 sum/min/max, a float32 sum, a
+              filter + projection read, ranged reads (aggregated, and
+              key-ordered through the merge-path kernel), and a read
+              over the per-round all-to-all;
+     E        PageRank, 5 iterations over a Graph500 Kronecker graph at
+              SCALE 22, edgefactor 16 (67,108,864 edges), made on the card
+              from a seed, checked against a float64 numpy PageRank;
+   with a ``torch.profiler`` table of one leg-D read;
+4. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -38,15 +55,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 MEM_RATE = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 RECORDS = 1 << 24           # bench.py's 1-chip geometry, 1.68 GB at W=25
 KEY_WORDS, VAL_WORDS = 2, 23
 RUN = 1 << 15               # fast_sort_run
-SLOT_B = 1 << 21            # slot_records of legs B and C
+SLOT_B = 1 << 21            # slot_records of legs B, C, D and E
 N_B = 1 << 22               # leg B's per-partition out_capacity
 TOTAL_B = (1 << 21) + 12345  # a ragged received prefix inside it
+PARTS = 8                   # stacked partitions of legs B to E
+D_VAL_WORDS = 2             # leg D: bench.py's combine leg, 16-byte records
+D_SMALL = 1 << 20           # leg D-small: card against CPU
+E_SCALE, E_EDGEFACTOR = 22, 16   # leg E: Graph500 Kronecker graph
 
 
 def fail(msg: str) -> None:
@@ -246,15 +268,372 @@ def a2a_phase() -> dict:
     return line
 
 
-def counters():
+def ring_w3_phase() -> dict:
+    """The fused exchange at leg E's shape: W = 3, C = 2^21."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_exchange,
+                                                   ring_exchange_plain)
+
+    send = rand_words((PARTS, 1, PARTS, 1, 3, SLOT_B + 1), seed=10)
+    got = ring_exchange(send)
+    err = max_abs_err(got, ring_exchange_plain(send))
+    if err:
+        fail(f"ring_exchange disagrees with its plain version at W=3: {err}")
+    ms = time_ms(lambda: ring_exchange(send, out=got), reps=20)
+    plain_ms = time_ms(lambda: ring_exchange_plain(send), reps=5)
+    library_ms = time_ms(
+        lambda: send.permute(2, 1, 0, 3, 4, 5).contiguous(), reps=5)
+    line = {"phase": "ring_exchange", "leg": "E", "shape": list(send.shape),
+            "max_abs_err": err, "kernel_ms": ms,
+            "bound_ms": 2 * send.numel() * 4 / MEM_RATE * 1e3,
+            "plain_ms": plain_ms, "library_ms": library_ms}
+    report(line)
+    return line
+
+
+def zipf_rows(total: int, per_part: int, seed: int = 7) -> np.ndarray:
+    """``bench.py``'s combine-leg records: Zipf(1.1) keys folded into
+    ``per_part // 4`` ids in word 1, word 2 uniform in [0, 1000), words
+    0 and 3 zero."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((total, 2 + D_VAL_WORDS), np.uint32)
+    rows[:, 1] = rng.zipf(1.1, size=total) % max(per_part // 4, 1)
+    rows[:, 2] = rng.integers(0, 1000, size=total, dtype=np.uint32)
+    return rows
+
+
+def as_float_payload(rows: np.ndarray) -> np.ndarray:
+    """The same records with word 2 the float32 bits of ``value / 8``."""
+    out = rows.copy()
+    out[:, 2] = (rows[:, 2].astype(np.float32) / 8).view(np.uint32)
+    return out
+
+
+def combine_phase() -> dict:
+    """One stacked partition's reduce-side combine at leg D's shape: 2^22
+    columns, the first 2^21 of them Zipf records. Each form is held
+    bit-exact against the same call on the CPU; then the scan alone:
+    the mirrored float tree against the uint32 cumsum on the same
+    sorted rows (and the tree on uint32 words against the cumsum)."""
+    from sparkrdma_tpu_torch.kernels import aggregate as agg
+    from sparkrdma_tpu_torch.kernels.sort import lexsort_cols
+
+    n, m = N_B, N_B // 2
+    rows = np.zeros((n, 4), np.uint32)
+    rows[:m] = zipf_rows(m, m)
+    cols = {}
+    for name, r in (("u32", rows), ("f32", as_float_payload(rows))):
+        cols[name] = torch.from_numpy(
+            np.ascontiguousarray(r.T).view(np.int32)).cuda()
+    valid = torch.arange(n, device="cuda") < m
+    line = {"phase": "combine", "columns": n, "valid": m}
+    err = 0
+    for name, c, op, fl in (("u32_sum", cols["u32"], "sum", False),
+                            ("u32_min", cols["u32"], "min", False),
+                            ("f32_sum", cols["f32"], "sum", True)):
+        got, unique = agg.combine_by_key_cols(c, valid, 2, op, fl)
+        want, w_unique = agg.combine_by_key_cols(c.cpu(), valid.cpu(), 2,
+                                                 op, fl)
+        err = max(err, max_abs_err(got.cpu(), want), abs(unique - w_unique))
+        line[name + "_ms"] = time_ms(
+            lambda: agg.combine_by_key_cols(c, valid, 2, op, fl), reps=5)
+        line["unique"] = unique
+    srt = {k: lexsort_cols(c, 2, valid)[:, :m] for k, c in cols.items()}
+    head, ends = agg._run_bounds(srt["u32"][:2])
+    pay_u, pay_f = srt["u32"][2:], srt["f32"][2:].view(torch.float32)
+    closed = agg._run_sums(pay_u, head, ends)
+    err = max(err, max_abs_err(
+        agg._segmented_scan(pay_u, head, "sum")[:, ends], closed))
+    line.update(
+        max_abs_err=err,
+        scan_f32_tree_ms=time_ms(
+            lambda: agg._segmented_scan(pay_f, head, "sum"), reps=5),
+        scan_u32_tree_ms=time_ms(
+            lambda: agg._segmented_scan(pay_u, head, "sum"), reps=5),
+        sum_u32_closed_ms=time_ms(
+            lambda: agg._run_sums(pay_u, head, ends), reps=5),
+        sort_ms=time_ms(lambda: lexsort_cols(cols["u32"], 2, valid),
+                        reps=5))
+    report(line)
+    if err:
+        fail(f"combine_by_key_cols: card and CPU disagree: {err}")
+    return line
+
+
+def hash_pids(w0: np.ndarray, w1: np.ndarray, parts: int) -> np.ndarray:
+    """numpy copy of ``hash_partitioner(parts, 2)``."""
+    h = np.zeros(w0.shape, np.uint64)
+    for w in (w0, w1):
+        h = ((h ^ w.astype(np.uint64)) * np.uint64(2654435761)) \
+            & np.uint64(0xFFFFFFFF)
+    return ((h ^ (h >> np.uint64(16))) % np.uint64(parts)).astype(np.int64)
+
+
+def reduce_expect(rows: np.ndarray, op: str, floating: bool = False):
+    """Unique keys (word 1; word 0 is zero) and word 2 reduced by ``op``:
+    uint32 sums mod 2^32 (float64 ``bincount``, exact below 2^53),
+    float sums in float64."""
+    uniq, inv = np.unique(rows[:, 1], return_inverse=True)
+    vals = rows[:, 2].view(np.float32) if floating else rows[:, 2]
+    if op == "sum":
+        red = np.bincount(inv, weights=vals, minlength=len(uniq))
+        return uniq, red if floating else (
+            red.astype(np.uint64) % (1 << 32)).astype(np.uint32)
+    red = np.full(len(uniq), 0 if op == "max" else 0xFFFFFFFF, np.uint32)
+    (np.maximum if op == "max" else np.minimum).at(red, inv, vals)
+    return uniq, red
+
+
+def check_reduce(out, totals, uniq, red, lo: int = 0, hi: int = PARTS,
+                 floating: bool = False) -> bool:
+    """Partition ``d`` holds exactly the keys hashing to it (if ``lo <= d
+    < hi``), ascending, with the expected reductions in word 2."""
+    from sparkrdma_tpu_torch.interop import records_from_torch
+
+    host = records_from_torch(out)
+    tot = totals.cpu().numpy()
+    oc = host.shape[1] // PARTS
+    pid = hash_pids(np.zeros_like(uniq), uniq, PARTS)
+    for d in range(PARTS):
+        sel = (pid == d) & (lo <= d < hi)
+        seg = host[:, d * oc:d * oc + int(tot[d])]
+        if tot[d] != sel.sum() or seg[0].any() or seg[3].any() or \
+                not np.array_equal(seg[1], uniq[sel]):
+            return False
+        if floating:
+            if not np.allclose(seg[2].view(np.float32), red[sel],
+                               rtol=1e-5):
+                return False
+        elif not np.array_equal(seg[2], red[sel]):
+            return False
+    return True
+
+
+def check_sorted(out, totals, rows: np.ndarray, lo: int, hi: int) -> bool:
+    """Partitions ``[lo, hi)`` hold their records in full-record order,
+    the others nothing."""
+    from sparkrdma_tpu_torch.interop import records_from_torch
+
+    host = records_from_torch(out)
+    tot = totals.cpu().numpy()
+    oc = host.shape[1] // PARTS
+    pid = hash_pids(rows[:, 0], rows[:, 1], PARTS)
+    for d in range(PARTS):
+        want = rows[pid == d] if lo <= d < hi else rows[:0]
+        want = want[np.lexsort(tuple(want[:, c] for c in range(3, -1, -1)))]
+        if not np.array_equal(host[:, d * oc:d * oc + int(tot[d])].T, want):
+            return False
+    return True
+
+
+def reduce_manager(device: str, **kw):
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    conf = ShuffleConf(slot_records=SLOT_B, transport="pallas_ring",
+                       val_words=D_VAL_WORDS, map_side_combine="on", **kw)
+    return ShuffleManager(MeshRuntime(conf, num_partitions=PARTS,
+                                      device=device))
+
+
+def write(manager, shuffle_id: int, rows: np.ndarray):
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+
+    h = manager.register_shuffle(shuffle_id, PARTS,
+                                 hash_partitioner(PARTS, 2))
+    plan = manager.get_writer(h).write(
+        manager.runtime.shard_records(rows)).stop()
+    return h, plan
+
+
+def leg_d():
+    """``reduce_by_key`` at ``bench.py``'s combine leg, 16,777,216
+    records: 1 warm-up read and 3 timed reads, checked against numpy."""
+    kernels = zeroed_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = zipf_rows(RECORDS, RECORDS // PARTS)
+    m = reduce_manager("cuda")
+    h, plan = write(m, 70, rows)
+    reader = m.get_reader(h, aggregator="sum")
+    reader.read(record_stats=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        reader.read(record_stats=False)
+    out, totals = reader.read()
+    read_s = (time.perf_counter() - t1) / 3
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.items()}
+    ws = m._exchange.wire_stats()
+    uniq, red = reduce_expect(rows, "sum")
+    verified = check_reduce(out, totals, uniq, red)
+    line = {"leg": "D", "records": RECORDS, "record_bytes": rows.shape[1] * 4,
+            "partitions": PARTS, "transport": "pallas_ring",
+            "ring_fused": True, "aggregator": "sum", "map_side_combine": "on",
+            "gbps": RECORDS * rows.shape[1] * 4 / read_s / 1e9,
+            "read_s": read_s, "wall_s": wall, "capacity": plan.capacity,
+            "rounds": plan.num_rounds, "out_capacity": plan.out_capacity,
+            "unique_keys": int(totals.sum()),
+            "combine_wire_reduction_ratio":
+                ws["combine_in_bytes"] / ws["combine_out_bytes"],
+            "combine_dup_ratio": ws["combine_dup_ratio"], "wire": ws,
+            "verified": verified, "check": "host (numpy)",
+            "launches": launches}
+    report(line)
+    if not verified:
+        fail("leg D disagrees with numpy")
+    del out, totals
+    profile("leg D read", reader.read, "profiles/torch_legD.txt")
+    m.stop()
+    return line
+
+
+def leg_d_small():
+    """2^20 records of leg D's mix through the same entry points on the
+    card and on the CPU: every read bit-identical between the two, and
+    equal to numpy."""
+    from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+
+    rows = zipf_rows(D_SMALL, D_SMALL // PARTS)
+    rows_f = as_float_payload(rows)
+
+    def key_filter(r):
+        return as_unsigned(r[1]) % 3 != 0
+
+    reads = [("sum", 1, dict(aggregator="sum")),
+             ("min", 1, dict(aggregator="min")),
+             ("max", 1, dict(aggregator="max")),
+             ("f32_sum", 2, dict(aggregator="sum", float_payload=True)),
+             ("filter+project sum", 1, dict(aggregator="sum",
+                                            row_filter=key_filter,
+                                            keep_words=(0, 1, 2))),
+             ("range [2,5) sum", 1, dict(start_partition=2, end_partition=5,
+                                         aggregator="sum")),
+             ("range [2,5) key_ordering", 1, dict(
+                 start_partition=2, end_partition=5, key_ordering=True))]
+
+    def run(device, **kw):
+        m = reduce_manager(device, fast_sort=True, fast_sort_run=RUN, **kw)
+        hs = {1: write(m, 1, rows)[0], 2: write(m, 2, rows_f)[0]}
+        res = {}
+        for name, sid, rkw in reads:
+            out, totals = m.get_reader(hs[sid], **rkw).read()
+            res[name] = (out.cpu(), totals.cpu())
+        return m, res, hs
+
+    kernels = zeroed_counters()
+    m, card, hs = run("cuda")
+    unfused = reduce_manager("cuda", ring_fused=False)
+    u_out, u_tot = unfused.get_reader(write(unfused, 1, rows)[0],
+                                      aggregator="sum").read()
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    out_cap = m._writers[1].plan.out_capacity
+    m.stop()
+    unfused.stop()
+    _, cpu, _ = run("cpu")
+    same = {name: bool(torch.equal(card[name][0], cpu[name][0])
+                       and torch.equal(card[name][1], cpu[name][1]))
+            for name, _, _ in reads}
+    kept = rows[rows[:, 1] % 3 != 0]
+    numpy_ok = {
+        "sum": check_reduce(*card["sum"], *reduce_expect(rows, "sum")),
+        "min": check_reduce(*card["min"], *reduce_expect(rows, "min")),
+        "max": check_reduce(*card["max"], *reduce_expect(rows, "max")),
+        "f32_sum": check_reduce(*card["f32_sum"],
+                                *reduce_expect(rows_f, "sum", True),
+                                floating=True),
+        "filter+project sum": check_reduce(*card["filter+project sum"],
+                                           *reduce_expect(kept, "sum")),
+        "range [2,5) sum": check_reduce(*card["range [2,5) sum"],
+                                        *reduce_expect(rows, "sum"), 2, 5),
+        "range [2,5) key_ordering": check_sorted(
+            *card["range [2,5) key_ordering"], rows, 2, 5)}
+    unfused_same = bool(torch.equal(u_out.cpu(), card["sum"][0])
+                        and torch.equal(u_tot.cpu(), card["sum"][1]))
+    line = {"leg": "D-small", "records": len(rows), "partitions": PARTS,
+            "out_capacity": out_cap, "reads": [r[0] for r in reads],
+            "card_equals_cpu": same, "equals_numpy": numpy_ok,
+            "ring_fused_false_equals_fused": unfused_same,
+            "launches": launches}
+    report(line)
+    if not (all(same.values()) and all(numpy_ok.values()) and unfused_same):
+        fail("leg D-small: the card, the CPU and numpy disagree")
+    return line
+
+
+def kronecker_edges(scale: int, edgefactor: int, seed: int) -> np.ndarray:
+    """A Graph500 Kronecker (R-MAT) edge list ``int64[M, 2]`` made on the
+    card: initiator A = 0.57, B = C = 0.19, D = 0.05, SCALE bit levels,
+    then a seeded vertex permutation and edge shuffle, as the Graph500
+    specification's generator does; self-loops and duplicates kept."""
+    n, m = 1 << scale, edgefactor << scale
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, b, c = 0.57, 0.19, 0.19
+    ab, c_norm, a_norm = a + b, c / (1 - (a + b)), a / (a + b)
+    ij = torch.zeros((2, m), dtype=torch.int64, device="cuda")
+    for bit in range(scale):
+        ii = torch.rand(m, generator=gen, device="cuda") > ab
+        jj = torch.rand(m, generator=gen, device="cuda") > torch.where(
+            ii, c_norm, a_norm)
+        ij[0] |= ii.to(torch.int64) << bit
+        ij[1] |= jj.to(torch.int64) << bit
+    ij = torch.randperm(n, generator=gen, device="cuda")[ij]
+    ij = ij[:, torch.randperm(m, generator=gen, device="cuda")]
+    return ij.T.contiguous().cpu().numpy()
+
+
+def leg_e():
+    """PageRank, 5 iterations, through ``run_pagerank`` on the card."""
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.workloads.pagerank import run_pagerank
+
+    t0 = time.perf_counter()
+    edges = kronecker_edges(E_SCALE, E_EDGEFACTOR, seed=22)
+    gen_s = time.perf_counter() - t0
+    conf = ShuffleConf(key_words=2, val_words=1, transport="pallas_ring",
+                       slot_records=SLOT_B, map_side_combine="auto")
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_pagerank(MeshRuntime(conf, num_partitions=PARTS,
+                                   device="cuda"),
+                       edges, 1 << E_SCALE, iterations=5)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    plan = res.plan
+    line = {"leg": "E", "workload": "pagerank",
+            "graph": f"Graph500 Kronecker SCALE {E_SCALE} edgefactor "
+                     f"{E_EDGEFACTOR}, A=0.57 B=C=0.19, seed 22",
+            "vertices": res.num_vertices, "edges": res.num_edges,
+            "partitions": PARTS, "iterations": res.iterations,
+            "per_iter_s": res.per_iter_s,
+            "edges_per_s": res.num_edges / res.per_iter_s,
+            "graph_gen_s": gen_s, "wall_s": time.perf_counter() - t0,
+            "combine_on": "combine_in_records" in res.wire,
+            "wire_last_iteration": res.wire, "capacity": plan.capacity,
+            "rounds": plan.num_rounds, "out_capacity": plan.out_capacity,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "verified": res.verified, "check": "numpy float64 PageRank, "
+            "rtol 1e-4 atol 1e-7", "launches": launches}
+    report(line)
+    if not res.verified:
+        fail("leg E: PageRank disagrees with numpy")
+    return line
+
+
+def zeroed_counters():
+    """The kernel wrappers, each launch count set to 0."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
                                                    ring_exchange)
     from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
                                                         merge_stage)
 
-    return {"merge_stage": merge_stage, "merge_splits": merge_splits,
-            "ring_exchange": ring_exchange,
-            "ring_all_to_all": ring_all_to_all}
+    kernels = {"merge_stage": merge_stage, "merge_splits": merge_splits,
+               "ring_exchange": ring_exchange,
+               "ring_all_to_all": ring_all_to_all}
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
 
 
 def leg(name: str, partitions: int, records: int, transport: str,
@@ -272,9 +651,7 @@ def leg(name: str, partitions: int, records: int, transport: str,
         pack_sort_min_payload=0, wide_sort_min_payload=0)
     manager = ShuffleManager(MeshRuntime(conf, num_partitions=partitions,
                                          device="cuda"))
-    kernels = counters()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = zeroed_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, out, totals = run_terasort(
@@ -299,11 +676,37 @@ def leg(name: str, partitions: int, records: int, transport: str,
     return line, out, totals
 
 
-def profile_read(partitions: int) -> dict:
-    """Device time by kernel for one leg-B read under torch.profiler."""
+def profile(label: str, read, path: str) -> dict:
+    """Device time by kernel of one ``read()`` under torch.profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    read()
+    read_ms = time_ms(read, reps=3, warm=0)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        read()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    os.makedirs("profiles", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    line = {"profile": label, "read_ms": read_ms,
+            "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / read_ms),
+            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:10]],
+            "merge_kernels": [[k[:60], us / 1e3, c] for us, k, c in rows
+                              if "merge_s" in k]}
+    report(line)
+    return line
+
+
+def profile_read(partitions: int) -> dict:
+    """Device time by kernel for one leg-B read."""
     from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
@@ -321,29 +724,8 @@ def profile_read(partitions: int) -> dict:
         recs), partitions)
     h = m.register_shuffle(9, partitions, range_partitioner(spl))
     m.get_writer(h).write(recs).stop()
-    reader = m.get_reader(h, key_ordering=True)
-    reader.read()
-    read_ms = time_ms(reader.read, reps=3, warm=0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        reader.read()
-        torch.cuda.synchronize()
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    os.makedirs("profiles", exist_ok=True)
-    with open("profiles/torch_legB.txt", "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=40))
-    line = {"profile": "leg B read", "read_ms": read_ms,
-            "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1 - busy_ms / read_ms),
-            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:10]],
-            "merge_kernels": [[k[:60], us / 1e3, c] for us, k, c in rows
-                              if "merge_s" in k]}
-    report(line)
-    return line
+    return profile("leg B read", m.get_reader(h, key_ordering=True).read,
+                   "profiles/torch_legB.txt")
 
 
 def main() -> int:
@@ -364,7 +746,9 @@ def main() -> int:
 
     merge = merge_phase()
     ring = ring_phase()
+    ring_w3 = ring_w3_phase()
     a2a = a2a_phase()
+    combine_phase()
     torch.cuda.empty_cache()
 
     legs = {}
@@ -392,7 +776,20 @@ def main() -> int:
                     ("merge_splits", "B"), ("merge_splits", "C")):
         if legs[name]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg {name}")
-    profile_read(8)
+    profile_read(PARTS)
+    torch.cuda.empty_cache()
+
+    legs["D"] = leg_d()
+    torch.cuda.empty_cache()
+    legs["D-small"] = leg_d_small()
+    torch.cuda.empty_cache()
+    legs["E"] = leg_e()
+    for k, name in (("ring_exchange", "D"), ("ring_exchange", "E"),
+                    ("ring_exchange", "D-small"),
+                    ("ring_all_to_all", "D-small"),
+                    ("merge_stage", "D-small")):
+        if legs[name]["launches"][k] <= 0:
+            fail(f"{k} was not launched on leg {name}")
 
     def launches(k):
         return sum(legs[n]["launches"][k] for n in legs)
@@ -412,7 +809,10 @@ def main() -> int:
          "launches": launches("ring_exchange"),
          "max_abs_err": ring["max_abs_err"], "ms": ring["kernel_ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
-         "bound_by": "bytes", "library_ms": ring["library_ms"]},
+         "bound_by": "bytes", "library_ms": ring["library_ms"],
+         "w3": {k: ring_w3[k] for k in ("shape", "max_abs_err", "kernel_ms",
+                                        "plain_ms", "bound_ms",
+                                        "library_ms")}},
         {"name": "ring_all_to_all", "route": "cuda",
          "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "sparkrdma_tpu/exchange/ring.py:87",

@@ -8,23 +8,32 @@ The same five-method workflow as ``sparkrdma_tpu.api.shuffle_manager``:
     out, totals = manager.get_reader(handle, key_ordering=True).read()
     manager.unregister_shuffle(0); manager.stop()
 
-One writer/reader pair drives every stacked partition at once. Only
-full-range reads are ported: partition-range views, combine/aggregate,
-pushdown, checkpointing and the observability stack wait for later
-slices and raise where asked for.
+One writer/reader pair drives every stacked partition at once. A reader
+may aggregate (``aggregator``, with the map-side combine gate), push a
+predicate and a projection into the exchange (``row_filter``,
+``keep_words``, full range only), or read a range of partitions. A
+full-range read fuses its sort or aggregation into the exchange's tail;
+a ranged read keeps its partitions' rows first, then aggregates or
+sorts them, as in the reference. Checkpointing, ``read_partition`` and
+the observability stack wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
+from sparkrdma_tpu_torch.kernels.aggregate import OPS
+from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
+from sparkrdma_tpu_torch.utils.stats import barrier
+
+_SENTINEL = 0xFFFFFFFF      # rank of a dropped segment (sorts last)
 
 
 @dataclasses.dataclass
@@ -34,6 +43,25 @@ class ShuffleHandle:
     shuffle_id: int
     num_parts: int
     partitioner: Callable
+
+
+def _partition_windows(plan: ShufflePlan, mesh: int, num_parts: int,
+                       partition: int) -> List[Tuple[int, int, int]]:
+    """Where original partition ``partition`` lies in the raw exchange
+    output: ``(stacked partition, start, length)`` windows, one per
+    sub-partition of a skew-split plan (``p + num_parts * j``, all on
+    the same stacked partition as ``p``). A stacked partition's output
+    is its local (sub-)partitions in ascending global id, each a
+    contiguous segment of ``sum(counts[:, sp])`` records."""
+    d = partition % mesh
+    owned = plan.counts.sum(axis=0)
+    windows = []
+    for j in range(plan.split_factor):
+        sp = partition + num_parts * j
+        q = sp // mesh
+        start = sum(int(owned[qq * mesh + d]) for qq in range(q))
+        windows.append((d, start, int(owned[sp])))
+    return windows
 
 
 class ShuffleWriter:
@@ -74,33 +102,93 @@ class ShuffleWriter:
 
 
 class ShuffleReader:
-    """Reduce side: run the exchange, optionally key-sort."""
+    """Reduce side: run the exchange; optionally aggregate or key-sort."""
 
     def __init__(self, manager: "ShuffleManager", handle: ShuffleHandle,
                  start_partition: int = 0,
                  end_partition: Optional[int] = None,
-                 key_ordering: bool = False):
-        end = handle.num_parts if end_partition is None else end_partition
-        if (start_partition, end) != (0, handle.num_parts):
-            raise NotImplementedError(
-                "partition-range reads are not ported yet")
+                 key_ordering: bool = False,
+                 aggregator: Optional[str] = None,
+                 float_payload: bool = False,
+                 row_filter: Optional[Callable] = None,
+                 keep_words: Optional[Tuple[int, ...]] = None,
+                 combine_hint: Optional[Tuple[bool, float]] = None):
         self._m = manager
         self._h = handle
+        self.start_partition = start_partition
+        self.end_partition = (handle.num_parts if end_partition is None
+                              else end_partition)
+        if not 0 <= self.start_partition < self.end_partition <= \
+                handle.num_parts:
+            raise ValueError(
+                f"invalid partition range [{self.start_partition}, "
+                f"{self.end_partition}) for {handle.num_parts} partitions")
+        if aggregator is not None and aggregator not in OPS:
+            raise ValueError(f"unsupported aggregator {aggregator!r}")
+        if float_payload and aggregator is None:
+            raise ValueError("float_payload requires an aggregator")
+        if (row_filter is not None or keep_words is not None) and \
+                not self._full_range:
+            # a ranged read slices the output by the plan's pre-filter
+            # counts, which a pushdown would shrink underneath it
+            raise ValueError(
+                "row_filter/keep_words pushdown requires a full "
+                "partition range (partition-ranged reads slice by the "
+                "plan's pre-filter counts)")
         self.key_ordering = key_ordering
+        self.aggregator = aggregator
+        self.float_payload = float_payload
+        self.row_filter = row_filter
+        self.keep_words = keep_words
+        #: a hoisted combine-gate decision ``(use, dup_ratio)``
+        #: (``ShuffleExchange.plan_combine``), used instead of sampling
+        self.combine_hint = combine_hint
 
-    def read(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(records [W, D*out_capacity], totals int32[D])``: partition
-        ``d``'s columns are its received records, zero-padded past
-        ``totals[d]``; key-sorted when ``key_ordering``."""
-        writer = self._m._writers.get(self._h.shuffle_id)
+    @property
+    def _full_range(self) -> bool:
+        return (self.start_partition, self.end_partition) == \
+            (0, self._h.num_parts)
+
+    def read(self, record_stats: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(records [W, D*out_capacity], totals int32[D])``: stacked
+        partition ``d``'s columns are its received records, zero-padded
+        past ``totals[d]``. A partition range keeps only those
+        partitions' rows. ``aggregator`` turns each partition's rows
+        into its unique keys, ascending, with reduced payloads (``totals``
+        counts them); otherwise ``key_ordering`` sorts them by key.
+        ``record_stats=False`` skips the closing device sync (warm-up and
+        pipelined reads)."""
+        m = self._m
+        writer = m._writers.get(self._h.shuffle_id)
         if writer is None or writer.plan is None:
             raise RuntimeError(f"shuffle {self._h.shuffle_id} has no "
                                "published map output (writer.stop() first)")
-        out, totals, _ = self._m._exchange.exchange(
+        full = self._full_range
+        fuse_agg = (self.aggregator or "") if full else ""
+        out, totals, _ = m._exchange.exchange(
             writer.records, self._h.partitioner, writer.plan,
             self._h.num_parts, shuffle_id=self._h.shuffle_id,
-            sort_key_words=(self._m.conf.key_words if self.key_ordering
-                            else 0))
+            sort_key_words=(m.conf.key_words
+                            if self.key_ordering and full else 0),
+            aggregator=fuse_agg,
+            float_payload=self.float_payload if fuse_agg else False,
+            row_filter=self.row_filter, keep_words=self.keep_words,
+            combine_hint=self.combine_hint if fuse_agg else None)
+        if not full:
+            args = (out, writer.plan, self._h.num_parts,
+                    self.start_partition, self.end_partition)
+            if writer.plan.split_factor > 1:
+                out, totals = m._filtered_split(*args)
+            else:
+                out, totals = m._filtered(*args)
+            if self.aggregator or self.key_ordering:
+                out, totals = m._ranged_tail(
+                    out, totals, writer.plan,
+                    m.conf.key_words if self.key_ordering else 0,
+                    self.aggregator or "", self.float_payload)
+        if record_stats:
+            barrier(out)
         return out, totals
 
 
@@ -134,13 +222,94 @@ class ShuffleManager:
 
     def get_reader(self, handle: ShuffleHandle, start_partition: int = 0,
                    end_partition: Optional[int] = None,
-                   key_ordering: bool = False) -> ShuffleReader:
+                   key_ordering: bool = False,
+                   aggregator: Optional[str] = None,
+                   float_payload: bool = False,
+                   row_filter: Optional[Callable] = None,
+                   keep_words: Optional[Tuple[int, ...]] = None,
+                   combine_hint: Optional[Tuple[bool, float]] = None
+                   ) -> ShuffleReader:
+        """``row_filter``/``keep_words`` push a predicate / projection
+        into the exchange (full partition range only): filtered rows
+        never occupy a slot, projected-away words never move and come
+        back zero. ``combine_hint`` feeds a hoisted combine-gate
+        decision to an aggregator read. See
+        :meth:`ShuffleExchange.exchange`."""
         return ShuffleReader(self, handle, start_partition, end_partition,
-                             key_ordering)
+                             key_ordering, aggregator, float_payload,
+                             row_filter, keep_words, combine_hint)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
         self._handles.pop(shuffle_id, None)
         self._writers.pop(shuffle_id, None)
+
+    # --- ranged reads: per stacked partition, after the exchange -------
+    def _filtered(self, out: torch.Tensor, plan: ShufflePlan,
+                  num_parts: int, start: int, end: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Keep only partitions ``[start, end)``: the kept partitions of
+        a stacked partition are adjacent segments of its output, so they
+        form one window, moved to the front with the rest zeroed."""
+        mesh = self.runtime.num_partitions
+        cap = plan.out_capacity
+        spans: Dict[int, Tuple[int, int]] = {}
+        for p in range(start, end):
+            d, st, ln = _partition_windows(plan, mesh, num_parts, p)[0]
+            first, total = spans.get(d, (st, 0))
+            spans[d] = (first, total + ln)
+        res = torch.zeros_like(out)
+        totals = torch.zeros(mesh, dtype=torch.int32, device=out.device)
+        for d, (first, ln) in spans.items():
+            res[:, d * cap:d * cap + ln] = out[:, d * cap + first:
+                                               d * cap + first + ln]
+            totals[d] = ln
+        return res, totals
+
+    def _filtered_split(self, out: torch.Tensor, plan: ShufflePlan,
+                        num_parts: int, start: int, end: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The partition-range filter of a skew-split plan, whose
+        sub-partition segments of one parent lie apart in the stream.
+        Sub-partition ``j`` of a kept parent ``p`` ranks ``(p - start) *
+        split + j``, every other row the sentinel ``0xFFFFFFFF``, and one
+        stable rank-keyed sort groups the kept rows by parent, as an
+        unsplit read lays them out."""
+        mesh = self.runtime.num_partitions
+        cap = plan.out_capacity
+        k = plan.split_factor
+        rank = torch.full((mesh, cap), _SENTINEL, dtype=torch.int64,
+                          device=out.device)
+        kept = [0] * mesh
+        for p in range(start, end):
+            for j, (d, st, ln) in enumerate(
+                    _partition_windows(plan, mesh, num_parts, p)):
+                rank[d, st:st + ln] = (p - start) * k + j
+                kept[d] += ln
+        mode = self._exchange.sort_mode(out.shape[0])
+        res = torch.zeros_like(out)
+        for d in range(mesh):
+            part = out[:, d * cap:(d + 1) * cap]
+            res[:, d * cap:d * cap + kept[d]] = sort_by_lead_cols(
+                part, rank[d], mode)[:, :kept[d]]
+        return res, torch.tensor(kept, dtype=torch.int32, device=out.device)
+
+    def _ranged_tail(self, out: torch.Tensor, totals: torch.Tensor,
+                     plan: ShufflePlan, sort_key_words: int, aggregator: str,
+                     float_payload: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A ranged read's aggregation or key sort of each stacked
+        partition's kept prefix: the exchange's own tail, which a
+        full-range read runs inside the exchange (so a key sort takes
+        the merge-path kernel where the geometry allows)."""
+        cap = plan.out_capacity
+        res = torch.empty_like(out)
+        new_totals = torch.empty_like(totals)
+        for d, total in enumerate(totals.tolist()):
+            res[:, d * cap:(d + 1) * cap], new_totals[d] = \
+                self._exchange._fuse_tail(out[:, d * cap:(d + 1) * cap],
+                                          total, cap, sort_key_words,
+                                          aggregator, float_payload)
+        return res, new_totals
 
     def stop(self) -> None:
         self._handles.clear()

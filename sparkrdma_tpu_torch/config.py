@@ -1,11 +1,13 @@
 """Shuffle configuration — a trimmed copy of ``sparkrdma_tpu.config``.
 
-Only the knobs the TeraSort slice reads are kept, under the reference's
+Only the knobs the ported paths read are kept (TeraSort, and the
+aggregation path with its map-side combine gate), under the reference's
 names and with its defaults, so a configuration written for one package
 means the same thing to the other. Knobs of paths that are not ported
-yet (streaming, combine, the pack/wide sort modes, the hierarchical
-transport) are refused where they would change what runs, never
-silently ignored.
+yet (streaming, the pack/wide sort modes, the hierarchical transport)
+are refused where they would change what runs, never silently ignored;
+the reference's ``combine_fallback`` rung is not kept at all, because a
+map-side combine that fails raises here.
 """
 
 from __future__ import annotations
@@ -56,6 +58,17 @@ class ShuffleConf:
     wide_sort_min_payload: int = 20
     pack_sort_min_payload: int = 20
 
+    # --- map-side combine (pre-exchange reduction) ---
+    #: map-side combine policy for aggregator shuffles: "auto" (a sampled
+    #: duplicate-ratio estimate gates it per shuffle), "on", "off"
+    map_side_combine: str = "auto"
+    #: leading rows of partition 0 sampled for the "auto" gate's estimate;
+    #: 0 skips sampling and makes "auto" behave as "on"
+    combine_sample_rows: int = 1024
+    #: sampled duplicate ratio (1 - unique/sample) at which "auto" turns
+    #: the map-side combine on
+    combine_min_dup_ratio: float = 0.25
+
     def __post_init__(self):
         if self.slot_records <= 0:
             raise ValueError("slot_records must be positive")
@@ -73,6 +86,15 @@ class ShuffleConf:
         run = self.fast_sort_run
         if run < 128 or run & (run - 1):
             raise ValueError("fast_sort_run must be a power of two >= 128")
+        if self.map_side_combine not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown map_side_combine {self.map_side_combine!r} "
+                "(supported: 'auto', 'on', 'off')")
+        if self.combine_sample_rows < 0:
+            raise ValueError("combine_sample_rows must be >= 0 (0 = "
+                             "no sampling, 'auto' behaves as 'on')")
+        if not 0.0 <= self.combine_min_dup_ratio <= 1.0:
+            raise ValueError("combine_min_dup_ratio must be in [0, 1]")
 
     @property
     def record_words(self) -> int:

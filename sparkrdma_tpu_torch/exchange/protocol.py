@@ -14,23 +14,31 @@ geometry derived from it) and then executed (:meth:`exchange`):
    stacked permute, ``"pallas_ring"`` the hand-written CUDA kernel of
    ``exchange/ring.py`` (all rounds in one launch when ``ring_fused``);
 4. reduce side, per destination partition: compaction of the received
-   round-chunked stream, then the optional key-ordering sort — the
-   merge-path kernel when the geometry allows, as in the reference.
+   round-chunked stream, then the optional tail — combine-by-key for an
+   aggregator read, else the key-ordering sort (the merge-path kernel
+   when the geometry allows, as in the reference).
+
+With an aggregator, a plan-time gate (``conf.map_side_combine``) may
+also combine each source's records by (partition, key) before they are
+bucketed; ``row_filter`` and ``keep_words`` push a predicate and a
+projection into the map side, and :meth:`ShuffleExchange.wire_stats`
+accounts for what they kept off the wire.
 
 Partition ``p`` lives on stacked partition ``p % D`` (round-robin).
 
 Not ported yet, and refused rather than approximated: the streaming
-regime (more rounds than ``max_rounds_in_flight``), combine/aggregate
-and pushdown, the pack/wide sort modes, buffer pooling and donation,
-and the reference's transport degradation ladder — the port never falls
-back from a kernel to something else.
+regime (more rounds than ``max_rounds_in_flight``), the pack/wide sort
+modes and buffer pooling and donation. The reference's degradation
+ladder (transport fallback, the combine-off retry) is deliberately not
+ported: the port never falls back from a kernel or a pass to something
+else.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,14 +46,17 @@ import torch
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class, size_class_fine
 from sparkrdma_tpu_torch.exchange.ring import (make_ring_all_to_all,
                                                make_ring_exchange)
+from sparkrdma_tpu_torch.kernels.aggregate import (OPS, combine_by_key_cols,
+                                                  map_side_combine_cols)
 from sparkrdma_tpu_torch.kernels.bucketing import (bucket_records,
+                                                   bucket_sorted_counts,
                                                    compact_segments,
                                                    fill_round_slots,
                                                    fill_round_slots_dest_major,
                                                    histogram_pids)
 from sparkrdma_tpu_torch.kernels.merge_sort import (merge_sort_cols,
                                                     supports_fast_sort)
-from sparkrdma_tpu_torch.kernels.sort import lexsort_cols
+from sparkrdma_tpu_torch.kernels.sort import lexsort_cols, sort_by_lead_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 
@@ -103,6 +114,8 @@ class ShuffleExchange:
         self.mesh_size = runtime.num_partitions
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
+        self._last_wire = None
+        self._last_wire_stats: Dict[str, float] = {}
 
     def transport(self) -> str:
         return self.conf.transport
@@ -189,14 +202,99 @@ class ShuffleExchange:
             return "wide"
         return "plain"
 
+    # ------------------------------------------------------------------
+    # the map-side combine gate and the wire accounting
+    # ------------------------------------------------------------------
+    def _sampled_dup_ratio(self, records: torch.Tensor) -> float:
+        """Duplicate-key ratio estimate (``1 - unique/sample``) from the
+        first ``conf.combine_sample_rows`` rows of stacked partition 0 —
+        the rows the reference samples from its first addressable shard,
+        so both packages decide alike."""
+        k = self.conf.combine_sample_rows
+        if k <= 0:
+            return 1.0           # sampling disabled: assume duplicates
+        kw = self.conf.key_words
+        sample = self.runtime.partition(records, 0)[:kw, :k].cpu().numpy()
+        n = sample.shape[1]
+        if n == 0:
+            return 0.0
+        uniq = len({tuple(col) for col in sample.T.tolist()})
+        return 1.0 - uniq / n
+
+    def plan_combine(self, records: torch.Tensor,
+                     aggregator: str) -> Tuple[bool, float]:
+        """The gate's decision ``(use, dup_ratio)`` without bumping its
+        counters (a caller hoists it and hands it back as
+        :meth:`exchange`'s ``combine_hint``)."""
+        if not aggregator:
+            return False, 0.0
+        ratio = self._sampled_dup_ratio(records)
+        mode = self.conf.map_side_combine
+        if mode == "off":
+            use = False
+        elif mode == "on":
+            use = True
+        else:
+            use = ratio >= self.conf.combine_min_dup_ratio
+        return use, ratio
+
+    def _note_wire(self, records, incoming, combined: bool, filtered: bool,
+                   keep_words, dup_ratio: float) -> None:
+        """Keep the operands of :meth:`wire_stats`; summing ``incoming``
+        waits for the device, so it is deferred until asked for."""
+        w = records.shape[0]
+        w_eff = len(keep_words) if keep_words is not None else w
+        self._last_wire_stats = {}
+        self._last_wire = (int(records.shape[1]), w, w_eff, incoming,
+                           bool(combined), bool(filtered), float(dup_ratio))
+
+    def wire_stats(self) -> Dict[str, float]:
+        """Combine/pushdown wire accounting of the last :meth:`exchange`,
+        under the reference's keys: ``combine_{in,out}_{records,bytes}``
+        when the map-side combine ran (a filter under it folded in),
+        ``pushdown_rows_dropped`` for a filter without it,
+        ``pushdown_words_dropped`` for a projection, and the gate's
+        ``combine_dup_ratio`` for every aggregator exchange."""
+        if self._last_wire is None:
+            return {}
+        if self._last_wire_stats:
+            return self._last_wire_stats
+        n_in, w, w_eff, incoming, combined, filtered, ratio = \
+            self._last_wire
+        out_rec = n_in
+        if combined or filtered:
+            out_rec = int(incoming.sum())
+        s: Dict[str, float] = {"combine_dup_ratio": ratio}
+        if combined:
+            s.update(combine_in_records=n_in,
+                     combine_out_records=out_rec,
+                     combine_in_bytes=n_in * w * 4,
+                     combine_out_bytes=out_rec * w_eff * 4)
+        elif filtered:
+            s["pushdown_rows_dropped"] = n_in - out_rec
+        if w_eff != w:
+            s["pushdown_words_dropped"] = (w - w_eff) * out_rec
+        self._last_wire_stats = s
+        return s
+
+    # ------------------------------------------------------------------
+    # the map side and the reduce-side tail
+    # ------------------------------------------------------------------
     def _fuse_tail(self, out: torch.Tensor, total: int, out_capacity: int,
-                   sort_key_words: int, tight_out: bool = False
+                   sort_key_words: int, aggregator: str = "",
+                   float_payload: bool = False, tight_out: bool = False
                    ) -> Tuple[torch.Tensor, int]:
-        """Optional key-ordering sort of one partition's output.
+        """The optional reduce-side stage of one partition's output:
+        combine-by-key for an aggregator (its output is key-sorted),
+        else the key-ordering sort.
 
         Outside the merge-path geometry the port sorts by the key words
         stably; the reference's default there is unstable, so equal keys
         may come out in another (equally valid) order."""
+        if aggregator:
+            valid = torch.arange(out_capacity, device=out.device) < total
+            return combine_by_key_cols(out, valid, self.conf.key_words,
+                                       aggregator, float_payload)
         if not sort_key_words:
             return out, total
         if self._uses_fast_sort(out_capacity, sort_key_words):
@@ -211,9 +309,32 @@ class ShuffleExchange:
         return out, total
 
     def _map_side(self, records: torch.Tensor, partitioner: Callable,
-                  num_parts: int):
+                  num_parts: int, combine: bool = False, aggregator: str = "",
+                  float_payload: bool = False,
+                  row_filter: Optional[Callable] = None,
+                  keep_words: Optional[Tuple[int, ...]] = None):
+        """Partition ids; the predicate pushdown (dropped rows take the
+        sentinel id ``num_parts`` and never occupy a slot); the
+        projection (only ``keep_words`` go on); then either the map-side
+        combine, whose (partition, key) order already is the bucketing,
+        or the bucketing sort. Returns ``(bucketed, counts, offsets)``
+        with post-filter, post-combine counts."""
         pids = partitioner(records)
-        return bucket_records(records, pids, num_parts)
+        if row_filter is not None:
+            pids = torch.where(row_filter(records), pids, num_parts)
+        recs = records if keep_words is None else records[list(keep_words)]
+        if combine:
+            sr, spids, _ = map_side_combine_cols(
+                recs, pids, num_parts, self.conf.key_words, aggregator,
+                float_payload)
+            counts, offs = bucket_sorted_counts(spids, num_parts)
+            return sr, counts, offs
+        # bucket_records' single-partition shortcut counts the whole
+        # batch: under a filter, bucket over 2 partitions so the sentinel
+        # rows are counted out, and keep the real one
+        np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
+        sr, counts, offs = bucket_records(recs, pids, np_eff)
+        return sr, counts[:num_parts], offs[:num_parts]
 
     # ------------------------------------------------------------------
     # phase 2: execute
@@ -221,7 +342,10 @@ class ShuffleExchange:
     def exchange(self, records: torch.Tensor, partitioner: Callable,
                  plan: ShufflePlan, num_parts: Optional[int] = None,
                  shuffle_id: int = -1, sort_key_words: int = 0,
-                 aggregator: str = ""
+                 aggregator: str = "", float_payload: bool = False,
+                 row_filter: Optional[Callable] = None,
+                 keep_words: Optional[Tuple[int, ...]] = None,
+                 combine_hint: Optional[Tuple[bool, float]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Run the planned exchange.
 
@@ -229,7 +353,18 @@ class ShuffleExchange:
         int32[D, D, ppd])``: partition ``d``'s columns are its compacted
         received records (zero tail), ``totals[d]`` how many are valid,
         and ``incoming[d, s, q]`` the count source ``s`` sent to ``d``'s
-        local partition ``q``."""
+        local partition ``q``.
+
+        ``aggregator`` ("sum"/"min"/"max", payload words as uint32, or
+        float32 with ``float_payload``) combines each partition's
+        records by key: the output rows become its unique keys,
+        ascending, and ``totals`` counts them. The combine gate
+        (``conf.map_side_combine``, or ``combine_hint``) may also combine
+        before the exchange; the output is the same bits either way.
+        ``row_filter`` (``records -> bool[n]`` over full-width records)
+        drops rows before they take a slot; ``keep_words`` (strictly
+        increasing, all key words first) moves only those words, and the
+        dropped ones come back zero."""
         plan_parts = int(plan.counts.shape[1])
         if (num_parts is not None
                 and num_parts * plan.split_factor != plan_parts):
@@ -239,68 +374,134 @@ class ShuffleExchange:
             partitioner = split_partitioner(
                 partitioner, plan_parts // plan.split_factor,
                 plan.split_factor)
-        if aggregator:
-            raise NotImplementedError(
-                "combine/aggregate reads are not ported yet")
+        if aggregator and aggregator not in OPS:
+            raise ValueError(f"unsupported aggregator {aggregator!r}")
+        w = records.shape[0]
+        if keep_words is not None:
+            keep_words = tuple(int(i) for i in keep_words)
+            kw = self.conf.key_words
+            if (len(keep_words) < kw
+                    or keep_words[:kw] != tuple(range(kw))):
+                raise ValueError(
+                    f"keep_words must start with all {kw} key words")
+            if any(b <= a for a, b in zip(keep_words, keep_words[1:])):
+                raise ValueError("keep_words must be strictly increasing")
+            if keep_words[-1] >= w:
+                raise ValueError(
+                    f"keep_words {keep_words} out of range for W={w}")
+            if len(keep_words) == w:
+                keep_words = None    # full width: not a projection
         if plan.num_rounds > self.conf.max_rounds_in_flight:
             raise NotImplementedError(
                 f"plan needs {plan.num_rounds} rounds > "
                 f"max_rounds_in_flight {self.conf.max_rounds_in_flight}: "
                 "the streaming regime is not ported yet")
-        w = records.shape[0]
-        if self.sort_mode(w) != "plain":
+        w_eff = len(keep_words) if keep_words is not None else w
+        if self.sort_mode(w_eff) != "plain":
             raise NotImplementedError(
-                f"sort mode {self.sort_mode(w)!r} is not ported yet; set "
-                "pack_sort_min_payload=0 and wide_sort_min_payload=0")
+                f"sort mode {self.sort_mode(w_eff)!r} is not ported yet; "
+                "set pack_sort_min_payload=0 and wide_sort_min_payload=0")
         if records.dtype != torch.int32:
             raise TypeError(f"records must be int32 word views, got "
                             f"{records.dtype}")
-        self.metrics.counter("exchange.exchanges").inc()
-        self.metrics.counter("exchange.rounds").inc(plan.num_rounds)
+        self._last_wire = None
+        self._last_wire_stats = {}
+        m = self.metrics
+        m.counter("exchange.exchanges").inc()
+        m.counter("exchange.rounds").inc(plan.num_rounds)
+        if row_filter is not None:
+            m.counter("pushdown.filters").inc()
+        if keep_words is not None:
+            m.counter("pushdown.projections").inc()
+        if combine_hint is not None and aggregator:
+            use_combine, dup_ratio = bool(combine_hint[0]), combine_hint[1]
+        else:
+            use_combine, dup_ratio = self.plan_combine(records, aggregator)
+        if aggregator:
+            m.counter("combine.gate_on" if use_combine
+                      else "combine.gate_off").inc()
         owned = plan.counts.sum(axis=0)
         per_dev = np.array([owned[d::self.mesh_size].sum()
                             for d in range(self.mesh_size)])
-        tight = bool((per_dev == plan.out_capacity).all())
-        return self._run(records, partitioner, plan_parts, plan.capacity,
-                         plan.num_rounds, plan.out_capacity,
-                         sort_key_words, tight)
+        # a pre-exchange reduction shrinks totals below the plan's
+        pushed = (use_combine or row_filter is not None
+                  or keep_words is not None)
+        tight = not pushed and bool((per_dev == plan.out_capacity).all())
+        out, totals, incoming = self._run(
+            records, partitioner, plan_parts, plan.capacity,
+            plan.num_rounds, plan.out_capacity, sort_key_words, tight,
+            aggregator, float_payload, use_combine, row_filter, keep_words)
+        self._note_wire(records, incoming, use_combine,
+                        row_filter is not None, keep_words, dup_ratio)
+        return out, totals, incoming
 
     def _run(self, records, partitioner, num_parts, capacity, num_rounds,
-             out_capacity, sort_key_words, tight):
+             out_capacity, sort_key_words, tight, aggregator, float_payload,
+             combine, row_filter, keep_words):
         """The fused regime: the reference's ``local_step``, looped over
         the stacked partitions around one exchange launch."""
         rt = self.runtime
         mesh = self.mesh_size
         ppd = num_parts // mesh
         w = records.shape[0]
+        rows = list(keep_words) if keep_words is not None else slice(None)
+        w_eff = len(keep_words) if keep_words is not None else w
         dev = records.device
         oc = out_capacity
         out = torch.zeros((w, mesh * oc), dtype=torch.int32, device=dev)
         totals = torch.zeros((mesh,), dtype=torch.int32, device=dev)
 
+        def map_side(src):
+            return self._map_side(rt.partition(records, src), partitioner,
+                                  num_parts, combine, aggregator,
+                                  float_payload, row_filter, keep_words)
+
         if num_parts == 1 and num_rounds == 1 and mesh == 1:
             # degenerate exchange (single partition, single source): the
-            # slot/window/compact machinery is the identity, so the tail
-            # runs on the batch directly, as in the reference
+            # slot/window/compact machinery is the identity, so the
+            # pushdown and the tail run on the batch directly, as in the
+            # reference
             n = records.shape[1]
-            part = records if n == oc else torch.cat(
-                [records, records.new_zeros((w, oc - n))], dim=1)
-            part, total = self._fuse_tail(part, n, oc, sort_key_words,
-                                          tight)
-            out.copy_(part)
+            keep = row_filter(records) if row_filter is not None else None
+            part = records[rows]
+            if combine:
+                # map side == reduce side here: one combine pass is the
+                # filter's compaction and the tail at once
+                valid = keep if keep is not None else torch.ones(
+                    n, dtype=torch.bool, device=dev)
+                part, total = combine_by_key_cols(
+                    part, valid, self.conf.key_words, aggregator,
+                    float_payload)
+                wire = total
+            else:
+                total = n
+                if keep is not None:
+                    # stable validity-lead compaction: survivors to the
+                    # front in arrival order, zeroed tail
+                    part = sort_by_lead_cols(part, ~keep, "plain")
+                    total = int(keep.sum())
+                    part[:, total:] = 0
+                wire = total
+            if oc != n:
+                part = torch.cat([part, part.new_zeros((w_eff, oc - n))],
+                                 dim=1)
+            if not combine:
+                part, total = self._fuse_tail(part, total, oc,
+                                              sort_key_words, aggregator,
+                                              float_payload, tight)
+            out[rows] = part
             totals[0] = total
-            incoming = torch.full((1, 1, 1), n, dtype=torch.int32,
+            incoming = torch.full((1, 1, 1), wire, dtype=torch.int32,
                                   device=dev)
             return out, totals, incoming
 
         if self._ring_fused_active():
             # dest-major fills written straight into the send buffer's
             # payload lanes; lane 0 of round 0 carries the size exchange
-            send = torch.zeros((mesh, num_rounds, mesh, ppd, w,
+            send = torch.zeros((mesh, num_rounds, mesh, ppd, w_eff,
                                 capacity + 1), dtype=torch.int32, device=dev)
             for s in range(mesh):
-                sr, counts, offs = self._map_side(
-                    rt.partition(records, s), partitioner, num_parts)
+                sr, counts, offs = map_side(s)
                 for r in range(num_rounds):
                     fill_round_slots_dest_major(
                         sr, counts, offs, num_parts, mesh, capacity, r,
@@ -316,8 +517,7 @@ class ShuffleExchange:
                        for d in range(mesh)]
         else:
             a2a = self._data_a2a()
-            mapped = [self._map_side(rt.partition(records, s), partitioner,
-                                     num_parts) for s in range(mesh)]
+            mapped = [map_side(s) for s in range(mesh)]
             incoming = torch.stack([
                 _device_partition_counts(c, num_parts, mesh)
                 for _, c, _ in mapped]).transpose(0, 1).to(torch.int32)
@@ -325,7 +525,7 @@ class ShuffleExchange:
             for r in range(num_rounds):
                 send = torch.stack([
                     fill_round_slots(sr, c, o, num_parts, capacity, r)[0]
-                    .reshape(w, ppd, mesh, capacity).permute(2, 1, 0, 3)
+                    .reshape(w_eff, ppd, mesh, capacity).permute(2, 1, 0, 3)
                     for sr, c, o in mapped])     # [D_src, D_dst, ppd, W, C]
                 rounds.append(a2a(send))         # [D_dst, D_src, ppd, W, C]
                 del send
@@ -340,13 +540,13 @@ class ShuffleExchange:
         for d in range(mesh):
             inc = incoming[d].T.reshape(ppd * mesh, 1).to(torch.int64)
             chunk_len = torch.clamp(inc - r_ix, 0, capacity).reshape(-1)
-            stream = streams[d].reshape(w, -1)
+            stream = streams[d].reshape(w_eff, -1)
             streams[d] = None                    # free as we go
             part, total = compact_segments(stream, chunk_len, oc)
             del stream
             part, total = self._fuse_tail(part, total, oc, sort_key_words,
-                                          tight)
-            out[:, d * oc:(d + 1) * oc] = part
+                                          aggregator, float_payload, tight)
+            out[rows, d * oc:(d + 1) * oc] = part
             totals[d] = total
         return out, totals, incoming
 

@@ -44,6 +44,16 @@ def bucket_records(records: torch.Tensor, part_ids: torch.Tensor,
     return records[:, perm], counts, _exclusive_cumsum(counts)
 
 
+def bucket_sorted_counts(sorted_pids: torch.Tensor, num_parts: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(counts, offsets)`` of a batch already sorted ascending by
+    partition (the map-side combine's output). Rows carrying the
+    sentinel pid ``num_parts`` fall outside ``[0, num_parts)`` and are
+    dropped from every count, so they never occupy a slot."""
+    counts = histogram_pids(sorted_pids, num_parts)
+    return counts, _exclusive_cumsum(counts)
+
+
 def _windows(bucketed, counts, offsets, capacity, round_idx, order):
     """``(p, start, length)`` of round ``round_idx``'s window of each
     partition in ``order`` — one host transfer of the counts."""
@@ -124,5 +134,6 @@ def compact_segments(stream: torch.Tensor, seg_counts: torch.Tensor,
     return packed, total
 
 
-__all__ = ["histogram_pids", "bucket_records", "fill_round_slots",
+__all__ = ["histogram_pids", "bucket_records", "bucket_sorted_counts",
+           "fill_round_slots",
            "fill_round_slots_dest_major", "compact_segments"]

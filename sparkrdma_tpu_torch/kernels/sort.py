@@ -74,6 +74,20 @@ def lexsort_records(records: torch.Tensor, key_words: int,
     return lexsort_cols(records.T, key_words, valid).T.contiguous()
 
 
+def sort_by_lead_cols(cols: torch.Tensor, lead: torch.Tensor,
+                      mode: str) -> torch.Tensor:
+    """Order full records ``[W, N]`` stably by one uint32 ``lead`` row (a
+    validity flag, a partition rank...): one stable sort of the lead and
+    one gather. ``lead`` holds uint32 values in any integer dtype (int32
+    bit-views are read unsigned). Only the reference's ``"plain"`` mode
+    is ported."""
+    if mode != "plain":
+        raise NotImplementedError(f"sort mode {mode!r} is not ported yet")
+    key = as_unsigned(lead) if lead.dtype == torch.int32 \
+        else lead.to(torch.int64)
+    return cols[:, torch.sort(key, stable=True).indices]
+
+
 def chunk_sort_cols(cols: torch.Tensor, run: int) -> torch.Tensor:
     """Full-record sort of each contiguous ``run``-sized chunk — one
     batched chain over ``[W, N/run, run]`` (the merge sort's run
@@ -85,4 +99,4 @@ def chunk_sort_cols(cols: torch.Tensor, run: int) -> torch.Tensor:
 
 
 __all__ = ["as_unsigned", "lexsort_cols", "lexsort_records",
-           "chunk_sort_cols"]
+           "sort_by_lead_cols", "chunk_sort_cols"]

@@ -3,7 +3,11 @@
 The transport increments ``transport.ring.fused_kernels``,
 ``transport.ring.fused_rounds`` and ``transport.ring.overlap_rounds`` per
 fused exchange launch and ``transport.ring.kernels`` per single-round
-launch, under the reference's names.
+launch, under the reference's names. The exchange counts
+``exchange.exchanges`` and ``exchange.rounds``, the combine gate's
+decisions on aggregator exchanges (``combine.gate_on`` /
+``combine.gate_off``), and the pushdowns it ran (``pushdown.filters``,
+``pushdown.projections``).
 """
 
 from __future__ import annotations

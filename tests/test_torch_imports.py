@@ -1,16 +1,19 @@
-"""The port stands alone: no module of ``sparkrdma_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package, not
-even its JAX-free modules. An AST scan, so conditional and function-
-local imports count too."""
+"""The port stands alone: no module of ``sparkrdma_tpu_torch``, none of
+its scripts (``scripts/torch_*.py``) and not ``chip_smoke.py`` imports
+``jax`` or anything of the JAX package, not even its JAX-free modules.
+An AST scan, so conditional and function-local imports count too.
+
+Also which paths the port runs and which it still refuses."""
 
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "sparkrdma_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    sorted((REPO / "scripts").glob("torch_*.py")) + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -35,6 +38,7 @@ def _imports(path: Path):
 
 def test_sources_found():
     assert len(SOURCES) > 10 and all(p.is_file() for p in SOURCES)
+    assert REPO / "scripts" / "torch_merge_ab.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -51,3 +55,39 @@ def test_scanner_sees_forbidden_imports(tmp_path):
                      "import jax.numpy as jnp\nimport sparkrdma_tpu_torch\n")
     assert sorted(n for _, n in _imports(probe) if _forbidden(n)) == \
         ["jax.numpy", "sparkrdma_tpu.config"]
+
+
+def _manager(d=8, **kw):
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+
+    m = ShuffleManager(MeshRuntime(ShuffleConf(**kw), d, device="cpu"))
+    rows = np.arange(64 * m.conf.record_words, dtype=np.uint32)
+    h = m.register_shuffle(1, d, hash_partitioner(d, 2))
+    m.get_writer(h).write(m.runtime.shard_records(
+        rows.reshape(64, -1) % 7)).stop()
+    return m, h
+
+
+def test_ported_paths_run():
+    """Aggregator exchanges and partition-range reads are ported."""
+    m, h = _manager(slot_records=64)
+    for reader in (m.get_reader(h, aggregator="sum"),
+                   m.get_reader(h, aggregator="max", float_payload=True),
+                   m.get_reader(h, 2, 5),
+                   m.get_reader(h, 2, 5, aggregator="min")):
+        out, totals = reader.read()
+        assert out.shape[0] == 4 and totals.shape == (8,)
+    m.stop()
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(val_words=23), "pack"),
+    (dict(val_words=23, pack_sort_min_payload=0), "wide"),
+    (dict(slot_records=1, max_rounds_in_flight=1), "streaming")])
+def test_unported_paths_refused(kw, what):
+    m, h = _manager(**kw)
+    with pytest.raises(NotImplementedError, match=what):
+        m.get_reader(h, aggregator="sum").read()
+    m.stop()
