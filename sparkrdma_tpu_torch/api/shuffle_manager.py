@@ -14,8 +14,16 @@ predicate and a projection into the exchange (``row_filter``,
 ``keep_words``, full range only), or read a range of partitions. A
 full-range read fuses its sort or aggregation into the exchange's tail;
 a ranged read keeps its partitions' rows first, then aggregates or
-sorts them, as in the reference. Checkpointing, ``read_partition`` and
-the observability stack wait for later slices.
+sorts them, as in the reference. ``read_view`` and ``read_partition``
+give one partition's records out of a raw read.
+
+Buffer lifecycle (the reference's ``RdmaBufferManager`` contract): the
+manager's exchange draws its buffers from the runtime's ``SlotPool``.
+A full-range fused read's ``out`` is recycled as the output of the next
+same-geometry read of the same shuffle, which overwrites it in place:
+consume or copy it first. ``unregister_shuffle`` and ``stop`` return the
+recycled buffers to the pool. Checkpointing and the observability stack
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -23,10 +31,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
+from sparkrdma_tpu_torch.hbm.slot_pool import Slot
 from sparkrdma_tpu_torch.kernels.aggregate import OPS
 from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
@@ -191,6 +201,80 @@ class ShuffleReader:
             barrier(out)
         return out, totals
 
+    def _raw_read(self) -> Tuple[torch.Tensor, torch.Tensor, ShufflePlan]:
+        """A full-range, unsorted read: the raw (local partition, source)
+        layout that per-partition windows are cut from, whatever this
+        reader's own options."""
+        out, totals = ShuffleReader(self._m, self._h).read()
+        return out, totals, self._m._writers[self._h.shuffle_id].plan
+
+    def read_view(self) -> "OutputView":
+        """Run the exchange and return a reference-counted view of its
+        output (``RdmaRegisteredBuffer``): ``view.partition(p)`` gives
+        partition ``p``'s records without another exchange; release every
+        retained view and the base, and the pages go back to the pool."""
+        return OutputView(self._m, self._h, *self._raw_read())
+
+    def read_partition(self, partition: int) -> np.ndarray:
+        """One partition's records as host rows ``uint32[n, W]`` (small
+        data): the per-task view Spark's reader iterator returns."""
+        if not self.start_partition <= partition < self.end_partition:
+            raise ValueError(
+                f"partition {partition} outside reader range "
+                f"[{self.start_partition}, {self.end_partition})")
+        out, _, plan = self._raw_read()
+        mesh = self._m.runtime.num_partitions
+        cap = plan.out_capacity
+        pieces = [out[:, d * cap + start:d * cap + start + length]
+                  for d, start, length in _partition_windows(
+                      plan, mesh, self._h.num_parts, partition)]
+        return self._m.runtime.host_rows(torch.cat(pieces, dim=1))
+
+
+class OutputView:
+    """Reference-counted exchange output with per-partition slicing — the
+    ``RdmaRegisteredBuffer`` analogue on the consumer side.
+
+    The output is copied out of the exchange's recycled buffer into a
+    pooled one that the view owns (a ``Slot``); ``partition(p)`` slices
+    it, ``retain``/``release`` count its holders, and the last release
+    hands the pages to the pool for a later same-shape exchange."""
+
+    def __init__(self, manager: "ShuffleManager", handle: ShuffleHandle,
+                 out: torch.Tensor, totals: torch.Tensor, plan: ShufflePlan):
+        self._pool = manager.runtime.pool
+        arr = self._pool.get_shaped(tuple(out.shape), out.dtype)
+        arr.copy_(out)          # detach from the exchange's recycling
+        self._slot = Slot(arr, arr.shape[1], arr.shape[0], self)
+        self.totals = totals.cpu().numpy()
+        self._plan = plan
+        self._handle = handle
+        self._mesh = manager.runtime.num_partitions
+        self._cap = plan.out_capacity
+
+    def _put(self, slot: Slot) -> None:
+        """The slot's pool hook: called on the last release."""
+        self._pool.put_shaped(slot.array)
+
+    def retain(self) -> "OutputView":
+        self._slot.retain()
+        return self
+
+    def release(self) -> None:
+        self._slot.release()
+
+    def partition(self, p: int) -> torch.Tensor:
+        """Columnar records of partition ``p`` (valid rows only): a view
+        of the base, or, on a skew-split plan whose partition spans
+        several sub-partition segments, their concatenation (a copy)."""
+        if not 0 <= p < self._handle.num_parts:
+            raise ValueError(f"partition {p} out of range")
+        arr = self._slot.array
+        slices = [arr[:, d * self._cap + start:d * self._cap + start + ln]
+                  for d, start, ln in _partition_windows(
+                      self._plan, self._mesh, self._handle.num_parts, p)]
+        return slices[0] if len(slices) == 1 else torch.cat(slices, dim=1)
+
 
 class ShuffleManager:
     """The SPI root object — one per runtime."""
@@ -202,8 +286,11 @@ class ShuffleManager:
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
         self.metrics = MetricsRegistry(enabled=True)
+        # the node owns the pool, the exchange draws from it
+        self.runtime.pool.metrics = self.metrics
         self._exchange = ShuffleExchange(self.runtime, self.conf,
-                                         metrics=self.metrics)
+                                         metrics=self.metrics,
+                                         pool=self.runtime.pool)
         self._handles: Dict[int, ShuffleHandle] = {}
         self._writers: Dict[int, ShuffleWriter] = {}
 
@@ -240,8 +327,11 @@ class ShuffleManager:
                              row_filter, keep_words, combine_hint)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
+        """Forget the shuffle and return its recycled output buffers to
+        the pool: its reads' outputs must be consumed by now."""
         self._handles.pop(shuffle_id, None)
         self._writers.pop(shuffle_id, None)
+        self._exchange.release_shuffle(shuffle_id)
 
     # --- ranged reads: per stacked partition, after the exchange -------
     def _filtered(self, out: torch.Tensor, plan: ShufflePlan,
@@ -312,6 +402,7 @@ class ShuffleManager:
         return res, new_totals
 
     def stop(self) -> None:
+        self._exchange.release_all()
         self._handles.clear()
         self._writers.clear()
         self.runtime.stop()
@@ -324,4 +415,4 @@ class ShuffleManager:
 
 
 __all__ = ["ShuffleManager", "ShuffleHandle", "ShuffleWriter",
-           "ShuffleReader"]
+           "ShuffleReader", "OutputView"]

@@ -1,18 +1,19 @@
 """Shuffle configuration — a trimmed copy of ``sparkrdma_tpu.config``.
 
-Only the knobs the ported paths read are kept (TeraSort, and the
-aggregation path with its map-side combine gate), under the reference's
-names and with its defaults, so a configuration written for one package
-means the same thing to the other. Knobs of paths that are not ported
-yet (streaming, the pack/wide sort modes, the hierarchical transport)
-are refused where they would change what runs, never silently ignored;
-the reference's ``combine_fallback`` rung is not kept at all, because a
-map-side combine that fails raises here.
+Only the knobs the ported paths read are kept (TeraSort, the aggregation
+path with its map-side combine gate, the streaming regime with its
+``queue_depth`` pacing, the slot pool and the pack/wide sort modes),
+under the reference's names and with its defaults, so a configuration
+written for one package means the same thing to the other. Transports
+that are not ported (the hierarchical one) are refused; the reference's
+``combine_fallback`` rung is not kept at all, because a map-side combine
+that fails raises here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 DEFAULT_KEY_WORDS = 2
 DEFAULT_VAL_WORDS = 2
@@ -22,6 +23,22 @@ DEFAULT_VAL_WORDS = 2
 _TRANSPORTS = ("xla", "pallas_ring")
 
 
+def _parse_prealloc(spec: str) -> Dict[int, int]:
+    """Parse a ``"records:count,records:count"`` prealloc spec (SparkRDMA's
+    ``preAllocateBuffers`` "size:count,..." form)."""
+    out: Dict[int, int] = {}
+    spec = spec.strip()
+    if not spec:
+        return out
+    for item in spec.split(","):
+        size_s, _, count_s = item.partition(":")
+        size, count = int(size_s), int(count_s)
+        if size <= 0 or count <= 0:
+            raise ValueError(f"invalid prealloc entry {item!r}")
+        out[size] = out.get(size, 0) + count
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ShuffleConf:
     """All knobs for a shuffle job (the slice's subset of the reference)."""
@@ -29,13 +46,21 @@ class ShuffleConf:
     # --- exchange geometry ---
     slot_records: int = 4096          # records per (src,dst) slot per round
     max_rounds: int = 64              # static upper bound on rounds
-    #: rounds run by one exchange; more rounds need the streaming regime,
-    #: which the port does not implement yet (it raises)
+    #: rounds run by one fused exchange; a plan with more rounds streams
+    #: them in chunks of this many rounds each (the bytes-in-flight
+    #: throttle of SparkRDMA's fetcher)
     max_rounds_in_flight: int = 2
+    #: streaming chunks outstanding before the host waits for the oldest
+    #: (recvQueueDepth: bounds the live receive chunks)
+    queue_depth: int = 8
 
     # --- record geometry ---
     key_words: int = DEFAULT_KEY_WORDS   # uint32 words per key
     val_words: int = DEFAULT_VAL_WORDS   # uint32 words per payload
+
+    # --- slot pool (RdmaBufferManager analogues) ---
+    prealloc: str = ""                # "records:count,..." warm classes
+    max_slot_records: int = 1 << 22   # refuse larger single allocations
 
     # --- transport ---
     transport: str = "xla"
@@ -53,9 +78,11 @@ class ShuffleConf:
     #: keep arrival order within equal keys (disables the merge-path sort)
     stable_key_sort: bool = False
     #: payload widths that select the reference's "wide" / "pack" sort
-    #: modes; those modes are not ported, so a geometry that selects one
-    #: raises — set both to 0 (as the reference's bench does)
+    #: modes (0 disables). Every mode here is one stable key sort plus one
+    #: gather, so the mode and ``wide_sort_ride_words`` name the
+    #: reference's strategy but never change a result
     wide_sort_min_payload: int = 20
+    wide_sort_ride_words: int = 10
     pack_sort_min_payload: int = 20
 
     # --- map-side combine (pre-exchange reduction) ---
@@ -75,6 +102,11 @@ class ShuffleConf:
         if self.max_rounds <= 0 or self.max_rounds_in_flight <= 0:
             raise ValueError("max_rounds and max_rounds_in_flight must be "
                              "positive")
+        if self.queue_depth <= 0:
+            raise ValueError("queue_depth must be positive (it bounds "
+                             "live recv-slot memory)")
+        if self.max_slot_records <= 0:
+            raise ValueError("max_slot_records must be positive")
         if self.key_words <= 0 or self.val_words < 0:
             raise ValueError("key_words must be > 0 and val_words >= 0")
         if self.transport not in _TRANSPORTS:
@@ -95,11 +127,19 @@ class ShuffleConf:
                              "no sampling, 'auto' behaves as 'on')")
         if not 0.0 <= self.combine_min_dup_ratio <= 1.0:
             raise ValueError("combine_min_dup_ratio must be in [0, 1]")
+        for name in ("wide_sort_min_payload", "wide_sort_ride_words",
+                     "pack_sort_min_payload"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        _parse_prealloc(self.prealloc)  # validate eagerly
 
     @property
     def record_words(self) -> int:
         """Total uint32 words per record in exchange buffers."""
         return self.key_words + self.val_words
+
+    def prealloc_classes(self) -> Dict[int, int]:
+        return _parse_prealloc(self.prealloc)
 
     def replace(self, **kw) -> "ShuffleConf":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,4 @@
-"""The slotted all-to-all exchange — the data plane, fused regime.
+"""The slotted all-to-all exchange — the data plane.
 
 Counterpart of ``sparkrdma_tpu.exchange.protocol`` for D partitions
 stacked on one device (``runtime/mesh.py``). A shuffle is planned first
@@ -7,16 +7,30 @@ geometry derived from it) and then executed (:meth:`exchange`):
 
 1. map side, per source partition: partition ids, stable bucketing by
    destination, and round ``r``'s fixed-capacity window of every bucket
-   written straight into the send buffer in the transport layout;
+   written into the send buffer in the transport layout;
 2. size exchange: each source's per-destination counts ride a one-word
    prefix lane of round 0 (fused ring) or a plain permute (otherwise);
 3. data rounds through the configured transport: ``"xla"`` is the plain
    stacked permute, ``"pallas_ring"`` the hand-written CUDA kernel of
-   ``exchange/ring.py`` (all rounds in one launch when ``ring_fused``);
+   ``exchange/ring.py`` (all rounds of a launch at once when
+   ``ring_fused``, else one launch per round);
 4. reduce side, per destination partition: compaction of the received
    round-chunked stream, then the optional tail — combine-by-key for an
    aggregator read, else the key-ordering sort (the merge-path kernel
    when the geometry allows, as in the reference).
+
+Two regimes, switched on ``conf.max_rounds_in_flight`` as in the
+reference:
+
+- ``num_rounds <= max_rounds_in_flight``: the fused regime, all rounds
+  in one transport step;
+- more rounds: the streaming regime (:meth:`ShuffleExchange
+  ._exchange_streaming`). A prep step runs the map side and the size
+  exchange; then chunks of ``max_rounds_in_flight`` rounds each are
+  filled, moved and folded into an accumulator at their exact offsets in
+  the stream, with the host waiting for the oldest chunk once
+  ``conf.queue_depth`` are in flight; a tail step sorts or aggregates.
+  Nothing in the chunk loop waits for the card except that pacing.
 
 With an aggregator, a plan-time gate (``conf.map_side_combine``) may
 also combine each source's records by (partition, key) before they are
@@ -26,16 +40,25 @@ accounts for what they kept off the wire.
 
 Partition ``p`` lives on stacked partition ``p % D`` (round-robin).
 
-Not ported yet, and refused rather than approximated: the streaming
-regime (more rounds than ``max_rounds_in_flight``), the pack/wide sort
-modes and buffer pooling and donation. The reference's degradation
-ladder (transport fallback, the combine-off retry) is deliberately not
-ported: the port never falls back from a kernel or a pass to something
-else.
+Buffer reuse contract (``RdmaRegisteredBuffer`` semantics): when the
+exchange owns a pool (a ``ShuffleManager``'s does), the streaming
+regime draws its chunks and accumulator from it, and the fused regime's
+``out`` becomes the output buffer of the NEXT same-geometry exchange of
+the same shuffle, which overwrites it in place — consume (or copy) it
+before then. :meth:`ShuffleExchange.release_shuffle` hands a shuffle's
+buffers back to the pool.
+
+The record-movement strategy of every sort (``sort_mode``: pack, wide
+or plain) is chosen as in the reference; all three are one stable sort
+here (``kernels/sort.py``). Left out of the reference: the degradation
+ladder (transport fallback, the combine-off retry) — the port never
+falls back from a kernel or a pass to something else — and the fault
+sites, the stall watchdog and the timeline spans of the streaming loop.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -56,7 +79,10 @@ from sparkrdma_tpu_torch.kernels.bucketing import (bucket_records,
                                                    histogram_pids)
 from sparkrdma_tpu_torch.kernels.merge_sort import (merge_sort_cols,
                                                     supports_fast_sort)
-from sparkrdma_tpu_torch.kernels.sort import lexsort_cols, sort_by_lead_cols
+from sparkrdma_tpu_torch.kernels.sort import (lexsort_cols,
+                                              packed_lexsort_cols,
+                                              sort_by_lead_cols)
+from sparkrdma_tpu_torch.kernels.wide_sort import sort_wide_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 
@@ -108,17 +134,62 @@ class ShuffleExchange:
 
     def __init__(self, runtime: MeshRuntime,
                  conf: Optional[ShuffleConf] = None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None, pool=None):
         self.runtime = runtime
         self.conf = conf or runtime.conf
         self.mesh_size = runtime.num_partitions
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
+        #: the runtime's ``SlotPool`` (a manager passes it), or None: then
+        #: every buffer is a fresh allocation and nothing is recycled
+        self.pool = pool
+        # the last fused output per (shuffle_id, geometry), recycled as the
+        # output buffer of a repeat read and released on release_shuffle
+        self._out_prev: Dict[Tuple, torch.Tensor] = {}
+        #: programs of the reference's that the last exchange() maps to
+        #: (1 fused; prep + chunk and fold per chunk + tail streaming)
+        self.last_dispatches = 0
         self._last_wire = None
         self._last_wire_stats: Dict[str, float] = {}
 
     def transport(self) -> str:
         return self.conf.transport
+
+    def _get_buf(self, shape, device) -> torch.Tensor:
+        """An ``int32`` buffer from the pool (or a fresh one without a
+        pool) holding whatever its last user left: the caller zeroes or
+        writes every word it reads."""
+        if self.pool is None:
+            return torch.empty(shape, dtype=torch.int32, device=device)
+        return self.pool.get_shaped(shape)
+
+    def _put_buf(self, arr: torch.Tensor) -> None:
+        if self.pool is not None:
+            self.pool.put_shaped(arr)
+
+    def release_shuffle(self, shuffle_id: int) -> None:
+        """Return a shuffle's recycled output buffers to the pool
+        (unregisterShuffle). Its last outputs may then be overwritten by
+        any later exchange, so callers must be done with them."""
+        for okey in [k for k in self._out_prev if k[0] == shuffle_id]:
+            self._put_buf(self._out_prev.pop(okey))
+
+    def release_all(self) -> None:
+        """Return every recycled output buffer (manager teardown)."""
+        while self._out_prev:
+            self._put_buf(self._out_prev.popitem()[1])
+
+    def _fused_out(self, okey: Tuple, shape, device) -> torch.Tensor:
+        """The fused regime's output buffer: with a pool, the previous
+        output of the same (shuffle, geometry) goes back and the buffer
+        popped for this read is usually that same one."""
+        prev = self._out_prev.pop(okey, None)
+        if prev is not None:
+            self._put_buf(prev)
+        out = self._get_buf(shape, device)
+        if self.pool is not None:
+            self._out_prev[okey] = out
+        return out
 
     # ------------------------------------------------------------------
     # phase 1: plan (the metadata fetch)
@@ -291,20 +362,29 @@ class ShuffleExchange:
         Outside the merge-path geometry the port sorts by the key words
         stably; the reference's default there is unstable, so equal keys
         may come out in another (equally valid) order."""
+        mode = self.sort_mode(out.shape[0])
+        ride = self.conf.wide_sort_ride_words
         if aggregator:
             valid = torch.arange(out_capacity, device=out.device) < total
             return combine_by_key_cols(out, valid, self.conf.key_words,
-                                       aggregator, float_payload)
+                                       aggregator, float_payload,
+                                       wide=mode == "wide", ride_words=ride,
+                                       pack=mode == "pack")
         if not sort_key_words:
             return out, total
+        valid = None if tight_out else (
+            torch.arange(out_capacity, device=out.device) < total)
         if self._uses_fast_sort(out_capacity, sort_key_words):
             # the valid rows are the received prefix: sort only that
             out = merge_sort_cols(
                 out, run=self.conf.fast_sort_run,
                 n_valid=None if tight_out else min(total, out_capacity))
+        elif mode == "pack":
+            out = packed_lexsort_cols(out, sort_key_words, valid,
+                                      stable=self.conf.stable_key_sort)
+        elif mode == "wide":
+            out = sort_wide_cols(out, sort_key_words, valid, ride_words=ride)
         else:
-            valid = None if tight_out else (
-                torch.arange(out_capacity, device=out.device) < total)
             out = lexsort_cols(out, sort_key_words, valid)
         return out, total
 
@@ -323,17 +403,20 @@ class ShuffleExchange:
         if row_filter is not None:
             pids = torch.where(row_filter(records), pids, num_parts)
         recs = records if keep_words is None else records[list(keep_words)]
+        mode = self.sort_mode(recs.shape[0])
+        how = dict(wide=mode == "wide", pack=mode == "pack",
+                   ride_words=self.conf.wide_sort_ride_words)
         if combine:
             sr, spids, _ = map_side_combine_cols(
                 recs, pids, num_parts, self.conf.key_words, aggregator,
-                float_payload)
+                float_payload, **how)
             counts, offs = bucket_sorted_counts(spids, num_parts)
             return sr, counts, offs
         # bucket_records' single-partition shortcut counts the whole
         # batch: under a filter, bucket over 2 partitions so the sentinel
         # rows are counted out, and keep the real one
         np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
-        sr, counts, offs = bucket_records(recs, pids, np_eff)
+        sr, counts, offs = bucket_records(recs, pids, np_eff, **how)
         return sr, counts[:num_parts], offs[:num_parts]
 
     # ------------------------------------------------------------------
@@ -364,7 +447,12 @@ class ShuffleExchange:
         ``row_filter`` (``records -> bool[n]`` over full-width records)
         drops rows before they take a slot; ``keep_words`` (strictly
         increasing, all key words first) moves only those words, and the
-        dropped ones come back zero."""
+        dropped ones come back zero.
+
+        A plan with more rounds than ``conf.max_rounds_in_flight`` runs
+        in the streaming regime. With a pool, the fused regime's ``out``
+        is overwritten by the next same-geometry exchange of the same
+        ``shuffle_id`` (module docstring)."""
         plan_parts = int(plan.counts.shape[1])
         if (num_parts is not None
                 and num_parts * plan.split_factor != plan_parts):
@@ -391,16 +479,6 @@ class ShuffleExchange:
                     f"keep_words {keep_words} out of range for W={w}")
             if len(keep_words) == w:
                 keep_words = None    # full width: not a projection
-        if plan.num_rounds > self.conf.max_rounds_in_flight:
-            raise NotImplementedError(
-                f"plan needs {plan.num_rounds} rounds > "
-                f"max_rounds_in_flight {self.conf.max_rounds_in_flight}: "
-                "the streaming regime is not ported yet")
-        w_eff = len(keep_words) if keep_words is not None else w
-        if self.sort_mode(w_eff) != "plain":
-            raise NotImplementedError(
-                f"sort mode {self.sort_mode(w_eff)!r} is not ported yet; "
-                "set pack_sort_min_payload=0 and wide_sort_min_payload=0")
         if records.dtype != torch.int32:
             raise TypeError(f"records must be int32 word views, got "
                             f"{records.dtype}")
@@ -420,26 +498,44 @@ class ShuffleExchange:
         if aggregator:
             m.counter("combine.gate_on" if use_combine
                       else "combine.gate_off").inc()
-        owned = plan.counts.sum(axis=0)
-        per_dev = np.array([owned[d::self.mesh_size].sum()
-                            for d in range(self.mesh_size)])
-        # a pre-exchange reduction shrinks totals below the plan's
-        pushed = (use_combine or row_filter is not None
-                  or keep_words is not None)
-        tight = not pushed and bool((per_dev == plan.out_capacity).all())
-        out, totals, incoming = self._run(
-            records, partitioner, plan_parts, plan.capacity,
-            plan.num_rounds, plan.out_capacity, sort_key_words, tight,
-            aggregator, float_payload, use_combine, row_filter, keep_words)
+        if plan.num_rounds > self.conf.max_rounds_in_flight:
+            out, totals, incoming = self._exchange_streaming(
+                records, partitioner, plan, plan_parts, sort_key_words,
+                aggregator, float_payload, use_combine, row_filter,
+                keep_words)
+        else:
+            owned = plan.counts.sum(axis=0)
+            per_dev = np.array([owned[d::self.mesh_size].sum()
+                                for d in range(self.mesh_size)])
+            # a pre-exchange reduction shrinks totals below the plan's
+            pushed = (use_combine or row_filter is not None
+                      or keep_words is not None)
+            tight = not pushed and bool(
+                (per_dev == plan.out_capacity).all())
+            fkey = (getattr(row_filter, "cache_key", id(row_filter))
+                    if row_filter is not None else None)
+            # the reference's program key: same key, same output buffer
+            okey = (shuffle_id, plan_parts, plan.capacity, plan.num_rounds,
+                    plan.out_capacity, w, sort_key_words, aggregator,
+                    float_payload, tight, use_combine, fkey, keep_words,
+                    getattr(partitioner, "cache_key", id(partitioner)))
+            out, totals, incoming = self._run(
+                records, partitioner, plan_parts, plan.capacity,
+                plan.num_rounds, plan.out_capacity, sort_key_words, tight,
+                aggregator, float_payload, use_combine, row_filter,
+                keep_words, okey)
+            self.last_dispatches = 1
+            m.counter("exchange.dispatches").inc()
         self._note_wire(records, incoming, use_combine,
                         row_filter is not None, keep_words, dup_ratio)
         return out, totals, incoming
 
     def _run(self, records, partitioner, num_parts, capacity, num_rounds,
              out_capacity, sort_key_words, tight, aggregator, float_payload,
-             combine, row_filter, keep_words):
+             combine, row_filter, keep_words, okey):
         """The fused regime: the reference's ``local_step``, looped over
-        the stacked partitions around one exchange launch."""
+        the stacked partitions around one exchange launch. Every word of
+        ``out`` is written (it may be a recycled buffer)."""
         rt = self.runtime
         mesh = self.mesh_size
         ppd = num_parts // mesh
@@ -448,7 +544,9 @@ class ShuffleExchange:
         w_eff = len(keep_words) if keep_words is not None else w
         dev = records.device
         oc = out_capacity
-        out = torch.zeros((w, mesh * oc), dtype=torch.int32, device=dev)
+        out = self._fused_out(okey, (w, mesh * oc), dev)
+        if keep_words is not None:
+            out[[i for i in range(w) if i not in keep_words]] = 0
         totals = torch.zeros((mesh,), dtype=torch.int32, device=dev)
 
         def map_side(src):
@@ -478,7 +576,8 @@ class ShuffleExchange:
                 if keep is not None:
                     # stable validity-lead compaction: survivors to the
                     # front in arrival order, zeroed tail
-                    part = sort_by_lead_cols(part, ~keep, "plain")
+                    part = sort_by_lead_cols(part, ~keep,
+                                             self.sort_mode(w_eff))
                     total = int(keep.sum())
                     part[:, total:] = 0
                 wire = total
@@ -549,6 +648,151 @@ class ShuffleExchange:
             out[rows, d * oc:(d + 1) * oc] = part
             totals[d] = total
         return out, totals, incoming
+
+    # ------------------------------------------------------------------
+    # phase 2, streaming regime: bounded rounds in flight
+    # ------------------------------------------------------------------
+    def _exchange_streaming(self, records, partitioner, plan, num_parts,
+                            sort_key_words, aggregator, float_payload,
+                            combine, row_filter, keep_words):
+        """The reference's prep, chunk, fold and tail programs as steps
+        over the stacked partitions.
+
+        - prep: the map side of every source (filter, projection,
+          combine, bucketing) and the size exchange; the bucketed sources
+          sit side by side in one gather source, followed by one zero
+          column that every empty slot position reads;
+        - chunk ``j``: rounds ``[j*F, (j+1)*F)`` of every (source,
+          destination) slot gathered into one pooled send buffer (no
+          counts lane: prep did the size exchange; rounds past the plan
+          move zeros) and moved into a pooled receive buffer;
+        - fold ``j``: one indexed copy puts every valid column of the
+          chunk at its exact offset in the destination's stream — (q, s,
+          r) order over all ``n_chunks * F`` rounds, as the fused regime
+          compacts — and the rest of the chunk into dump columns past
+          the output;
+        - tail: each partition's ``out_capacity`` columns through
+          :meth:`_fuse_tail`, re-widened under a projection.
+
+        Chunk offsets are computed on the device, so the loop never waits
+        for the card except to pace: once ``queue_depth`` chunks are in
+        flight, the host waits for the oldest one's fold (a CUDA event;
+        on the CPU, where work is synchronous, the same count of waits
+        is kept and there is nothing to wait for)."""
+        rt = self.runtime
+        m = self.metrics
+        mesh = self.mesh_size
+        ppd = num_parts // mesh
+        cap = plan.capacity
+        oc = plan.out_capacity
+        f_in = self.conf.max_rounds_in_flight
+        n_chunks = math.ceil(plan.num_rounds / f_in)
+        total_rounds = n_chunks * f_in
+        w = records.shape[0]
+        w_eff = len(keep_words) if keep_words is not None else w
+        dev = records.device
+        n = records.shape[1] // mesh
+        unfused = (self.transport() == "pallas_ring"
+                   and not self.conf.ring_fused)
+
+        # --- prep -------------------------------------------------------
+        srs, cnts, offs = [], [], []
+        for s in range(mesh):
+            sr, c, o = self._map_side(
+                rt.partition(records, s), partitioner, num_parts, combine,
+                aggregator, float_payload, row_filter, keep_words)
+            srs.append(sr)
+            cnts.append(c)
+            offs.append(o)
+        src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))], dim=1)
+        del srs
+        zero_col = mesh * n
+        # dest-major: p_dq[d, q] = partition q * mesh + d
+        p_dq = torch.arange(num_parts, device=dev).reshape(ppd, mesh).T
+        cnt = torch.stack(cnts)[:, p_dq]                   # [S, D, ppd]
+        base = torch.stack(offs)[:, p_dq] + (
+            torch.arange(mesh, device=dev) * n)[:, None, None]
+        incoming = cnt.transpose(0, 1).to(torch.int32)     # [D, S, ppd]
+        # segment (q, s, r) of destination d: its length and its start in
+        # the destination's columns of the accumulator
+        r_ix = torch.arange(total_rounds, device=dev) * cap
+        seg = (cnt.permute(1, 2, 0)[..., None] - r_ix).clamp(0, cap)
+        flat = seg.reshape(mesh, -1)                       # [D, ppd*S*TR]
+        starts = ((flat.cumsum(1) - flat).reshape(seg.shape)
+                  + (torch.arange(mesh, device=dev) * oc)[:, None, None,
+                                                          None])
+        totals = flat.sum(1)
+        col = torch.arange(cap, device=dev)
+        dump = mesh * oc + col
+        dispatches = 1
+
+        acc = self._get_buf((w_eff, mesh * oc + cap), dev)
+        acc.zero_()         # a pooled buffer holds its last user's words
+        shape = ((f_in, mesh, mesh, ppd, w_eff, cap) if unfused
+                 else (mesh, f_in, mesh, ppd, w_eff, cap))
+        move = (make_ring_all_to_all(mesh, m) if unfused
+                else make_ring_exchange(mesh, f_in, m)
+                if self._ring_fused_active() else None)
+        in_flight = collections.deque()
+        for j in range(n_chunks):
+            if len(in_flight) >= self.conf.queue_depth:
+                # the recvQueueDepth throttle: wait for the oldest chunk
+                m.counter("exchange.queue_blocks").inc()
+                done = in_flight.popleft()
+                if done is not None:
+                    done.synchronize()
+            m.counter("exchange.stream_chunks").inc()
+            rounds = slice(j * f_in, (j + 1) * f_in)
+            # chunk: send[s, f, d, q, :, c] = source s's column c of round
+            # j*F+f of partition q*mesh+d, or the zero column
+            pos = (r_ix[rounds, None] + col)[None, :, None, None, :]
+            idx = torch.where(pos < cnt[:, None, :, :, None],
+                              base[:, None, :, :, None] + pos, zero_col)
+            if unfused:
+                idx = idx.transpose(0, 1)          # [F, S, D, ppd, C]
+            send = self._get_buf(shape, dev)
+            torch.gather(src.expand(shape[:4] + src.shape), 5,
+                         idx.unsqueeze(4).expand(shape), out=send)
+            recv = self._get_buf(shape, dev)
+            if unfused:
+                for f in range(f_in):
+                    move(send[f], out=recv[f])
+                view = recv.transpose(0, 1)        # [D, F, S, ppd, W, C]
+            elif move is not None:
+                view = move(send, out=recv)
+            else:
+                view = recv.copy_(send.transpose(0, 2))
+            self._put_buf(send)
+            # fold: column c of (d, f, s, q) lands at its stream offset
+            ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
+            st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
+            acc[:, torch.where(col < ln, st + col, dump)] = \
+                view.permute(4, 0, 1, 2, 3, 5)
+            self._put_buf(recv)     # read by the fold already queued
+            dispatches += 2
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            in_flight.append(done)
+        del src
+
+        # --- tail -------------------------------------------------------
+        rows = list(keep_words) if keep_words is not None else slice(None)
+        out = torch.zeros((w, mesh * oc), dtype=torch.int32, device=dev)
+        new_totals = []
+        for d, total in enumerate(totals.tolist()):
+            part, total = self._fuse_tail(acc[:, d * oc:(d + 1) * oc], total,
+                                          oc, sort_key_words, aggregator,
+                                          float_payload)
+            out[rows, d * oc:(d + 1) * oc] = part
+            new_totals.append(total)
+        self._put_buf(acc)
+        dispatches += 1
+        self.last_dispatches = dispatches
+        m.counter("exchange.dispatches").inc(dispatches)
+        return (out, torch.tensor(new_totals, dtype=torch.int32, device=dev),
+                incoming)
 
 
 __all__ = ["ShuffleExchange", "ShufflePlan", "split_partitioner"]

@@ -68,13 +68,15 @@ def _launch(send: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
 
 def ring_exchange(send: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``recv[d, r, s] = send[s, r, d]`` for ``send [D, R, D, ...]``."""
+    """``recv[d, r, s] = send[s, r, d]`` for ``send [D, R, D, ...]``,
+    into ``out`` when given."""
     if send.dim() < 3 or send.shape[0] != send.shape[2]:
         raise ValueError(f"send must be [D, R, D, ...], got "
                          f"{tuple(send.shape)}")
     _check_send(send, "ring_exchange")
     if not send.is_cuda:
-        return ring_exchange_plain(send)
+        recv = ring_exchange_plain(send)
+        return recv if out is None else out.copy_(recv)
     ring_exchange.launches += 1
     return _launch(send, out)
 
@@ -85,11 +87,13 @@ ring_exchange.launches = 0
 def make_ring_exchange(num_partitions: int, num_rounds: int,
                        metrics: Optional[MetricsRegistry] = None
                        ) -> Callable:
-    """The fused multi-round exchange: ``send [D, R, D, ...] -> recv``."""
+    """The fused multi-round exchange: ``send [D, R, D, ...] -> recv``,
+    into ``out`` when given (a contiguous tensor like ``send``)."""
     if metrics is None:
         metrics = MetricsRegistry(enabled=False)
 
-    def exchange(send: torch.Tensor) -> torch.Tensor:
+    def exchange(send: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if send.shape[1] != num_rounds:
             raise ValueError(
                 f"fused exchange built for {num_rounds} rounds, "
@@ -98,27 +102,30 @@ def make_ring_exchange(num_partitions: int, num_rounds: int,
             raise ValueError(f"send holds {send.shape[0]} sources, "
                              f"exchange built for {num_partitions}")
         if num_partitions == 1:
-            return send
+            return send if out is None else out.copy_(send)
         metrics.counter("transport.ring.fused_kernels").inc()
         metrics.counter("transport.ring.fused_rounds").inc(num_rounds)
         metrics.counter("transport.ring.overlap_rounds").inc(
             max(num_rounds - 1, 0))
-        return ring_exchange(send)
+        return ring_exchange(send, out)
 
     return exchange
 
 
-def ring_all_to_all(send: torch.Tensor) -> torch.Tensor:
+def ring_all_to_all(send: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single round: ``recv[d, s] = send[s, d]`` for ``send [D, D, ...]``
-    — the R = 1 launch of the same kernel."""
+    — the R = 1 launch of the same kernel — into ``out`` when given."""
     if send.dim() < 2 or send.shape[0] != send.shape[1]:
         raise ValueError(f"send must be [D, D, ...], got "
                          f"{tuple(send.shape)}")
     _check_send(send, "ring_all_to_all")
     if not send.is_cuda:
-        return send.transpose(0, 1).contiguous()
+        recv = send.transpose(0, 1).contiguous()
+        return recv if out is None else out.copy_(recv)
     ring_all_to_all.launches += 1
-    return _launch(send.unsqueeze(1), None).squeeze(1)
+    return _launch(send.unsqueeze(1),
+                   None if out is None else out.unsqueeze(1)).squeeze(1)
 
 
 ring_all_to_all.launches = 0
@@ -131,11 +138,12 @@ def make_ring_all_to_all(num_partitions: int,
     if metrics is None:
         metrics = MetricsRegistry(enabled=False)
 
-    def a2a(send: torch.Tensor) -> torch.Tensor:
+    def a2a(send: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if num_partitions == 1:
-            return send
+            return send if out is None else out.copy_(send)
         metrics.counter("transport.ring.kernels").inc()
-        return ring_all_to_all(send)
+        return ring_all_to_all(send, out)
 
     return a2a
 

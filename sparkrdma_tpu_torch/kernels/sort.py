@@ -8,13 +8,25 @@ order is the unsigned lexicographic order of the pair, so W key words
 cost ``ceil(W/2)`` passes. Rows with ``valid == False`` are led to the
 tail by a last pass on the validity flag.
 
+The reference has three strategies for moving the records of a sort
+(``ShuffleExchange.sort_mode``): ``"plain"`` rides every word through
+the comparator network, ``"pack"`` rides them as u64 pairs, ``"wide"``
+sorts the keys with an index and places the rest by one gather. Those
+are costs of XLA's variadic sort; here every sort already sorts the key
+words with an index and places the records with one gather, so the
+three modes are one implementation with the same output (a stable
+sort). The mode names and parameters stay so that call sites read as in
+the reference. Where the reference's pack sort is unstable
+(``stable=False``), this one stays stable: equal keys keep arrival
+order, one of the orders the reference may give.
+
 Every function here works on the CPU and on the card alike: it is plain
 tensor code, and no Pallas kernel stands behind it in the reference.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -74,18 +86,42 @@ def lexsort_records(records: torch.Tensor, key_words: int,
     return lexsort_cols(records.T, key_words, valid).T.contiguous()
 
 
-def sort_by_lead_cols(cols: torch.Tensor, lead: torch.Tensor,
-                      mode: str) -> torch.Tensor:
-    """Order full records ``[W, N]`` stably by one uint32 ``lead`` row (a
-    validity flag, a partition rank...): one stable sort of the lead and
-    one gather. ``lead`` holds uint32 values in any integer dtype (int32
-    bit-views are read unsigned). Only the reference's ``"plain"`` mode
-    is ported."""
-    if mode != "plain":
-        raise NotImplementedError(f"sort mode {mode!r} is not ported yet")
+def packed_lexsort_cols(cols: torch.Tensor, key_words: int,
+                        valid: Optional[torch.Tensor] = None,
+                        stable: bool = False) -> torch.Tensor:
+    """The reference's u64-packed sort: :func:`lexsort_cols` (always
+    stable, whatever ``stable`` says; module docstring)."""
+    return lexsort_cols(cols, key_words, valid)
+
+
+def _lead_perm(lead: torch.Tensor) -> torch.Tensor:
+    """Stable ascending permutation of one uint32 row held in any integer
+    dtype (int32 bit-views read unsigned)."""
     key = as_unsigned(lead) if lead.dtype == torch.int32 \
         else lead.to(torch.int64)
-    return cols[:, torch.sort(key, stable=True).indices]
+    return torch.sort(key, stable=True).indices
+
+
+def packed_partition_cols(cols: torch.Tensor, lead: torch.Tensor,
+                          stable: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort full records by one uint32 ``lead`` row; returns
+    ``(sorted_lead, sorted_cols)``. Stable."""
+    perm = _lead_perm(lead)
+    return lead[perm], cols[:, perm]
+
+
+_MODES = ("plain", "pack", "wide")
+
+
+def sort_by_lead_cols(cols: torch.Tensor, lead: torch.Tensor,
+                      mode: str, stable: bool = True) -> torch.Tensor:
+    """Order full records ``[W, N]`` stably by one uint32 ``lead`` row (a
+    validity flag, a partition rank...): one stable sort of the lead and
+    one gather, in every ``mode`` (module docstring)."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown sort mode {mode!r}")
+    return cols[:, _lead_perm(lead)]
 
 
 def chunk_sort_cols(cols: torch.Tensor, run: int) -> torch.Tensor:
@@ -99,4 +135,5 @@ def chunk_sort_cols(cols: torch.Tensor, run: int) -> torch.Tensor:
 
 
 __all__ = ["as_unsigned", "lexsort_cols", "lexsort_records",
+           "packed_lexsort_cols", "packed_partition_cols",
            "sort_by_lead_cols", "chunk_sort_cols"]

@@ -1,13 +1,18 @@
-"""Counters only — the slice's subset of ``sparkrdma_tpu.obs.metrics``.
+"""Counters and gauges — the slice's subset of ``sparkrdma_tpu.obs.metrics``.
 
 The transport increments ``transport.ring.fused_kernels``,
 ``transport.ring.fused_rounds`` and ``transport.ring.overlap_rounds`` per
 fused exchange launch and ``transport.ring.kernels`` per single-round
 launch, under the reference's names. The exchange counts
-``exchange.exchanges`` and ``exchange.rounds``, the combine gate's
-decisions on aggregator exchanges (``combine.gate_on`` /
-``combine.gate_off``), and the pushdowns it ran (``pushdown.filters``,
-``pushdown.projections``).
+``exchange.exchanges``, ``exchange.rounds`` and ``exchange.dispatches``
+(programs of the reference's that one exchange maps to: 1 fused, or
+prep + chunk and fold per streaming chunk + tail), the streaming
+regime's ``exchange.stream_chunks`` and ``exchange.queue_blocks`` (host
+waits at ``queue_depth``), the combine gate's decisions on aggregator
+exchanges (``combine.gate_on`` / ``combine.gate_off``), and the
+pushdowns it ran (``pushdown.filters``, ``pushdown.projections``). The
+slot pool counts ``pool.hits`` and ``pool.misses`` and sets the gauge
+``pool.outstanding`` (buffers handed out and not yet returned).
 """
 
 from __future__ import annotations
@@ -28,13 +33,27 @@ class Counter:
                 self.value += n
 
 
+class Gauge:
+    """Last value set (a level, not a count)."""
+
+    def __init__(self, enabled: bool):
+        self._enabled = enabled
+        self.value = 0
+
+    def set(self, v) -> None:
+        if self._enabled:
+            self.value = v
+
+
 class MetricsRegistry:
-    """Named counters; a disabled registry hands out counters that stay 0."""
+    """Named counters and gauges; a disabled registry hands out ones that
+    stay 0."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -43,5 +62,12 @@ class MetricsRegistry:
                 c = self._counters[name] = Counter(self.enabled)
             return c
 
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(self.enabled)
+            return g
 
-__all__ = ["Counter", "MetricsRegistry"]
+
+__all__ = ["Counter", "Gauge", "MetricsRegistry"]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.config import ShuffleConf
+from sparkrdma_tpu_torch.hbm.slot_pool import SlotPool
 
 
 def resolve_device(device) -> torch.device:
@@ -49,7 +50,8 @@ class ManagerId:
 
 
 class MeshRuntime:
-    """D stacked partitions on one device."""
+    """D stacked partitions on one device; owns the device's slot pool,
+    as one ``RdmaNode`` owns its buffer manager."""
 
     def __init__(self, conf: Optional[ShuffleConf] = None,
                  num_partitions: int = 8, device="cuda"):
@@ -58,6 +60,7 @@ class MeshRuntime:
         self.conf = conf or ShuffleConf()
         self.device = resolve_device(device)
         self.num_partitions = int(num_partitions)
+        self.pool = SlotPool(self.conf, device=self.device)
 
     def manager_id(self, device_index: int) -> ManagerId:
         if not 0 <= device_index < self.num_partitions:
@@ -86,7 +89,8 @@ class MeshRuntime:
         return cols[:, d * n:(d + 1) * n]
 
     def stop(self) -> None:
-        """Nothing is pooled yet; kept for the reference's lifecycle."""
+        """Drop the pooled buffers (``RdmaNode.stop``)."""
+        self.pool.clear()
 
     def __enter__(self) -> "MeshRuntime":
         return self

@@ -164,7 +164,8 @@ def run_terasort(manager: ShuffleManager, records_per_device: int,
                  repeats: int = 1, device_verify: bool = False
                  ) -> Tuple[TeraSortResult, torch.Tensor, torch.Tensor]:
     """Returns ``(result, sorted_records, totals)``; ``repeats > 1``
-    times that many back-to-back exchange+sort reads."""
+    times that many back-to-back exchange+sort reads. ``sorted_records``
+    is a copy the caller owns, safe across later exchanges."""
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words
@@ -209,7 +210,10 @@ def run_terasort(manager: ShuffleManager, records_per_device: int,
                              plan_s=t_plan.elapsed,
                              sort_exchange_s=sort_exchange_s,
                              verified=verified, plan=plan)
-        return res, out, totals
+        # detach from the exchange's recycled output buffer: the finally
+        # block's unregister hands it back to the pool, and a later
+        # same-shape exchange would overwrite it under the caller
+        return res, out.clone(), totals
     finally:
         manager.unregister_shuffle(shuffle_id)
 

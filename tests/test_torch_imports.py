@@ -3,7 +3,7 @@ its scripts (``scripts/torch_*.py``) and not ``chip_smoke.py`` imports
 ``jax`` or anything of the JAX package, not even its JAX-free modules.
 An AST scan, so conditional and function-local imports count too.
 
-Also which paths the port runs and which it still refuses."""
+Also that the paths earlier slices refused now run."""
 
 import ast
 from pathlib import Path
@@ -87,7 +87,20 @@ def test_ported_paths_run():
     (dict(val_words=23, pack_sort_min_payload=0), "wide"),
     (dict(slot_records=1, max_rounds_in_flight=1), "streaming")])
 def test_unported_paths_refused(kw, what):
+    """The paths earlier slices refused (the pack and wide sort modes,
+    the streaming regime) now run, and give the bytes of the plain-mode
+    fused read of the same records."""
     m, h = _manager(**kw)
-    with pytest.raises(NotImplementedError, match=what):
-        m.get_reader(h, aggregator="sum").read()
+    out, totals = m.get_reader(h, aggregator="sum").read()
+    ex = m._exchange
+    assert ex.sort_mode(m.conf.record_words) == \
+        ("plain" if what == "streaming" else what)
+    assert (ex.last_dispatches > 1) == (what == "streaming")
+    plain, hp = _manager(**dict(kw, pack_sort_min_payload=0,
+                                wide_sort_min_payload=0,
+                                max_rounds_in_flight=64))
+    want, want_totals = plain.get_reader(hp, aggregator="sum").read()
+    assert plain._exchange.last_dispatches == 1
+    assert (out == want).all() and (totals == want_totals).all()
     m.stop()
+    plain.stop()

@@ -143,17 +143,25 @@ def test_exchange_parity_ppd(ref_ring, rng, num_parts):
     np.testing.assert_array_equal(records_from_torch(out), np.asarray(out_r))
 
 
-def test_streaming_regime_refused(rng):
-    conf = ShuffleConf(slot_records=16, max_rounds_in_flight=2)
-    rt = MeshRuntime(conf, num_partitions=D, device="cpu")
-    ex = ShuffleExchange(rt, conf)
+def test_streaming_regime_refused(ref_ring, rng):
+    """Five rounds over two in flight, once refused, now stream in three
+    chunks and give the reference's fused ring exchange's bytes."""
+    ex_r, rt_r = ref_ring
     x = rng.integers(1, 2**32, size=(D * 72, 4), dtype=np.uint32)
     x[:, 0] = 5
+    out_r, tot_r, _ = ex_r.shuffle(rt_r.shard_records(x), ref_modulo(8),
+                                   num_parts=8)
+    conf = ShuffleConf(slot_records=16, max_rounds_in_flight=2,
+                       transport="pallas_ring")
+    rt = MeshRuntime(conf, num_partitions=D, device="cpu")
+    ex = ShuffleExchange(rt, conf)
     recs = rt.shard_records(x)
     plan = ex.plan(recs, modulo_partitioner(8), num_parts=8)
     assert plan.num_rounds == 5
-    with pytest.raises(NotImplementedError, match="streaming"):
-        ex.exchange(recs, modulo_partitioner(8), plan)
+    out, tot, _ = ex.exchange(recs, modulo_partitioner(8), plan)
+    assert ex.last_dispatches == 1 + 2 * 3 + 1
+    np.testing.assert_array_equal(tot.numpy(), np.asarray(tot_r))
+    np.testing.assert_array_equal(records_from_torch(out), np.asarray(out_r))
 
 
 @pytest.fixture

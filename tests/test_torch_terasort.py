@@ -153,7 +153,11 @@ def test_device_verify_catches_corruption():
 
 
 def test_pack_mode_refused():
+    """The reference's default geometry at W = 25 (pack mode, once
+    refused) runs and passes both checks."""
     conf = ShuffleConf(val_words=23)          # reference default: pack
     m = ShuffleManager(MeshRuntime(conf, num_partitions=8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="pack"):
-        run_terasort(m, 64, verify=False)
+    assert m._exchange.sort_mode(25) == "pack"
+    res, _, _ = run_terasort(m, 64, verify=True, device_verify=True)
+    assert res.verified
+    m.stop()
