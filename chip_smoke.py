@@ -55,7 +55,20 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               on a repeat read; ``read_view`` against ``read_partition``;
      G        ``reduce_by_key`` at leg D's data, checked against numpy;
      G-small  its uint32 and float32 sums, card against CPU;
-5. one ``{"kernels": [...]}`` line and, last, the device line.
+5. the out-of-core path at ``bench.py``'s ``run_oversub`` shape:
+     H        ``run_tiered_terasort`` over 16 chunks of 2,097,152 × 100-byte
+              records (3.36 GB) through the tiered store (host watermark
+              four chunks, the rest on disk), with its store counters,
+              host pools and peak device memory beside a 4-chunk run's;
+              the same dataset through ``run_streaming_terasort``'s fold
+              (no store), its sums checked against numpy; a profile of
+              4 chunks of the fold;
+     H-small  16 chunks of 65,536 records on the card and on the CPU:
+              tiered rows bit-identical to each other, to numpy and to an
+              unspilled control; checkpoint then resume after losing
+              half the chunks; the spill mode from chunk files, verified;
+              ``fast_sort`` and ``ring_fused=False`` variants;
+6. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -68,6 +81,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +100,9 @@ PARTS = 8                   # stacked partitions of legs B to E
 D_VAL_WORDS = 2             # leg D: bench.py's combine leg, 16-byte records
 D_SMALL = 1 << 20           # leg D-small: card against CPU
 E_SCALE, E_EDGEFACTOR = 22, 16   # leg E: Graph500 Kronecker graph
+H_CHUNKS = 16               # leg H: bench.py's run_oversub, 16 chunks of
+H_CHUNK = RECORDS // 8      # records_per_device // 8 records each
+H_SMALL_CHUNK = 1 << 16     # leg H-small: card against CPU
 
 
 def fail(msg: str) -> None:
@@ -1043,6 +1060,213 @@ def leg_g_small() -> dict:
     return line
 
 
+def ooc_manager(root: str, chunk: int, device: str = "cuda", **kw):
+    """A manager at ``run_oversub``'s geometry (``bench.py:394-415``):
+    slots of one chunk, "fine" classes, a host watermark of four chunks,
+    two promotions ahead, tier and spill directories under ``root``;
+    8 stacked partitions on the fused ring."""
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    w = KEY_WORDS + VAL_WORDS
+    slot = max(4096, chunk)
+    conf = dict(slot_records=slot, max_rounds=64,
+                max_slot_records=max(1 << 22, 2 * slot),
+                val_words=VAL_WORDS, geometry_classes="fine",
+                transport="pallas_ring",
+                spill_dir=os.path.join(root, "spill"),
+                spill_tier_dir=os.path.join(root, "tier"),
+                spill_tier_host_bytes=4 * w * chunk * 4,
+                spill_tier_prefetch=2)
+    conf.update(kw)
+    return ShuffleManager(MeshRuntime(ShuffleConf(**conf),
+                                      num_partitions=PARTS, device=device))
+
+
+def fold_expect(cols: np.ndarray) -> np.ndarray:
+    """numpy's record count and per-word sums mod 2^32."""
+    return np.concatenate([[np.uint32(cols.shape[1] & 0xFFFFFFFF)],
+                           cols.sum(axis=1, dtype=np.uint32)])
+
+
+def leg_h() -> dict:
+    """``bench.py``'s out-of-core leg on one card: ``run_tiered_terasort``
+    (``collect=False``) over 16 chunks, with a 4-chunk run before it for
+    peak device memory; the streaming fold over the same dataset; a
+    profile of 4 chunks of the fold."""
+    from sparkrdma_tpu_torch.hbm.input_stream import ArrayChunkSource
+    from sparkrdma_tpu_torch.workloads.streaming import (
+        run_streaming_terasort, run_tiered_terasort)
+
+    t0 = time.perf_counter()
+    w, chunk = KEY_WORDS + VAL_WORDS, H_CHUNK
+    cols = np.random.default_rng(5).integers(
+        0, 2**32, size=(w, H_CHUNKS * chunk), dtype=np.uint32)
+    gen_s = time.perf_counter() - t0
+    runs = {}
+    for n in (4, H_CHUNKS):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as tmp:
+            m = ooc_manager(tmp, chunk)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels = zeroed_counters()
+            res = run_tiered_terasort(m, cols[:, :n * chunk], chunk,
+                                      collect=False, shuffle_id_base=900)
+            torch.cuda.synchronize()
+            runs[n] = {"res": res,
+                       "launches": {k: v.launches
+                                    for k, v in kernels.items()},
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "host_pool": m.tiered.host_pool.stats(),
+                       "pool": m.runtime.pool.stats()}
+            m.stop()
+        torch.cuda.empty_cache()
+    res = runs[H_CHUNKS]["res"]
+    spill, fetch, hits, sync = res.store_stats
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fold_") as tmp:
+        m = ooc_manager(tmp, chunk)
+        fold = run_streaming_terasort(m, ArrayChunkSource(cols, chunk))
+        fold_ok = bool(np.array_equal(fold.fold_sums, fold_expect(cols)))
+        prof = profile("leg H fold, 4 chunks", lambda: run_streaming_terasort(
+            m, ArrayChunkSource(cols[:, :4 * chunk], chunk)),
+            "profiles/torch_legH.txt")
+        m.stop()
+    torch.cuda.empty_cache()
+    peak4, peak16 = runs[4]["peak_gb"], runs[H_CHUNKS]["peak_gb"]
+    line = {"leg": "H", "workload": "run_tiered_terasort (collect=False)",
+            "records": res.records, "record_bytes": res.record_bytes,
+            "dataset_bytes": res.total_bytes, "chunks": res.chunks,
+            "chunk_records": chunk, "partitions": PARTS,
+            "transport": "pallas_ring",
+            "conf": "run_oversub: slot 2,097,152, max_slot 4,194,304, "
+                    "max_rounds 64, fine classes, host watermark 4 chunks "
+                    "(838,860,800 B), prefetch 2",
+            "cuts": "8 partitions stacked on one card (the reference's 8 "
+                    "chips); the dataset fits the card's 80 GB, residency "
+                    "is held against one chunk as the reference does",
+            "gbps": res.gbps, "stream_s": res.stream_s,
+            "spill_bytes": spill, "fetch_bytes": fetch,
+            "prefetch_hits": hits, "sync_fetches": sync,
+            "store_host_pool": runs[H_CHUNKS]["host_pool"],
+            "staging_pool": res.staging,
+            "slot_pool": runs[H_CHUNKS]["pool"],
+            "max_memory_gb": peak16, "max_memory_gb_4_chunks": peak4,
+            "peak_ratio_16_over_4": peak16 / peak4,
+            "gbps_4_chunks": runs[4]["res"].gbps,
+            "store_stats_4_chunks": runs[4]["res"].store_stats,
+            "fold_gbps": fold.gbps, "fold_stream_s": fold.stream_s,
+            "fold_staging_pool": fold.staging,
+            "fold_sums_equal_numpy": fold_ok,
+            "fold_idle_share_4_chunks": prof["idle_share"],
+            "gen_s": gen_s, "wall_s": time.perf_counter() - t0,
+            "launches": runs[H_CHUNKS]["launches"],
+            "check": "fold sums vs numpy; spill > 0; peak(16) within 10 % "
+                     "of peak(4)"}
+    report(line)
+    if not fold_ok:
+        fail("leg H: the fold's sums disagree with numpy")
+    if spill <= 0:
+        fail("leg H: nothing was spilled to disk")
+    if abs(peak16 - peak4) > 0.1 * peak4:
+        fail(f"leg H: peak device memory {peak16:.3f} GB at 16 chunks is "
+             f"not within 10 % of {peak4:.3f} GB at 4 chunks")
+    return line
+
+
+def leg_h_small() -> dict:
+    """16 chunks of 65,536 × 100-byte records through the out-of-core
+    entry points, on the card and on the CPU."""
+    from sparkrdma_tpu_torch.hbm.host_staging import write_array
+    from sparkrdma_tpu_torch.hbm.input_stream import FileChunkSource
+    from sparkrdma_tpu_torch.workloads.streaming import (
+        _canon, run_streaming_terasort, run_tiered_terasort)
+
+    w, chunk = KEY_WORDS + VAL_WORDS, H_SMALL_CHUNK
+    cols = np.random.default_rng(15).integers(
+        0, 2**32, size=(w, H_CHUNKS * chunk), dtype=np.uint32)
+    want = _canon(np.ascontiguousarray(cols.T))
+    control_bytes = 2 * cols.nbytes
+    kernels = zeroed_counters()
+    rows, stats, checks = {}, {}, {}
+    variant_launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_small_") as tmp:
+        for device in ("cuda", "cpu"):
+            for name, kw in (("control",
+                              dict(spill_tier_host_bytes=control_bytes)),
+                             ("oversubscribed", {})):
+                m = ooc_manager(os.path.join(tmp, device + name), chunk,
+                                device, **kw)
+                res = run_tiered_terasort(m, cols, chunk)
+                rows[device, name] = res.rows
+                stats[f"{device}/{name}"] = res.store_stats
+                m.stop()
+        m = ooc_manager(os.path.join(tmp, "ckpt"), chunk)
+        first = run_tiered_terasort(m, cols, chunk, checkpoint=True,
+                                    shuffle_id_base=700)
+        keys = [f"ts700.chunk{j}" for j in range(H_CHUNKS)]
+        for j in range(0, H_CHUNKS, 2):
+            m.tiered.put(keys[j], cols[:, j * chunk:(j + 1) * chunk])
+        adopted = m.resume_segments(700)
+        lazily = all(m.tiered.tier_of(k) == "disk" for k in adopted)
+        again = run_tiered_terasort(m, cols, chunk, resume=True,
+                                    shuffle_id_base=700)
+        checks["resume_adopted_only_missing"] = \
+            adopted == keys[1::2] and lazily
+        checks["resume_rows_unchanged"] = bool(
+            np.array_equal(again.rows, first.rows)
+            and np.array_equal(first.rows, want))
+        paths = []
+        for j in range(H_CHUNKS):
+            paths.append(os.path.join(tmp, f"in{j}.bin"))
+            write_array(paths[-1], cols[:, j * chunk:(j + 1) * chunk])
+        os.makedirs(os.path.join(tmp, "runs"))
+        src = FileChunkSource(paths, w, chunk)
+        spilled = run_streaming_terasort(
+            m, src, spill_dir=os.path.join(tmp, "runs"), verify=True)
+        src.close()
+        checks["spill_mode_from_files_verified"] = spilled.verified is True
+        m.stop()
+        for name, kw in (("fast_sort pow2", dict(
+                fast_sort=True, fast_sort_run=4096, geometry_classes="pow2")),
+                         ("ring_fused=False", dict(ring_fused=False))):
+            before = {k: v.launches for k, v in kernels.items()}
+            m = ooc_manager(os.path.join(tmp, name.split()[0]), chunk, **kw)
+            res = run_tiered_terasort(m, cols, chunk)
+            torch.cuda.synchronize()
+            variant_launches[name] = {k: v.launches - before[k]
+                                      for k, v in kernels.items()}
+            checks[f"{name} rows equal default"] = bool(
+                np.array_equal(res.rows, rows["cuda", "oversubscribed"]))
+            m.stop()
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    checks["card_equals_cpu"] = all(
+        np.array_equal(rows["cuda", n], rows["cpu", n])
+        for n in ("control", "oversubscribed"))
+    checks["equals_numpy_and_control"] = all(
+        np.array_equal(r, want) for r in rows.values())
+    checks["control_spills_nothing"] = all(
+        stats[f"{d}/control"][0] == 0 for d in ("cuda", "cpu"))
+    checks["oversubscribed_spills_no_sync_fetch"] = all(
+        stats[f"{d}/oversubscribed"][0] > 0
+        and stats[f"{d}/oversubscribed"][3] == 0 for d in ("cuda", "cpu"))
+    checks["merge_stage_in_fast_sort"] = \
+        variant_launches["fast_sort pow2"]["merge_stage"] > 0
+    checks["ring_all_to_all_in_unfused"] = \
+        variant_launches["ring_fused=False"]["ring_all_to_all"] > 0
+    line = {"leg": "H-small", "records": int(cols.shape[1]),
+            "chunks": H_CHUNKS, "chunk_records": chunk,
+            "partitions": PARTS, "store_stats": stats,
+            "variant_launches": variant_launches, "checks": checks,
+            "launches": launches}
+    report(line)
+    if not all(checks.values()):
+        fail("leg H-small: " + ", ".join(k for k, v in checks.items()
+                                         if not v))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1115,6 +1339,10 @@ def main() -> int:
     legs["G"] = leg_g()
     torch.cuda.empty_cache()
     legs["G-small"] = leg_g_small()
+    torch.cuda.empty_cache()
+    legs["H"] = leg_h()
+    torch.cuda.empty_cache()
+    legs["H-small"] = leg_h_small()
     for k, name in (("ring_exchange", "D"), ("ring_exchange", "E"),
                     ("ring_exchange", "D-small"),
                     ("ring_all_to_all", "D-small"),
@@ -1122,7 +1350,10 @@ def main() -> int:
                     ("ring_exchange", "G"), ("ring_exchange", "F-small"),
                     ("ring_all_to_all", "F-small"),
                     ("merge_stage", "F-small"),
-                    ("ring_exchange", "G-small")):
+                    ("ring_exchange", "G-small"), ("ring_exchange", "H"),
+                    ("ring_exchange", "H-small"),
+                    ("merge_stage", "H-small"),
+                    ("ring_all_to_all", "H-small")):
         if legs[name]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg {name}")
 

@@ -22,7 +22,16 @@ manager's exchange draws its buffers from the runtime's ``SlotPool``.
 A full-range fused read's ``out`` is recycled as the output of the next
 same-geometry read of the same shuffle, which overwrites it in place:
 consume or copy it first. ``unregister_shuffle`` and ``stop`` return the
-recycled buffers to the pool. Checkpointing and the observability stack
+recycled buffers to the pool.
+
+Out-of-core (``workloads/streaming.py``): every manager owns a
+:class:`~sparkrdma_tpu_torch.hbm.tiered_store.TieredStore`
+(``manager.tiered``) over the runtime's pool, through which its exchange
+acquires buffers; with ``conf.spill_dir`` set it also owns a
+``MapOutputStore`` (``manager.store``) for segment checkpoints
+(``checkpoint_segments`` / ``resume_segments``). ``unregister_shuffle``
+drops the shuffle's segments and ``stop`` closes the store. The
+whole-shuffle checkpoint (``spill_to_host``) and the observability stack
 wait for later slices.
 """
 
@@ -37,8 +46,10 @@ import torch
 from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.hbm.slot_pool import Slot
+from sparkrdma_tpu_torch.hbm.tiered_store import TieredStore
 from sparkrdma_tpu_torch.kernels.aggregate import OPS
 from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
+from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
@@ -285,12 +296,25 @@ class ShuffleManager:
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
+        if self.conf.spill_to_host and self.conf.spill_dir:
+            raise NotImplementedError(
+                "spill_to_host (the whole-shuffle checkpoint) is not "
+                "ported yet; segment checkpoints are checkpoint_segments")
         self.metrics = MetricsRegistry(enabled=True)
         # the node owns the pool, the exchange draws from it
         self.runtime.pool.metrics = self.metrics
+        #: segment checkpoints under ``conf.spill_dir`` (None without it)
+        self.store = (MapOutputStore(
+            self.conf.spill_dir, compression=self.conf.compression,
+            compression_level=self.conf.compression_level)
+            if self.conf.spill_dir else None)
+        #: the tiered out-of-core store: the pool as its HBM tier, host
+        #: leases, disk segments
+        self.tiered = TieredStore(self.conf, pool=self.runtime.pool)
         self._exchange = ShuffleExchange(self.runtime, self.conf,
                                          metrics=self.metrics,
-                                         pool=self.runtime.pool)
+                                         pool=self.runtime.pool,
+                                         store=self.tiered)
         self._handles: Dict[int, ShuffleHandle] = {}
         self._writers: Dict[int, ShuffleWriter] = {}
 
@@ -328,10 +352,47 @@ class ShuffleManager:
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
         """Forget the shuffle and return its recycled output buffers to
-        the pool: its reads' outputs must be consumed by now."""
+        the pool: its reads' outputs must be consumed by now. Its tiered
+        store segments and its checkpoint go too."""
         self._handles.pop(shuffle_id, None)
         self._writers.pop(shuffle_id, None)
         self._exchange.release_shuffle(shuffle_id)
+        self.tiered.delete_shuffle(shuffle_id)
+        if self.store is not None:
+            self.store.delete(shuffle_id)
+
+    # --- durability: segment checkpoints -------------------------------
+    def checkpoint_segments(self, shuffle_id: int, segments,
+                            plan: Optional[ShufflePlan], num_parts: int,
+                            extra_meta: Optional[dict] = None) -> None:
+        """Persist chunked map output (``[(key, array), ...]``) as
+        independent CRC-framed segment files and a manifest
+        (:meth:`MapOutputStore.save_segments`), for
+        :meth:`resume_segments`."""
+        if self.store is None:
+            raise RuntimeError("no MapOutputStore configured "
+                               "(set conf.spill_dir)")
+        self.store.save_segments(shuffle_id, segments, plan, num_parts,
+                                 extra_meta=extra_meta)
+
+    def resume_segments(self, shuffle_id: int) -> List[str]:
+        """Adopt a segment checkpoint into the tiered store, only the
+        segments missing from it, and without reading them (the
+        prefetcher brings them in as they are consumed). Returns the
+        adopted keys."""
+        if self.store is None:
+            raise RuntimeError("no MapOutputStore configured "
+                               "(set conf.spill_dir)")
+        meta = self.store.load_segment_meta(shuffle_id)
+        adopted = []
+        for key, entry in meta["segments"].items():
+            if self.tiered.contains(key):
+                continue
+            self.tiered.adopt(key, self.store.segment_path(shuffle_id, entry),
+                              entry["shape"], entry["dtype"],
+                              shuffle=shuffle_id)
+            adopted.append(key)
+        return adopted
 
     # --- ranged reads: per stacked partition, after the exchange -------
     def _filtered(self, out: torch.Tensor, plan: ShufflePlan,
@@ -405,6 +466,7 @@ class ShuffleManager:
         self._exchange.release_all()
         self._handles.clear()
         self._writers.clear()
+        self.tiered.close()
         self.runtime.stop()
 
     def __enter__(self) -> "ShuffleManager":

@@ -2,9 +2,11 @@
 
 Only the knobs the ported paths read are kept (TeraSort, the aggregation
 path with its map-side combine gate, the streaming regime with its
-``queue_depth`` pacing, the slot pool and the pack/wide sort modes),
-under the reference's names and with its defaults, so a configuration
-written for one package means the same thing to the other. Transports
+``queue_depth`` pacing, the slot pool, the pack/wide sort modes, and the
+out-of-core path: host staging, the tiered store and segment
+checkpoints), under the reference's names and with its defaults, so a
+configuration written for one package means the same thing to the
+other. Transports
 that are not ported (the hierarchical one) are refused; the reference's
 ``combine_fallback`` rung is not kept at all, because a map-side combine
 that fails raises here.
@@ -96,6 +98,40 @@ class ShuffleConf:
     #: the map-side combine on
     combine_min_dup_ratio: float = 0.25
 
+    # --- host staging / spill ---
+    #: with ``spill_dir``: checkpoint every published map output whole
+    #: (the reference's ``checkpoint_shuffle``, not ported yet: a manager
+    #: asked for it raises)
+    spill_to_host: bool = False
+    spill_dir: str = ""               # checkpoint root (empty = no store)
+    #: the reference's C++ staging pool and spooler. The port has no copy
+    #: of ``native/staging.cpp`` yet, so every path takes the numpy one
+    #: (whose files are byte-identical) whatever this says
+    use_native_staging: bool = True
+    #: codec for spill runs and checkpoints: "" (off), "zlib" or "lzma";
+    #: files self-describe, so readers need not know it
+    compression: str = ""
+    compression_level: int = 1        # zlib 1-9 / lzma preset 0-9
+
+    # --- tiered out-of-core store (hbm/tiered_store.py) ---
+    #: disk-segment root; empty falls back to ``spill_dir``; with both
+    #: empty an eviction that needs disk leaves the segment on the host
+    spill_tier_dir: str = ""
+    #: host-tier watermark in bytes: past it the store's writer thread
+    #: evicts least-recently-used unpinned segments to disk (a
+    #: steady-state target, not a hard cap: eviction is asynchronous)
+    spill_tier_host_bytes: int = 1 << 28
+    #: disk -> host promotions kept in flight ahead of the consumer (0
+    #: disables prefetch; a ``get`` of a disk segment with none in flight
+    #: is a synchronous fetch)
+    spill_tier_prefetch: int = 2
+    #: reads of a disk segment whose CRC32 trailer mismatches before the
+    #: read raises
+    spill_tier_reread_attempts: int = 3
+    #: codec of segments written to the disk tier ("", "zlib", "lzma")
+    serde_schema_spill_codec: str = ""
+    serde_schema_spill_level: int = 1
+
     def __post_init__(self):
         if self.slot_records <= 0:
             raise ValueError("slot_records must be positive")
@@ -131,6 +167,22 @@ class ShuffleConf:
                      "pack_sort_min_payload"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0")
+        for name in ("compression", "serde_schema_spill_codec"):
+            if getattr(self, name) not in ("", "zlib", "lzma"):
+                raise ValueError(f"unknown {name} {getattr(self, name)!r} "
+                                 "(supported: '', 'zlib', 'lzma')")
+        for name in ("compression_level", "serde_schema_spill_level"):
+            if not 0 <= getattr(self, name) <= 9:
+                raise ValueError(f"{name} must be in [0, 9]")
+        if self.spill_tier_host_bytes < 0:
+            raise ValueError("spill_tier_host_bytes must be >= 0 (0 = "
+                             "evict every unpinned host segment)")
+        if self.spill_tier_prefetch < 0:
+            raise ValueError("spill_tier_prefetch must be >= 0 (0 "
+                             "disables prefetch)")
+        if self.spill_tier_reread_attempts <= 0:
+            raise ValueError("spill_tier_reread_attempts must be >= 1 "
+                             "(1 = no re-reads)")
         _parse_prealloc(self.prealloc)  # validate eagerly
 
     @property

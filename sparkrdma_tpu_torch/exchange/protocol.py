@@ -46,7 +46,8 @@ regime draws its chunks and accumulator from it, and the fused regime's
 ``out`` becomes the output buffer of the NEXT same-geometry exchange of
 the same shuffle, which overwrites it in place — consume (or copy) it
 before then. :meth:`ShuffleExchange.release_shuffle` hands a shuffle's
-buffers back to the pool.
+buffers back to the pool. Given a tiered store (``store=``), the
+exchange acquires and releases every pooled buffer through it.
 
 The record-movement strategy of every sort (``sort_mode``: pack, wide
 or plain) is chosen as in the reference; all three are one stable sort
@@ -134,12 +135,20 @@ class ShuffleExchange:
 
     def __init__(self, runtime: MeshRuntime,
                  conf: Optional[ShuffleConf] = None,
-                 metrics: Optional[MetricsRegistry] = None, pool=None):
+                 metrics: Optional[MetricsRegistry] = None, pool=None,
+                 store=None):
         self.runtime = runtime
         self.conf = conf or runtime.conf
         self.mesh_size = runtime.num_partitions
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
+        #: the tiered store (``hbm/tiered_store.py``): when given, buffers
+        #: are acquired and released through it, so that each acquisition
+        #: pokes its writer; its HBM tier is the pool, which a store-only
+        #: caller inherits
+        self.store = store
+        if store is not None and pool is None:
+            pool = store.pool
         #: the runtime's ``SlotPool`` (a manager passes it), or None: then
         #: every buffer is a fresh allocation and nothing is recycled
         self.pool = pool
@@ -161,10 +170,16 @@ class ShuffleExchange:
         writes every word it reads."""
         if self.pool is None:
             return torch.empty(shape, dtype=torch.int32, device=device)
+        if self.store is not None:
+            return self.store.acquire_device(shape)
         return self.pool.get_shaped(shape)
 
     def _put_buf(self, arr: torch.Tensor) -> None:
-        if self.pool is not None:
+        if self.pool is None:
+            return
+        if self.store is not None:
+            self.store.release_device(arr)
+        else:
             self.pool.put_shaped(arr)
 
     def release_shuffle(self, shuffle_id: int) -> None:

@@ -13,12 +13,22 @@ exchanges (``combine.gate_on`` / ``combine.gate_off``), and the
 pushdowns it ran (``pushdown.filters``, ``pushdown.projections``). The
 slot pool counts ``pool.hits`` and ``pool.misses`` and sets the gauge
 ``pool.outstanding`` (buffers handed out and not yet returned).
+
+Host staging and the tiered store have no manager in reach, so they
+record in the process-wide :func:`global_registry`, as in the reference:
+``staging.spills`` / ``staging.spill_bytes`` per spilled array, and the
+store's ``store.puts``, ``store.put_bytes``, ``store.spill_writes``,
+``store.spill_bytes``, ``store.fetches``, ``store.fetch_bytes``,
+``store.prefetch_hits``, ``store.sync_fetches``, ``store.crc_rereads``,
+``store.compressed_segments`` and ``recover.spill_reread`` (a CRC
+mismatch overcome by a re-read), with the gauges ``store.host_bytes``
+and ``store.disk_bytes``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 
 class Counter:
@@ -70,4 +80,17 @@ class MetricsRegistry:
             return g
 
 
-__all__ = ["Counter", "Gauge", "MetricsRegistry"]
+_global_lock = threading.Lock()
+_global: Optional[MetricsRegistry] = None    # guarded-by: _global_lock
+
+
+def global_registry() -> MetricsRegistry:
+    """The process-wide registry (always enabled)."""
+    global _global
+    with _global_lock:
+        if _global is None:
+            _global = MetricsRegistry(enabled=True)
+        return _global
+
+
+__all__ = ["Counter", "Gauge", "MetricsRegistry", "global_registry"]

@@ -41,6 +41,17 @@ def test_sources_found():
     assert REPO / "scripts" / "torch_merge_ab.py" in SOURCES
 
 
+@pytest.mark.parametrize("rel", [
+    "hbm/host_staging.py", "hbm/tiered_store.py", "hbm/input_stream.py",
+    "meta/checkpoint.py", "workloads/streaming.py"])
+def test_out_of_core_modules_scanned(rel):
+    """The out-of-core modules are ported (the reference's copies of
+    these import no JAX, and the port keeps its own all the same)."""
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):
