@@ -60,14 +60,20 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               records (3.36 GB) through the tiered store (host watermark
               four chunks, the rest on disk), with its store counters,
               host pools and peak device memory beside a 4-chunk run's;
-              the same dataset through ``run_streaming_terasort``'s fold
-              (no store), its sums checked against numpy; a profile of
-              4 chunks of the fold;
+              then a third run with every chunk's read verified on the
+              card (conservation, order within each partition, ascending
+              partition boundaries); the same dataset through
+              ``run_streaming_terasort``'s fold (no store), its sums
+              checked against numpy; a profile of 4 chunks of the fold;
+              then the ring kernel at the shape leg H's chunk plan gives
+              it, against its plain version;
      H-small  16 chunks of 65,536 records on the card and on the CPU:
-              tiered rows bit-identical to each other, to numpy and to an
-              unspilled control; checkpoint then resume after losing
-              half the chunks; the spill mode from chunk files, verified;
-              ``fast_sort`` and ``ring_fused=False`` variants;
+              each chunk's per-partition reads bit-identical card against
+              CPU, across variants, spilled or not, and in key order; the
+              full-record-ordered rows equal to numpy; checkpoint then
+              resume after losing half the chunks; the spill mode from
+              chunk files, verified; ``fast_sort`` and ``ring_fused=False``
+              variants;
 6. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
@@ -1123,6 +1129,14 @@ def leg_h() -> dict:
         torch.cuda.empty_cache()
     res = runs[H_CHUNKS]["res"]
     spill, fetch, hits, sync = res.store_stats
+    # the same 16 chunks again, each read checked on the card: the timed
+    # runs above carry no check, the fold below only a multiset's
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as tmp:
+        m = ooc_manager(tmp, chunk)
+        checked = run_tiered_terasort(m, cols, chunk, collect=False,
+                                      shuffle_id_base=900, device_verify=True)
+        m.stop()
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fold_") as tmp:
         m = ooc_manager(tmp, chunk)
@@ -1158,12 +1172,17 @@ def leg_h() -> dict:
             "fold_gbps": fold.gbps, "fold_stream_s": fold.stream_s,
             "fold_staging_pool": fold.staging,
             "fold_sums_equal_numpy": fold_ok,
+            "device_verified": checked.verified,
+            "device_verified_gbps": checked.gbps,
             "fold_idle_share_4_chunks": prof["idle_share"],
             "gen_s": gen_s, "wall_s": time.perf_counter() - t0,
             "launches": runs[H_CHUNKS]["launches"],
-            "check": "fold sums vs numpy; spill > 0; peak(16) within 10 % "
-                     "of peak(4)"}
+            "check": "every chunk's read on the card (a third run); fold "
+                     "sums vs numpy; spill > 0; peak(16) within 10 % of "
+                     "peak(4)"}
     report(line)
+    if checked.verified is not True:
+        fail("leg H: a chunk's read failed the device check")
     if not fold_ok:
         fail("leg H: the fold's sums disagree with numpy")
     if spill <= 0:
@@ -1172,6 +1191,76 @@ def leg_h() -> dict:
         fail(f"leg H: peak device memory {peak16:.3f} GB at 16 chunks is "
              f"not within 10 % of {peak4:.3f} GB at 4 chunks")
     return line
+
+
+def ring_ooc_phase() -> dict:
+    """The fused exchange at the shape leg H's chunk plan gives it: chunk
+    0 of leg H's dataset, planned by leg H's manager with the splitters
+    the workload draws (slots of one chunk, "fine" classes), in the fused
+    regime's layout ``[D, R, D, ppd, W, C + 1]`` (lane 0 of round 0 holds
+    the size exchange)."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_exchange,
+                                                   ring_exchange_plain)
+    from sparkrdma_tpu_torch.interop import records_to_torch
+    from sparkrdma_tpu_torch.workloads.streaming import _splitter_partitioner
+
+    w, chunk = KEY_WORDS + VAL_WORDS, H_CHUNK
+    first = np.random.default_rng(5).integers(
+        0, 2**32, size=(w, chunk), dtype=np.uint32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_ooc_") as tmp:
+        m = ooc_manager(tmp, chunk)
+        part = _splitter_partitioner(first, PARTS, KEY_WORDS, 256)
+        h = m.register_shuffle(1, PARTS, part)
+        plan = m.get_writer(h).write(
+            records_to_torch(first, m.runtime.device)).stop()
+        fused = plan.num_rounds <= m.conf.max_rounds_in_flight
+        m.stop()
+    if not fused:
+        fail(f"leg H's chunk plan streams ({plan.num_rounds} rounds): the "
+             "ring phase assumes the fused layout")
+    shape = (PARTS, plan.num_rounds, PARTS, plan.split_factor, w,
+             plan.capacity + 1)
+    send = rand_words(shape, seed=13)
+    got = ring_exchange(send)
+    err = max_abs_err(got, ring_exchange_plain(send))
+    if err:
+        fail(f"ring_exchange disagrees with its plain version at leg H's "
+             f"chunk shape: {err}")
+    line = {"phase": "ring_exchange", "leg": "H chunk", "shape": list(shape),
+            "plan": {"rounds": plan.num_rounds, "capacity": plan.capacity,
+                     "split_factor": plan.split_factor,
+                     "out_capacity": plan.out_capacity},
+            "max_abs_err": err,
+            "kernel_ms": time_ms(lambda: ring_exchange(send, out=got),
+                                 reps=10, inner=5),
+            "kernel_ms_single": time_ms(lambda: ring_exchange(send, out=got),
+                                        reps=20),
+            "bound_ms": 2 * send.numel() * 4 / MEM_RATE * 1e3,
+            "plain_ms": time_ms(lambda: ring_exchange_plain(send), reps=10,
+                                inner=5),
+            "library_ms": time_ms(
+                lambda: send.permute(2, 1, 0, 3, 4, 5).contiguous(),
+                reps=10, inner=5)}
+    report(line)
+    return line
+
+
+def same_runs(a, b) -> bool:
+    """Two tiered runs' per-partition reads, chunk by chunk, bit for bit."""
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(np.array_equal(x, y)
+                                   for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+def runs_in_key_order(runs) -> bool:
+    """Each chunk's partitions, read in partition order, ascend by key."""
+    for j in range(len(runs[0])):
+        rows = np.concatenate([runs[d][j] for d in range(len(runs))])
+        key = rows[:, 0].astype(np.uint64) << np.uint64(32) | rows[:, 1]
+        if np.any(key[1:] < key[:-1]):
+            return False
+    return True
 
 
 def leg_h_small() -> dict:
@@ -1188,7 +1277,7 @@ def leg_h_small() -> dict:
     want = _canon(np.ascontiguousarray(cols.T))
     control_bytes = 2 * cols.nbytes
     kernels = zeroed_counters()
-    rows, stats, checks = {}, {}, {}
+    rows, runs, stats, checks = {}, {}, {}, {}
     variant_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_small_") as tmp:
         for device in ("cuda", "cpu"):
@@ -1199,6 +1288,7 @@ def leg_h_small() -> dict:
                                 device, **kw)
                 res = run_tiered_terasort(m, cols, chunk)
                 rows[device, name] = res.rows
+                runs[device, name] = res.runs
                 stats[f"{device}/{name}"] = res.store_stats
                 m.stop()
         m = ooc_manager(os.path.join(tmp, "ckpt"), chunk)
@@ -1215,7 +1305,9 @@ def leg_h_small() -> dict:
             adopted == keys[1::2] and lazily
         checks["resume_rows_unchanged"] = bool(
             np.array_equal(again.rows, first.rows)
-            and np.array_equal(first.rows, want))
+            and np.array_equal(first.rows, want)
+            and same_runs(again.runs, first.runs)
+            and same_runs(first.runs, runs["cuda", "oversubscribed"]))
         paths = []
         for j in range(H_CHUNKS):
             paths.append(os.path.join(tmp, f"in{j}.bin"))
@@ -1236,14 +1328,22 @@ def leg_h_small() -> dict:
             torch.cuda.synchronize()
             variant_launches[name] = {k: v.launches - before[k]
                                       for k, v in kernels.items()}
-            checks[f"{name} rows equal default"] = bool(
-                np.array_equal(res.rows, rows["cuda", "oversubscribed"]))
+            checks[f"{name} reads equal default"] = bool(
+                np.array_equal(res.rows, rows["cuda", "oversubscribed"])
+                and same_runs(res.runs, runs["cuda", "oversubscribed"]))
             m.stop()
     torch.cuda.synchronize()
     launches = {k: v.launches for k, v in kernels.items()}
+    # per partition and chunk, before the full-record reordering
     checks["card_equals_cpu"] = all(
-        np.array_equal(rows["cuda", n], rows["cpu", n])
+        same_runs(runs["cuda", n], runs["cpu", n])
+        and np.array_equal(rows["cuda", n], rows["cpu", n])
         for n in ("control", "oversubscribed"))
+    checks["spilled_reads_equal_control"] = all(
+        same_runs(runs[d, "oversubscribed"], runs[d, "control"])
+        for d in ("cuda", "cpu"))
+    checks["reads_in_key_order"] = all(runs_in_key_order(r)
+                                       for r in runs.values())
     checks["equals_numpy_and_control"] = all(
         np.array_equal(r, want) for r in rows.values())
     checks["control_spills_nothing"] = all(
@@ -1342,6 +1442,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     legs["H"] = leg_h()
     torch.cuda.empty_cache()
+    ring_ooc = ring_ooc_phase()
+    torch.cuda.empty_cache()
     legs["H-small"] = leg_h_small()
     for k, name in (("ring_exchange", "D"), ("ring_exchange", "E"),
                     ("ring_exchange", "D-small"),
@@ -1374,7 +1476,8 @@ def main() -> int:
          "replaces": "sparkrdma_tpu/exchange/ring.py:140",
          "launches": launches("ring_exchange"),
          "max_abs_err": max(ring["max_abs_err"], ring_w3["max_abs_err"],
-                            ring_chunk["max_abs_err"]),
+                            ring_chunk["max_abs_err"],
+                            ring_ooc["max_abs_err"]),
          "ms": ring["kernel_ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
          "bound_by": "bytes", "library_ms": ring["library_ms"],
@@ -1384,7 +1487,10 @@ def main() -> int:
          "chunk": {k: ring_chunk[k] for k in ("shape", "fine_shape",
                                               "max_abs_err", "kernel_ms",
                                               "plain_ms", "bound_ms",
-                                              "library_ms")}},
+                                              "library_ms")},
+         "ooc_chunk": {k: ring_ooc[k] for k in ("shape", "max_abs_err",
+                                                "kernel_ms", "plain_ms",
+                                                "bound_ms", "library_ms")}},
         {"name": "ring_all_to_all", "route": "cuda",
          "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "sparkrdma_tpu/exchange/ring.py:87",

@@ -296,10 +296,6 @@ class ShuffleManager:
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
-        if self.conf.spill_to_host and self.conf.spill_dir:
-            raise NotImplementedError(
-                "spill_to_host (the whole-shuffle checkpoint) is not "
-                "ported yet; segment checkpoints are checkpoint_segments")
         self.metrics = MetricsRegistry(enabled=True)
         # the node owns the pool, the exchange draws from it
         self.runtime.pool.metrics = self.metrics

@@ -100,14 +100,11 @@ class ShuffleConf:
 
     # --- host staging / spill ---
     #: with ``spill_dir``: checkpoint every published map output whole
-    #: (the reference's ``checkpoint_shuffle``, not ported yet: a manager
-    #: asked for it raises)
+    #: (the reference's ``checkpoint_shuffle``). Not ported yet: True
+    #: raises. (The reference's ``use_native_staging`` is left out too:
+    #: the port has no copy of ``native/staging.cpp``.)
     spill_to_host: bool = False
     spill_dir: str = ""               # checkpoint root (empty = no store)
-    #: the reference's C++ staging pool and spooler. The port has no copy
-    #: of ``native/staging.cpp`` yet, so every path takes the numpy one
-    #: (whose files are byte-identical) whatever this says
-    use_native_staging: bool = True
     #: codec for spill runs and checkpoints: "" (off), "zlib" or "lzma";
     #: files self-describe, so readers need not know it
     compression: str = ""
@@ -183,6 +180,10 @@ class ShuffleConf:
         if self.spill_tier_reread_attempts <= 0:
             raise ValueError("spill_tier_reread_attempts must be >= 1 "
                              "(1 = no re-reads)")
+        if self.spill_to_host:
+            raise NotImplementedError(
+                "spill_to_host (the whole-shuffle checkpoint) is not "
+                "ported yet; segment checkpoints are checkpoint_segments")
         _parse_prealloc(self.prealloc)  # validate eagerly
 
     @property

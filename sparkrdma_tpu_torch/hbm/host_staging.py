@@ -10,8 +10,8 @@ The storage subset of ``sparkrdma_tpu.hbm.host_staging``:
 - :class:`HostBufferPool` — power-of-two size-classed host buffers
   (``RdmaBufferManager.get/put``). A pool made with ``pinned=True``
   allocates page-locked torch tensors, which an asynchronous copy to the
-  card needs, up to ``pinned_limit`` bytes; past it, and in a pool made
-  without it, leases are ordinary numpy memory. A lease is never freed,
+  card needs; a pool made without it allocates ordinary numpy memory.
+  A lease is never freed,
   only returned to its class's free stack, so page-locking is a one-time
   cost per buffer;
 - :class:`SpillWriter` — a bounded queue and one writer thread persist
@@ -177,14 +177,11 @@ class HostBuffer:
 class HostBufferPool:
     """Size-classed host buffer pool (``RdmaBufferManager`` analogue).
 
-    ``pinned``: allocate page-locked buffers (torch, CUDA runtime only)
-    while the pool's pinned bytes stay within ``pinned_limit`` (None = no
-    limit); other buffers are numpy memory."""
+    ``pinned``: allocate page-locked buffers (torch, CUDA runtime only);
+    otherwise numpy memory."""
 
-    def __init__(self, pinned: bool = False,
-                 pinned_limit: Optional[int] = None):
+    def __init__(self, pinned: bool = False):
         self.pinned = pinned
-        self.pinned_limit = pinned_limit
         self._free: Dict[int, List[HostBuffer]] = {}   # guarded-by: _lock
         self._lock = threading.Lock()
         self._hits = 0                                 # guarded-by: _lock
@@ -210,19 +207,16 @@ class HostBufferPool:
             else:
                 self._allocations += 1
                 self._bytes += cls
-                pin = self.pinned and (
-                    self.pinned_limit is None
-                    or self._pinned_bytes + cls <= self.pinned_limit)
-                if pin:
+                if self.pinned:
                     self._pinned_bytes += cls
             self._outstanding += 1
         if buf is None:
-            buf = self._allocate(cls, pin)
+            buf = self._allocate(cls)
         buf._released = False
         return buf
 
-    def _allocate(self, cls: int, pin: bool) -> HostBuffer:
-        if not pin:
+    def _allocate(self, cls: int) -> HostBuffer:
+        if not self.pinned:
             return HostBuffer(cls, np.empty(cls, np.uint8), None, False, self)
         import torch
 

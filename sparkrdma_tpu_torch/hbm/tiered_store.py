@@ -7,8 +7,8 @@ Counterpart of ``sparkrdma_tpu.hbm.tiered_store``:
   ``acquire_device``/``release_device``, and each acquisition pokes the
   writer, so eviction overlaps the exchange;
 - **host tier** — segments staged in :class:`~sparkrdma_tpu_torch.hbm
-  .host_staging.HostBufferPool` leases (page-locked on a CUDA runtime, up
-  to the watermark), bounded by ``ShuffleConf.spill_tier_host_bytes``;
+  .host_staging.HostBufferPool` leases (pageable host memory), bounded by
+  ``ShuffleConf.spill_tier_host_bytes``;
 - **disk tier** — CRC32-trailed segment files under ``spill_tier_dir``
   (else ``spill_dir``), in the reference's byte layout.
 
@@ -97,9 +97,9 @@ class TieredStore:
         self._watermark = conf.spill_tier_host_bytes
         self._prefetch_depth = conf.spill_tier_prefetch
         self._reread_attempts = conf.spill_tier_reread_attempts
-        on_card = pool is not None and pool.device.type == "cuda"
-        self.host_pool = HostBufferPool(pinned=on_card,
-                                        pinned_limit=self._watermark)
+        # pageable: segments reach the card through a copy made by
+        # ``get`` (the input streamer stages it in its own page-locked pool)
+        self.host_pool = HostBufferPool()
         self._segments: Dict[str, _Segment] = {}    # guarded-by: _lock
         self._lock = threading.Lock()
         self._tick = 0                       # guarded-by: _lock

@@ -39,6 +39,7 @@ from sparkrdma_tpu_torch.hbm.input_stream import (InputStreamer,
 from sparkrdma_tpu_torch.hbm.tiered_store import store_totals
 from sparkrdma_tpu_torch.meta.sampling import compute_splitters
 from sparkrdma_tpu_torch.utils.stats import barrier
+from sparkrdma_tpu_torch.workloads.terasort import device_verify_sort
 
 _LOW = 0xFFFFFFFF
 
@@ -195,6 +196,14 @@ class TieredSortResult:
     store_stats: tuple = (0, 0, 0, 0)
     #: the input streamer's page-locked staging pool (empty on the CPU)
     staging: dict = dataclasses.field(default_factory=dict)
+    #: ``runs[d][j]``: partition d's rows of chunk j (``uint32[k, W]``) as
+    #: the key-ordered read gave them, before any reordering; None with
+    #: ``collect=False``
+    runs: Optional[Sequence[Sequence[np.ndarray]]] = None
+    #: ``device_verify``: every chunk's read passed
+    #: :func:`~sparkrdma_tpu_torch.workloads.terasort.device_verify_sort`
+    #: (None when not asked)
+    verified: Optional[bool] = None
 
     @property
     def total_bytes(self) -> int:
@@ -223,6 +232,7 @@ def run_tiered_terasort(
     checkpoint: bool = False,
     collect: bool = True,
     resume: bool = False,
+    device_verify: bool = False,
 ) -> TieredSortResult:
     """Out-of-core TeraSort through the manager's tiered store.
 
@@ -236,8 +246,11 @@ def run_tiered_terasort(
     ``checkpoint=True`` also saves each chunk as a segment checkpoint
     under ``shuffle_id_base``; ``resume=True`` skips publication and
     adopts that checkpoint instead (only the segments the store lacks).
-    ``collect=True`` returns the full-record-ordered global stream;
-    ``collect=False`` runs for throughput only.
+    ``collect=True`` returns the full-record-ordered global stream and
+    each chunk's per-partition reads; ``collect=False`` runs for
+    throughput only. ``device_verify`` checks each chunk's read on the
+    device that holds it (conservation, order within each partition,
+    ascending partition boundaries), at the cost of a few syncs a chunk.
     """
     rt = manager.runtime
     mesh = rt.num_partitions
@@ -284,6 +297,7 @@ def run_tiered_terasort(
         store, keys, lookahead=manager.conf.spill_tier_prefetch))
     device_rows: list = [[] for _ in range(mesh)]
     records = 0
+    verified = None
     for j, chunk in enumerate(streamer):
         records += chunk.shape[1]
         # exchange ids start at base + 1: a resumed checkpoint's segments
@@ -294,6 +308,10 @@ def run_tiered_terasort(
             manager.get_writer(handle).write(chunk).stop(True)
             out, totals = manager.get_reader(handle,
                                              key_ordering=True).read()
+            if device_verify:
+                ok = device_verify_sort(manager, chunk, out, totals, kw,
+                                        out.shape[1] // mesh)
+                verified = ok if verified is None else verified and ok
             if collect:
                 host = out.cpu().numpy().view(np.uint32)
                 tot = totals.tolist()
@@ -319,7 +337,9 @@ def run_tiered_terasort(
         chunks=n_chunks, records=records, record_bytes=4 * w,
         stream_s=stream_s, rows=rows,
         store_stats=tuple(b - a for a, b in zip(base0, store_totals())),
-        staging=_staging_stats(streamer))
+        staging=_staging_stats(streamer),
+        runs=([tuple(r) for r in device_rows] if collect else None),
+        verified=verified)
 
 
 def _verify_runs(source, run_paths, mesh, kw, w) -> bool:

@@ -13,14 +13,35 @@ import threading
 import numpy as np
 import pytest
 
-from sparkrdma_tpu.exchange.protocol import ShufflePlan as RefPlan
-from sparkrdma_tpu.hbm import host_staging as ref
-from sparkrdma_tpu.meta.checkpoint import MapOutputStore as RefStore
-from sparkrdma_tpu_torch.exchange.protocol import ShufflePlan
-from sparkrdma_tpu_torch.hbm import host_staging as port
-from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
-
 CODECS = ["", "zlib", "lzma"]
+
+
+# both packages are imported by fixtures, not at module level: importing
+# this file stays cheap (no torch, no JAX)
+@pytest.fixture(scope="module")
+def port():
+    from sparkrdma_tpu_torch.hbm import host_staging
+
+    return host_staging
+
+
+@pytest.fixture(scope="module")
+def ref():
+    from sparkrdma_tpu.hbm import host_staging
+
+    return host_staging
+
+
+@pytest.fixture(scope="module")
+def stores():
+    """(port MapOutputStore, port ShufflePlan, reference MapOutputStore,
+    reference ShufflePlan)."""
+    from sparkrdma_tpu.exchange.protocol import ShufflePlan as RefPlan
+    from sparkrdma_tpu.meta.checkpoint import MapOutputStore as RefStore
+    from sparkrdma_tpu_torch.exchange.protocol import ShufflePlan
+    from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
+
+    return MapOutputStore, ShufflePlan, RefStore, RefPlan
 
 
 def bounded(fn, timeout=10.0):
@@ -55,7 +76,8 @@ def _records(seed, shape=(513, 4)):
 @pytest.mark.parametrize("shape,dtype", [((513, 4), np.uint32),
                                          ((7, 25), np.uint32),
                                          ((1000,), np.uint8)])
-def test_write_array_byte_identical(tmp_path, codec, checksum, shape, dtype):
+def test_write_array_byte_identical(tmp_path, codec, checksum, shape, dtype,
+                                    port, ref):
     x = _records(1, shape).astype(dtype)
     a, b = str(tmp_path / "port.bin"), str(tmp_path / "ref.bin")
     port.write_array(a, x, codec=codec, checksum=checksum)
@@ -65,7 +87,7 @@ def test_write_array_byte_identical(tmp_path, codec, checksum, shape, dtype):
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("writer", ["port", "ref"])
-def test_each_reads_the_other(tmp_path, codec, writer):
+def test_each_reads_the_other(tmp_path, codec, writer, port, ref):
     x = _records(2)
     p = str(tmp_path / "x.bin")
     if writer == "port":
@@ -78,7 +100,7 @@ def test_each_reads_the_other(tmp_path, codec, writer):
 
 
 @pytest.mark.parametrize("codec", CODECS)
-def test_read_into_out(tmp_path, codec):
+def test_read_into_out(tmp_path, codec, port):
     x = _records(3)
     p = str(tmp_path / "x.bin")
     port.write_array(p, x, codec=codec)
@@ -87,7 +109,7 @@ def test_read_into_out(tmp_path, codec):
     np.testing.assert_array_equal(out, x)
 
 
-def test_legacy_file_without_trailer_reads(tmp_path):
+def test_legacy_file_without_trailer_reads(tmp_path, port, ref):
     x = _records(4)
     p = str(tmp_path / "x.bin")
     ref.write_array(p, x, use_native=False, checksum=False)
@@ -96,7 +118,7 @@ def test_legacy_file_without_trailer_reads(tmp_path):
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("offset", [0, 3, 100])
-def test_crc_mismatch_raises(tmp_path, codec, offset):
+def test_crc_mismatch_raises(tmp_path, codec, offset, port):
     x = _records(5)
     p = str(tmp_path / "x.bin")
     port.write_array(p, x, codec=codec)
@@ -110,7 +132,7 @@ def test_crc_mismatch_raises(tmp_path, codec, offset):
 
 
 @pytest.mark.parametrize("cut", [1, 7, 9, 500])
-def test_truncated_file_raises(tmp_path, cut):
+def test_truncated_file_raises(tmp_path, cut, port):
     """(Cutting exactly the 8-byte trailer leaves a legacy raw file.)"""
     x = _records(6)
     p = str(tmp_path / "x.bin")
@@ -121,13 +143,13 @@ def test_truncated_file_raises(tmp_path, cut):
         port.read_array(p, np.uint32, x.shape)
 
 
-def test_missing_file_raises(tmp_path):
+def test_missing_file_raises(tmp_path, port):
     with pytest.raises(OSError, match="unreadable"):
         port.read_array(str(tmp_path / "none.bin"), np.uint32, (4,))
 
 
 @pytest.mark.parametrize("codec", ["zlib", "lzma"])
-def test_compress_array_matches_reference(codec):
+def test_compress_array_matches_reference(codec, port, ref):
     x = _records(7)
     blob = port.compress_array(x, codec, 1)
     assert blob == ref.compress_array(x, codec, 1)
@@ -136,14 +158,14 @@ def test_compress_array_matches_reference(codec):
         port.compress_array(x, "zstd")
 
 
-def test_decompress_blob_truncation_raises_oserror():
+def test_decompress_blob_truncation_raises_oserror(port):
     blob = port.compress_array(_records(8), "zlib", 1)
     for cut in (1, 5, 12, 13, len(blob) // 2, len(blob) - 1):
         with pytest.raises(OSError):
             port.decompress_blob(blob[:cut])
 
 
-def test_crc_frame_into_equals_crc_frame():
+def test_crc_frame_into_equals_crc_frame(port, ref):
     pool = port.HostBufferPool()
     for seed, shape in ((9, (513, 4)), (10, (3,)), (11, (512, 4))):
         x = _records(seed, shape)
@@ -155,7 +177,7 @@ def test_crc_frame_into_equals_crc_frame():
     assert pool.stats()["hits"] >= 1
 
 
-def test_verify_crc_rejects_bad_magic():
+def test_verify_crc_rejects_bad_magic(port):
     x = _records(12)
     frame = port.crc_frame(x)
     with pytest.raises(OSError, match="not a CRC trailer"):
@@ -164,7 +186,7 @@ def test_verify_crc_rejects_bad_magic():
 
 # --- host buffer pool -------------------------------------------------
 
-def test_pool_size_class_reuse():
+def test_pool_size_class_reuse(port):
     pool = port.HostBufferPool()
     b = pool.get(1000)
     assert b.nbytes == 1024 and not b.pinned and b.tensor is None
@@ -182,7 +204,7 @@ def test_pool_size_class_reuse():
     assert port.HostBufferPool.size_class(257) == 512
 
 
-def test_pool_rejects_double_release():
+def test_pool_rejects_double_release(port):
     pool = port.HostBufferPool()
     b = pool.get(64)
     b.release()
@@ -190,34 +212,38 @@ def test_pool_rejects_double_release():
         pool.put(b)
 
 
-def test_pool_pinned_limit_on_cpu_pool():
-    """A pool made without ``pinned`` never page-locks, whatever the
-    limit; the pinned byte count stays 0."""
-    pool = port.HostBufferPool(pinned=False, pinned_limit=1 << 20)
-    pool.get(4096).release()
+def test_pool_pinned_limit_on_cpu_pool(port):
+    """A pool made without ``pinned`` never page-locks: its leases are
+    numpy memory with no tensor, and the pinned byte count stays 0."""
+    pool = port.HostBufferPool(pinned=False)
+    b = pool.get(4096)
+    assert not b.pinned and b.tensor is None
+    b.release()
     assert pool.stats()["pinned_bytes"] == 0
 
 
 @pytest.mark.gpu
-def test_pinned_pool_on_card():
+def test_pinned_pool_on_card(port):
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: page-locked memory needs CUDA")
-    pool = port.HostBufferPool(pinned=True, pinned_limit=3 * 1024)
+    pool = port.HostBufferPool(pinned=True)
     a, b = pool.get(1024), pool.get(1024)
-    c, d = pool.get(1024), pool.get(1024)
-    assert a.pinned and a.tensor.is_pinned() and c.pinned and not d.pinned
-    assert pool.stats()["pinned_bytes"] == 3 * 1024
-    for x in (a, b, c, d):
+    assert a.pinned and a.tensor.is_pinned() and b.tensor.is_pinned()
+    assert pool.stats()["pinned_bytes"] == 2 * 1024
+    for x in (a, b):
         x.release()
+    assert pool.get(1024).tensor.is_pinned()
+    assert pool.stats()["allocations"] == 2
 
 
 # --- spill writer -----------------------------------------------------
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("with_pool", [False, True])
-def test_spill_writer_files_match_reference(tmp_path, codec, with_pool):
+def test_spill_writer_files_match_reference(tmp_path, codec, with_pool, port,
+                                            ref):
     arrs = [_records(20 + i, (100 + i, 4)) for i in range(12)]
     pool = port.HostBufferPool() if with_pool else None
     sw = port.SpillWriter(depth=3, codec=codec, pool=pool)
@@ -243,7 +269,7 @@ def test_spill_writer_files_match_reference(tmp_path, codec, with_pool):
         assert pool.stats()["outstanding"] == 0
 
 
-def test_spill_writer_counts_write_errors(tmp_path):
+def test_spill_writer_counts_write_errors(tmp_path, port):
     sw = port.SpillWriter(depth=2)
     try:
         sw.submit(str(tmp_path / "missing" / "x.bin"), _records(30))
@@ -255,7 +281,7 @@ def test_spill_writer_counts_write_errors(tmp_path):
     assert sw._thread is None
 
 
-def test_spill_writer_rejects_unknown_codec():
+def test_spill_writer_rejects_unknown_codec(port):
     with pytest.raises(ValueError):
         port.SpillWriter(codec="zstd")
 
@@ -267,8 +293,9 @@ def _segments(seed, n=3):
 
 
 @pytest.mark.parametrize("codec", ["", "zlib"])
-def test_save_segments_byte_identical(tmp_path, codec):
+def test_save_segments_byte_identical(tmp_path, codec, stores):
     counts = np.arange(16, dtype=np.int64).reshape(8, 2)
+    MapOutputStore, ShufflePlan, RefStore, RefPlan = stores
     geo = dict(num_rounds=3, out_capacity=64, capacity=8, split_factor=2)
     mine = MapOutputStore(str(tmp_path / "port"), compression=codec)
     theirs = RefStore(str(tmp_path / "ref"), use_native=False,
@@ -289,8 +316,9 @@ def test_save_segments_byte_identical(tmp_path, codec):
     assert meta["plan_fp"] == "abc" and meta["split_factor"] == 2
 
 
-def test_segment_store_reads_reference_checkpoint(tmp_path):
+def test_segment_store_reads_reference_checkpoint(tmp_path, port, stores):
     root = str(tmp_path / "ck")
+    MapOutputStore, ShufflePlan, RefStore, RefPlan = stores
     segs = _segments(50)
     bounded(lambda: RefStore(root, use_native=False).save_segments(
         9, segs, None, 8))
@@ -310,8 +338,9 @@ def test_segment_store_reads_reference_checkpoint(tmp_path):
         mine.load_segment_meta(9)
 
 
-def test_reference_reads_port_checkpoint(tmp_path):
+def test_reference_reads_port_checkpoint(tmp_path, ref, stores):
     root = str(tmp_path / "ck")
+    MapOutputStore, ShufflePlan, RefStore, RefPlan = stores
     segs = _segments(60)
     bounded(lambda: MapOutputStore(root).save_segments(3, segs, None, 8))
     theirs = RefStore(root, use_native=False)
@@ -323,8 +352,10 @@ def test_reference_reads_port_checkpoint(tmp_path):
         np.testing.assert_array_equal(got, arr)
 
 
-def test_save_segments_failure_leaves_no_manifest(tmp_path, monkeypatch):
+def test_save_segments_failure_leaves_no_manifest(tmp_path, monkeypatch, port,
+                                                  stores):
     import sparkrdma_tpu_torch.meta.checkpoint as ck
+    MapOutputStore, ShufflePlan, RefStore, RefPlan = stores
 
     class Failing(port.SpillWriter):
         def drain(self):

@@ -176,6 +176,79 @@ def test_tiered_full_width_records(tmp_path):
                                   _canon(np.ascontiguousarray(cols.T)))
 
 
+def test_tiered_runs_match_reference_spill_runs(tmp_path, ref_manager,
+                                                port_manager):
+    """Each chunk's per-partition read, before any reordering, equals the
+    sorted run the reference's spill mode writes for that chunk and
+    partition (both draw the splitters from chunk 0 alike; keys are
+    distinct, so each run's order is unique); ``device_verify`` passes."""
+    from sparkrdma_tpu.hbm.input_stream import \
+        ArrayChunkSource as RefSource
+    from sparkrdma_tpu.workloads.streaming import \
+        run_streaming_terasort as ref_run
+
+    from sparkrdma_tpu_torch.hbm.host_staging import read_array
+    from sparkrdma_tpu_torch.workloads.streaming import run_tiered_terasort
+
+    cols = _cols(6)
+    bounded(lambda: ref_run(ref_manager, RefSource(cols, C),
+                            spill_dir=str(tmp_path), shuffle_id_base=9640))
+    got = bounded(lambda: run_tiered_terasort(
+        port_manager, cols, C, shuffle_id_base=9650, device_verify=True))
+    assert got.verified is True
+    assert len(got.runs) == D and all(len(r) == CHUNKS for r in got.runs)
+    for d in range(D):
+        for j in range(CHUNKS):
+            run = got.runs[d][j]
+            want = read_array(str(tmp_path / f"run-{j}-dev{d}.bin"),
+                              np.uint32, run.shape)
+            np.testing.assert_array_equal(run, want)
+
+
+@pytest.mark.parametrize("fault", ["none", "partitions swapped",
+                                   "rows reversed", "record dropped"])
+def test_tiered_device_verify_sees_order_and_routing(port_manager,
+                                                     monkeypatch, fault):
+    """``device_verify`` holds each chunk's read to order and routing, not
+    only to its multiset: a read whose partitions trade places, whose
+    rows are reversed, or which lost a record fails it."""
+    import torch
+
+    from sparkrdma_tpu_torch.workloads.streaming import run_tiered_terasort
+
+    m = port_manager
+    real = m.get_reader
+
+    def get_reader(handle, **kw):
+        reader = real(handle, **kw)
+        read = reader.read
+
+        def damaged(**rkw):
+            out, totals = read(**rkw)
+            out, totals = out.clone(), totals.clone()
+            oc = out.shape[1] // D
+            if fault == "partitions swapped":
+                out = torch.cat([out[:, oc:2 * oc], out[:, :oc],
+                                 out[:, 2 * oc:]], dim=1)
+                totals[[0, 1]] = totals[[1, 0]]
+            elif fault == "rows reversed":
+                k = int(totals[0])
+                out[:, :k] = out[:, :k].flip(1)
+            elif fault == "record dropped":
+                totals[0] -= 1
+            return out, totals
+
+        reader.read = damaged
+        return reader
+
+    monkeypatch.setattr(m, "get_reader", get_reader)
+    res = bounded(lambda: run_tiered_terasort(
+        m, _cols(7, n=2 * C), C, collect=False, shuffle_id_base=9660,
+        device_verify=True))
+    assert res.verified is (fault == "none")
+    assert res.runs is None
+
+
 # --- run_streaming_terasort ----------------------------------------------
 
 def test_streaming_spill_runs_match_reference(tmp_path, ref_manager,
@@ -393,6 +466,10 @@ def test_store_chunk_source_prefetches(tmp_path):
         for k, c in zip(keys, chunks):
             store.put(k, c)
         bounded(store.drain, 10)
+        # every chunk on disk; now room for lookahead + 2 chunks, as the
+        # reference's test has, so promotions are not evicted straight
+        # back before they are read
+        store._watermark = 4 * chunks[0].nbytes
         src = StoreChunkSource(store, keys, lookahead=2)
         base = store_totals()
         np.testing.assert_array_equal(bounded(lambda: src.chunk(0)),
@@ -448,3 +525,6 @@ def test_tiered_terasort_card_equals_cpu(cuda, tmp_path, port_manager):
                                                shuffle_id_base=9300))
     assert got.store_stats[0] > 0 and got.staging["outstanding"] == 0
     np.testing.assert_array_equal(got.rows, want.rows)
+    for d in range(D):
+        for j in range(CHUNKS):
+            np.testing.assert_array_equal(got.runs[d][j], want.runs[d][j])

@@ -452,6 +452,18 @@ def test_manager_without_spill_dir(tmp_path):
             spill_to_host=True, spill_dir=str(tmp_path)), 8, device="cpu"))
 
 
+@pytest.mark.parametrize("spill_dir", [False, True])
+def test_spill_to_host_is_refused(tmp_path, spill_dir):
+    """The whole-shuffle checkpoint is not ported: the conf refuses
+    ``spill_to_host`` with or without a ``spill_dir``; the reference's
+    ``use_native_staging`` is no knob of the port at all."""
+    kw = dict(spill_dir=str(tmp_path)) if spill_dir else {}
+    with pytest.raises(NotImplementedError, match="spill_to_host"):
+        ShuffleConf(spill_to_host=True, **kw)
+    with pytest.raises(TypeError, match="use_native_staging"):
+        ShuffleConf(use_native_staging=False, **kw)
+
+
 def test_exchange_acquires_through_the_store(tmp_path, monkeypatch):
     """Every pooled buffer of a streaming read is acquired through the
     store, which pokes its writer once per acquisition."""
