@@ -109,6 +109,20 @@ E_SCALE, E_EDGEFACTOR = 22, 16   # leg E: Graph500 Kronecker graph
 H_CHUNKS = 16               # leg H: bench.py's run_oversub, 16 chunks of
 H_CHUNK = RECORDS // 8      # records_per_device // 8 records each
 H_SMALL_CHUNK = 1 << 16     # leg H-small: card against CPU
+I_PER_DEVICE = 1 << 24      # leg I: 134,217,728 × 8-byte records, 1.07 GB
+I_NUM_PARTS = 256           # BASELINE.md config 1: repartition(256)
+J_ROWS = 1 << 21            # leg J: rows per partition on each side
+J_KEY_RANGE = 1 << 24
+#: leg J's sum of payload products is a float32 prefix-sum difference,
+#: as in the reference: at 2^21 rows per partition the prefix sums reach
+#: ~1e9, where a float32 ulp is 64 (numpy emulation: 3.2e-4 relative)
+J_SUM_RTOL = 1e-3
+K_RECORDS = RECORDS         # leg K: 16,777,216 × 100-byte records
+K_KEY_IDS = 1 << 22         # Zipf(1.1) ids folded into 2^22, as leg D
+K_SMALL = 1 << 20           # leg K-small: card against CPU
+L_USERS, L_ITEMS, L_RATINGS = 138_493, 26_744, 20_000_263  # MovieLens-20M
+L_RANK, L_ITERS = 8, 5
+LEGS_I_TO_L = ("I", "J", "K", "K-small", "L", "L-small")
 
 
 def fail(msg: str) -> None:
@@ -1367,6 +1381,571 @@ def leg_h_small() -> dict:
     return line
 
 
+# --- legs I-L: repartition, the join, the Dataset verbs, ALS ------------
+
+
+def timed(fn):
+    """``(fn(), seconds)`` with the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def leg_i() -> dict:
+    """``BASELINE.md`` config 1: ``repartition(256)`` of 134,217,728
+    random 8-byte records (two key words, no payload; 1.07 GB) over 8
+    stacked partitions at the default geometry; 1 warm-up and 1 timed
+    read, the timed one checked on the card (conservation, and every
+    record inside the window of the partition its key hashes to)."""
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.workloads.repartition import run_repartition
+
+    m = ShuffleManager(MeshRuntime(ShuffleConf(
+        key_words=2, val_words=0, transport="pallas_ring"),
+        num_partitions=PARTS, device="cuda"))
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: run_repartition(
+        m, I_PER_DEVICE, num_parts=I_NUM_PARTS, seed=0, device_verify=True))
+    launches = {k: v.launches for k, v in kernels.items()}
+    line = {"leg": "I", "workload": "run_repartition (BASELINE.md config 1)",
+            "records": res.records, "record_bytes": res.record_bytes,
+            "total_gb": res.total_bytes / 1e9, "num_parts": I_NUM_PARTS,
+            "partitions": PARTS, "transport": "pallas_ring",
+            "gbps": res.gbps, "exchange_s": res.exchange_s,
+            "plan_s": res.plan_s, "wall_s": wall,
+            "dispatches": m._exchange.last_dispatches,
+            "stream_chunks": m.metrics.counter(
+                "exchange.stream_chunks").value,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "verified": res.verified,
+            "check": "device: count, word sums and record-hash sum mod "
+                     "2^32, hash placement of every record",
+            "launches": launches}
+    report(line)
+    if not res.verified:
+        fail("leg I: the repartition read failed its device check")
+    m.stop()
+    return line
+
+
+def join_tables(rows_per_part: int, key_range: int, seed: int):
+    """The two tables ``run_hash_join`` makes for the same arguments:
+    100-byte rows, key in word 1, payload in [1, 1000) in word 2."""
+    rng = np.random.default_rng(seed)
+
+    def gen(n):
+        x = np.zeros((PARTS * n, KEY_WORDS + VAL_WORDS), dtype=np.uint32)
+        x[:, 1] = rng.integers(0, key_range, size=PARTS * n)
+        x[:, 2] = rng.integers(1, 1000, size=PARTS * n)
+        return x
+
+    return gen(rows_per_part), gen(rows_per_part)
+
+
+def join_codes_expect(xa: np.ndarray, xb: np.ndarray) -> np.ndarray:
+    """Every joined row of ``xa ⋈ xb`` on word 1, as the sorted codes
+    ``key << 20 | a_payload << 10 | b_payload`` (lossless: keys below
+    2^24, payloads below 2^10)."""
+    kb_order = np.argsort(xb[:, 1], kind="stable")
+    kb, pb = xb[kb_order, 1], xb[kb_order, 2].astype(np.uint64)
+    lo = np.searchsorted(kb, xa[:, 1], side="left")
+    hi = np.searchsorted(kb, xa[:, 1], side="right")
+    cnt = hi - lo
+    a_ix = np.repeat(np.arange(len(xa)), cnt)
+    starts = np.cumsum(cnt) - cnt
+    b_ix = lo[a_ix] + (np.arange(len(a_ix)) - starts[a_ix])
+    codes = (xa[a_ix, 1].astype(np.uint64) << np.uint64(20)) \
+        | (xa[a_ix, 2].astype(np.uint64) << np.uint64(10)) | pb[b_ix]
+    codes.sort()
+    return codes
+
+
+def join_codes_got(joined: torch.Tensor, totals) -> tuple:
+    """``(sorted codes, other words all zero)`` of a ``Dataset.join``
+    output at leg J's layout, computed on the card."""
+    from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+
+    cap = joined.shape[1] // PARTS
+    codes, zero = [], True
+    for d, t in enumerate(np.asarray(totals).tolist()):
+        part = joined[:, d * cap:d * cap + int(t)]
+        rest = torch.cat([part[:1], part[3:2 + VAL_WORDS],
+                          part[3 + VAL_WORDS:]])
+        zero = zero and not bool(rest.any())
+        codes.append((as_unsigned(part[1]) << 20)
+                     | (as_unsigned(part[2]) << 10)
+                     | as_unsigned(part[2 + VAL_WORDS]))
+    return torch.sort(torch.cat(codes)).values.cpu().numpy(), zero
+
+
+def leg_j() -> dict:
+    """The hash join at 100-byte records: ``run_hash_join`` with 2,097,152
+    rows per partition on each side (16,777,216 a side) and keys in
+    [0, 2^24), then ``Dataset.join`` on the same rows, its joined rows
+    held against a numpy join as a sorted multiset, exactly."""
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.workloads.join import (_numpy_reference_join,
+                                                    run_hash_join)
+
+    m = terasort_manager("cuda")
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: run_hash_join(
+        m, J_ROWS, J_ROWS, key_range=J_KEY_RANGE, seed=0, verify=False))
+    xa, xb = join_tables(J_ROWS, J_KEY_RANGE, seed=0)
+    t0 = time.perf_counter()
+    ref_count, ref_sum = _numpy_reference_join(xa, xb)
+    ref_s = time.perf_counter() - t0
+    da = Dataset.from_host_rows(m, xa)
+    db = Dataset.from_host_rows(m, xb)
+    (joined, totals), ds_join_s = timed(lambda: da.join(db))
+    launches = {k: v.launches for k, v in kernels.items()}
+    got_codes, zero = join_codes_got(joined, totals)
+    del joined, da, db
+    want_codes = join_codes_expect(xa, xb)
+    rows_equal = bool(zero and np.array_equal(got_codes, want_codes))
+    rel_err = abs(res.sum_products - ref_sum) / max(1.0, abs(ref_sum))
+    line = {"leg": "J", "workload": "run_hash_join + Dataset.join",
+            "rows_a": res.rows_a, "rows_b": res.rows_b,
+            "record_bytes": 4 * (KEY_WORDS + VAL_WORDS),
+            "key_range": J_KEY_RANGE, "partitions": PARTS,
+            "transport": "pallas_ring",
+            "matches": res.matches, "numpy_matches": ref_count,
+            "sum_products": res.sum_products, "numpy_sum": ref_sum,
+            "sum_rel_err": rel_err, "sum_rtol": J_SUM_RTOL,
+            "shuffle_s": res.shuffle_s, "join_s": res.join_s,
+            "shuffle_gbps": (res.rows_a + res.rows_b)
+            * 4 * (KEY_WORDS + VAL_WORDS) / res.shuffle_s / 1e9,
+            "run_hash_join_wall_s": wall, "numpy_ref_s": ref_s,
+            "dataset_join_s": ds_join_s,
+            "dataset_join_rows": int(np.asarray(totals).sum()),
+            "joined_row_bytes": 4 * (KEY_WORDS + 2 * VAL_WORDS),
+            "dataset_join_rows_equal_numpy": rows_equal,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+    report(line)
+    if res.matches != ref_count:
+        fail("leg J: the match count disagrees with numpy")
+    if rel_err > J_SUM_RTOL:
+        fail(f"leg J: the sum of products is off by {rel_err:.3g} "
+             f"(> {J_SUM_RTOL})")
+    if not rows_equal or int(np.asarray(totals).sum()) != ref_count:
+        fail("leg J: Dataset.join's rows disagree with numpy")
+    m.stop()
+    return line
+
+
+def k_rows(total: int, seed: int) -> np.ndarray:
+    """Leg K's 100-byte records: key ``(0, id)`` with ids Zipf(1.1) folded
+    into 2^22, word 2 in [0, 4), words 3..24 a fixed function of (id,
+    word 2), so rows sharing both are duplicates (``distinct`` has work)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((total, KEY_WORDS + VAL_WORDS), np.uint32)
+    rows[:, 1] = rng.zipf(1.1, size=total) % K_KEY_IDS
+    rows[:, 2] = rng.integers(0, 4, size=total)
+    rows[:, 3:] = k_derived(rows[:, 1], rows[:, 2])
+    return rows
+
+
+def k_derived(ids: np.ndarray, w2: np.ndarray) -> np.ndarray:
+    h = ids.astype(np.uint64) * np.uint64(0x9E3779B1) \
+        + w2.astype(np.uint64) * np.uint64(0x85EBCA6B)
+    j = np.arange(3, KEY_WORDS + VAL_WORDS, dtype=np.uint64)
+    mixed = (h[:, None] + j[None] * np.uint64(0xC2B2AE35)) \
+        * np.uint64(0x27D4EB2F)
+    return ((mixed >> np.uint64(17)) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32)
+
+
+def group_expect(ids: np.ndarray):
+    """Unique ids, ascending, with their counts and their partitions."""
+    uniq, counts = np.unique(ids, return_counts=True)
+    return uniq, counts, hash_pids(np.zeros_like(uniq), uniq, PARTS)
+
+
+def check_groups(g, ids: np.ndarray) -> bool:
+    """A ``GroupedData`` at leg K's layout against numpy: each partition's
+    table is its keys ascending with their counts, offsets the exclusive
+    prefix sums, and its values buffer key-sorted."""
+    from sparkrdma_tpu_torch.interop import records_from_torch
+    from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+
+    uniq, counts, pid = group_expect(ids)
+    grp = records_from_torch(g.groups)
+    cap = grp.shape[1] // PARTS
+    for d in range(PARTS):
+        n = int(g.group_totals[d])
+        t = grp[:, d * cap:d * cap + n]
+        want_c = counts[pid == d]
+        if n != len(want_c) or int(g.totals[d]) != int(want_c.sum()) \
+                or t[0].any() or not np.array_equal(t[1], uniq[pid == d]) \
+                or not np.array_equal(t[2], want_c) \
+                or not np.array_equal(t[3], np.cumsum(want_c) - want_c):
+            return False
+        vals = g.values[1, d * cap:d * cap + int(g.totals[d])]
+        if bool((as_unsigned(vals[1:]) < as_unsigned(vals[:-1])).any()):
+            return False
+    return True
+
+
+def check_cogroup(c, ids_a: np.ndarray, ids_b: np.ndarray) -> bool:
+    """A ``CoGroupedData`` against numpy: the union of keys per
+    partition, ascending, each with its count on either side."""
+    from sparkrdma_tpu_torch.interop import records_from_torch
+
+    ua, ca = np.unique(ids_a, return_counts=True)
+    ub, cb = np.unique(ids_b, return_counts=True)
+    union = np.union1d(ua, ub)
+    want_a = np.zeros(len(union), np.int64)
+    want_b = np.zeros(len(union), np.int64)
+    want_a[np.searchsorted(union, ua)] = ca
+    want_b[np.searchsorted(union, ub)] = cb
+    pid = hash_pids(np.zeros_like(union), union, PARTS)
+    ct = records_from_torch(c.cotable)
+    cap = ct.shape[1] // PARTS
+    for d in range(PARTS):
+        sel = pid == d
+        t = ct[:, d * cap:d * cap + int(c.union_totals[d])]
+        if t.shape[1] != int(sel.sum()) or t[0].any() \
+                or not np.array_equal(t[1], union[sel]) \
+                or not np.array_equal(t[2], want_a[sel]) \
+                or not np.array_equal(t[4], want_b[sel]):
+            return False
+    return True
+
+
+def sums_expect(rows: np.ndarray):
+    """Unique ids and every payload word summed per id mod 2^32."""
+    order = np.argsort(rows[:, 1], kind="stable")
+    ids = rows[order, 1]
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    sums = np.add.reduceat(rows[order, 2:].astype(np.uint64), starts, axis=0)
+    return ids[starts], (sums & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def by_key(rows: np.ndarray, words: int = 1) -> np.ndarray:
+    """Rows ordered by (word 1, ..., word ``words``): leg K's outputs are
+    unique in those words, and word 0 is zero."""
+    code = rows[:, 1].astype(np.uint64)
+    if words == 2:
+        code = code << np.uint64(2) | rows[:, 2]
+    return rows[np.argsort(code, kind="stable")]
+
+
+def leg_k() -> dict:
+    """The Dataset verbs on 16,777,216 × 100-byte records at the default
+    geometry, keys Zipf(1.1) folded into 2^22 ids: each verb timed (card
+    idle before and after) and held against numpy on the host, the sort
+    checked on the card; then a profile of one ``sort_by_key``."""
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.workloads.terasort import (_sums,
+                                                        device_verify_sort)
+
+    rows = k_rows(K_RECORDS, seed=7)
+    rows_b = k_rows(K_RECORDS // 4, seed=8)
+    m = terasort_manager("cuda")
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    ds = Dataset.from_host_rows(m, rows)
+    db = Dataset.from_host_rows(m, rows_b)
+    secs, checks = {}, {}
+
+    srt, secs["sort_by_key"] = timed(ds.sort_by_key)
+    checks["sort_by_key"] = device_verify_sort(
+        m, ds.records, srt.records, srt.totals, KEY_WORDS,
+        srt.records.shape[1] // PARTS)
+    del srt
+    red, secs["reduce_by_key"] = timed(lambda: ds.reduce_by_key("sum"))
+    wire_reduce = dict(m._exchange.wire_stats())
+    uniq, sums = sums_expect(rows)
+    got = by_key(red.to_host_rows())
+    checks["reduce_by_key"] = bool(
+        np.array_equal(got[:, 1], uniq) and not got[:, 0].any()
+        and np.array_equal(got[:, 2:], sums))
+    del red
+    dst, secs["distinct"] = timed(ds.distinct)
+    pairs = np.unique(rows[:, 1].astype(np.uint64) << np.uint64(2)
+                      | rows[:, 2])
+    want = np.zeros((len(pairs), KEY_WORDS + VAL_WORDS), np.uint32)
+    want[:, 1] = (pairs >> np.uint64(2)).astype(np.uint32)
+    want[:, 2] = (pairs & np.uint64(3)).astype(np.uint32)
+    want[:, 3:] = k_derived(want[:, 1], want[:, 2])
+    checks["distinct"] = bool(np.array_equal(
+        by_key(dst.to_host_rows(), words=2), want))
+    del dst, want
+    cbk, secs["count_by_key"] = timed(ds.count_by_key)
+    got = by_key(cbk.to_host_rows())
+    ids_u, ids_c = np.unique(rows[:, 1], return_counts=True)
+    checks["count_by_key"] = bool(
+        np.array_equal(got[:, 1], ids_u) and np.array_equal(got[:, 2], ids_c)
+        and not got[:, 3:].any())
+    del cbk
+    grp, secs["group_by_key"] = timed(ds.group_by_key)
+    mesh_cap = grp.values.shape[1] // PARTS
+    keep = ((torch.arange(PARTS * mesh_cap, device="cuda") % mesh_cap)
+            < torch.from_numpy(np.repeat(grp.totals, mesh_cap)).cuda())
+    checks["group_by_key"] = bool(
+        check_groups(grp, rows[:, 1])
+        and _sums(grp.values, keep.to(torch.int64))
+        == _sums(ds.records, None))
+    del grp, keep
+    cog, secs["cogroup"] = timed(lambda: ds.cogroup(db))
+    checks["cogroup"] = check_cogroup(cog, rows[:, 1], rows_b[:, 1])
+    del cog
+
+    def zero_w2(r):
+        return r[2] == 0
+
+    n_kept = int((rows[:, 2] == 0).sum())
+    flt, secs["filter_repartition"] = timed(
+        lambda: ds.filter(zero_w2, cache_key=("w2", 0)).repartition())
+    wire_filter = dict(m._exchange.wire_stats())
+    dropped = int(wire_filter.get("pushdown_rows_dropped", -1))
+    row_bytes = 4 * (KEY_WORDS + VAL_WORDS)
+    live = ((torch.arange(flt.records.shape[1], device="cuda")
+             % (flt.records.shape[1] // PARTS))
+            < flt.totals.to(torch.int64).repeat_interleave(
+                flt.records.shape[1] // PARTS))
+    checks["filter_repartition"] = bool(
+        dropped == K_RECORDS - n_kept and flt.count == n_kept
+        and (K_RECORDS - dropped) * row_bytes < K_RECORDS * row_bytes
+        and _sums(flt.records, live.to(torch.int64))
+        == _sums(ds.records[:, ds.records[2] == 0], None))
+    del flt, live
+    count, secs["count"] = timed(lambda: ds.count)
+    checks["count"] = count == K_RECORDS
+    launches = {k: v.launches for k, v in kernels.items()}
+    line = {"leg": "K", "workload": "Dataset verbs", "records": K_RECORDS,
+            "record_bytes": row_bytes, "cogroup_records_b": len(rows_b),
+            "keys": f"Zipf(1.1) folded into {K_KEY_IDS} ids, "
+                    "default_rng(7)",
+            "partitions": PARTS, "transport": "pallas_ring",
+            "verb_s": secs,
+            "gbps": {k: K_RECORDS * row_bytes / s / 1e9
+                     for k, s in secs.items() if k != "count"},
+            "unique_keys": len(ids_u), "distinct_rows": len(pairs),
+            "wire_reduce_by_key": wire_reduce,
+            "wire_filter": wire_filter,
+            "filter_wire_bytes": (K_RECORDS - dropped) * row_bytes,
+            "unfiltered_wire_bytes": K_RECORDS * row_bytes,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "checks": checks,
+            "check": "host (numpy) per verb; sort_by_key on the device",
+            "launches": launches}
+    report(line)
+    if not all(checks.values()):
+        fail("leg K: " + ", ".join(k for k, v in checks.items() if not v))
+    line["profile"] = profile("leg K sort_by_key", ds.sort_by_key,
+                              "profiles/torch_legK.txt")
+    m.stop()
+    return line
+
+
+def k_small_verbs(device: str, **kw) -> dict:
+    """Every ported verb on 2^20 records of leg K's mix (and a join on
+    leg J's kind of rows), as host arrays."""
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.interop import records_from_torch
+
+    def host(x):
+        return records_from_torch(x) if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    m = terasort_manager(device, **kw)
+    ds = Dataset.from_host_rows(m, k_rows(K_SMALL, seed=9))
+    db = Dataset.from_host_rows(m, k_rows(K_SMALL // 4, seed=10))
+    ja, jb = join_tables(K_SMALL // PARTS, K_SMALL, seed=11)
+    out = {}
+    for name, fn in (("sort_by_key", ds.sort_by_key),
+                     ("reduce_by_key", ds.reduce_by_key),
+                     ("distinct", ds.distinct),
+                     ("count_by_key", ds.count_by_key),
+                     ("filter_repartition", lambda: ds.filter(
+                         lambda r: r[2] == 0, ("w2", 0)).repartition())):
+        r = fn()
+        out[name] = (host(r.records), host(r.totals.cpu()))
+    g = ds.group_by_key()
+    out["group_by_key"] = tuple(host(x) for x in (
+        g.values, g.groups, g.group_totals, g.totals))
+    c = ds.cogroup(db)
+    out["cogroup"] = tuple(host(x) for x in (
+        c.values_a, c.values_b, c.cotable, c.union_totals))
+    joined, totals = Dataset.from_host_rows(m, ja).join(
+        Dataset.from_host_rows(m, jb))
+    out["join"] = (host(joined), host(totals))
+    # the count exactly; the float32 sum of products is summed in another
+    # order on the card, so it is reported, not compared
+    out["join_count"], sum_products = Dataset.from_host_rows(
+        m, ja).join_count(Dataset.from_host_rows(m, jb))
+    out["_join_sum"] = sum_products
+    out["count"] = ds.filter(lambda r: r[2] == 1).count
+    m.stop()
+    return out
+
+
+def leg_k_small() -> dict:
+    """Leg K's verbs on 2^20 records on the card and on the CPU, bit for
+    bit, with ``fast_sort`` (the merge-path kernel in the sort), on the
+    card in two variants: the fused ring, and ``ring_fused=False`` (the
+    per-round all-to-all kernel). The transport changes no bit, so both
+    are held against one CPU run."""
+    kernels = zeroed_counters()
+    variants = {"fast_sort": dict(fast_sort=True),
+                "ring_fused_false": dict(fast_sort=True, ring_fused=False)}
+    got = {(v, "cuda"): k_small_verbs("cuda", **kw)
+           for v, kw in variants.items()}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    cpu = k_small_verbs("cpu", fast_sort=True)
+    for v in variants:
+        got[v, "cpu"] = cpu
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(equal(x, y) for x, y in zip(a, b))
+        return bool(np.array_equal(a, b)) if isinstance(a, np.ndarray) \
+            else a == b
+
+    same = {v: {name: equal(got[v, "cuda"][name], got[v, "cpu"][name])
+                for name in got[v, "cuda"] if not name.startswith("_")}
+            for v in variants}
+    line = {"leg": "K-small", "records": K_SMALL, "partitions": PARTS,
+            "card_equals_cpu": same,
+            "join_count": got["fast_sort", "cuda"]["join_count"],
+            "join_sum_card_cpu": [got["fast_sort", d]["_join_sum"]
+                                  for d in ("cuda", "cpu")],
+            "launches": launches}
+    report(line)
+    if not all(ok for per in same.values() for ok in per.values()):
+        fail("leg K-small: the card and the CPU disagree")
+    return line
+
+
+def movielens_like(users: int, items: int, ratings: int, seed: int
+                   ) -> np.ndarray:
+    """``[N, 3]`` (user, item, rating) at MovieLens-20M's dimensions, made
+    from ``default_rng``: users uniform and sorted (the file is ordered by
+    user), items uniform, ratings on the 0.5-5.0 half-star scale."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((ratings, 3), np.float64)
+    out[:, 0] = np.sort(rng.integers(0, users, size=ratings))
+    out[:, 1] = rng.integers(0, items, size=ratings)
+    out[:, 2] = rng.integers(1, 11, size=ratings) / 2.0
+    return out
+
+
+def wire_reduction(ws: dict):
+    if "combine_out_bytes" not in ws:
+        return None
+    return ws["combine_in_bytes"] / ws["combine_out_bytes"]
+
+
+def leg_l() -> dict:
+    """``BASELINE.md`` config 4: ALS at MovieLens-20M's dimensions (138,493
+    users, 26,744 items, 20,000,263 ratings; generated, the file is not in
+    the repository), rank 8, 5 iterations, checked against ``_numpy_als``
+    at the reference's rtol 2e-3, atol 2e-4."""
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.workloads.als import run_als
+
+    t0 = time.perf_counter()
+    ratings = movielens_like(L_USERS, L_ITEMS, L_RATINGS, seed=20)
+    gen_s = time.perf_counter() - t0
+    rt = MeshRuntime(ShuffleConf(transport="pallas_ring",
+                                 slot_records=SLOT_B),
+                     num_partitions=PARTS, device="cuda")
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: run_als(rt, ratings, L_USERS, L_ITEMS,
+                                      rank=L_RANK, iterations=L_ITERS))
+    launches = {k: v.launches for k, v in kernels.items()}
+    line = {"leg": "L", "workload": "run_als (BASELINE.md config 4)",
+            "dataset": "MovieLens-20M dimensions, default_rng(20): users "
+                       "uniform and sorted, items uniform, half-star "
+                       "ratings",
+            "users": res.num_users, "items": res.num_items,
+            "ratings": res.num_ratings, "rank": res.rank,
+            "record_words": 2 + L_RANK + L_RANK * (L_RANK + 1) // 2,
+            "iterations": res.iterations, "partitions": PARTS,
+            "transport": "pallas_ring", "slot_records": SLOT_B,
+            "per_iter_s": res.per_iter_s, "total_s": res.total_s,
+            "ratings_per_s": res.num_ratings * 2 / res.per_iter_s,
+            "rmse": res.rmse, "wall_s": wall, "gen_s": gen_s,
+            "wire_users": res.wire.get("users"),
+            "wire_items": res.wire.get("items"),
+            "wire_reduction_users": wire_reduction(res.wire["users"]),
+            "wire_reduction_items": wire_reduction(res.wire["items"]),
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "verified": res.verified,
+            "check": "_numpy_als, rtol 2e-3 atol 2e-4",
+            "launches": launches}
+    report(line)
+    if not res.verified:
+        fail("leg L: ALS disagrees with _numpy_als")
+    rt.stop()
+    return line
+
+
+def leg_l_small() -> dict:
+    """Both ALS half-steps at MovieLens-20M's dimensions over 16, on the
+    card and on the CPU from the same factors: records and exchange
+    outputs bit for bit; the solved factors to a tolerance (the two
+    ``torch.linalg.solve`` backends differ)."""
+    from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
+    from sparkrdma_tpu_torch.workloads.als import _ALS, _owner_layout
+
+    users, items = L_USERS // 16, L_ITEMS // 16
+    ratings = movielens_like(users, items, L_RATINGS // 16, seed=21)
+    k = L_RANK
+    kernels = zeroed_counters()
+    got = {}
+    factors = None
+    for device in ("cpu", "cuda"):
+        rt = MeshRuntime(ShuffleConf(transport="pallas_ring",
+                                     slot_records=SLOT_B),
+                         num_partitions=PARTS, device=device)
+        als = _ALS(rt, ratings, users, items, k, 0.1)
+        if factors is None:
+            v0 = np.random.default_rng(0).standard_normal(
+                (als.iper * PARTS, k)).astype(np.float32) * 0.1
+            factors = {"users": torch.from_numpy(
+                _owner_layout(v0, PARTS)).reshape(PARTS, als.iper, k)}
+        res = {}
+        for step, hs in (("users", als.users), ("items", als.items)):
+            rec = als.build(factors[step].to(rt.device), hs)
+            out, totals = als.exchange(rec, hs)
+            solved = als.update(out, totals, hs)
+            res[step] = (rec.cpu(), out.cpu(), totals.cpu(), solved.cpu(),
+                         dict(als.ex.wire_stats()))
+            if step == "users" and "items" not in factors:
+                factors["items"] = solved.cpu()     # the CPU's U, for both
+        got[device] = res
+        rt.stop()
+    torch.cuda.synchronize()
+    launches = {k_: v.launches for k_, v in kernels.items()}
+    same = {step: bool(all(torch.equal(got["cuda"][step][i],
+                                       got["cpu"][step][i])
+                           for i in range(3))
+                       and got["cuda"][step][4] == got["cpu"][step][4])
+            for step in ("users", "items")}
+    solve_diff = {step: float((got["cuda"][step][3]
+                               - got["cpu"][step][3]).abs().max())
+                  for step in ("users", "items")}
+    line = {"leg": "L-small", "users": users, "items": items,
+            "ratings": len(ratings), "rank": k, "partitions": PARTS,
+            "records_and_exchange_card_equals_cpu": same,
+            "solved_max_abs_diff": solve_diff,
+            "launches": launches}
+    report(line)
+    if not all(same.values()):
+        fail("leg L-small: a half-step's exchange differs card against CPU")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1391,6 +1970,75 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     legs = {}
+    ring_chunk, ring_ooc = earlier_legs(legs)
+    for name, fn in (("I", leg_i), ("J", leg_j), ("K", leg_k),
+                     ("K-small", leg_k_small), ("L", leg_l),
+                     ("L-small", leg_l_small)):
+        legs[name] = fn()
+        torch.cuda.empty_cache()
+    for name in LEGS_I_TO_L:
+        if legs[name]["launches"]["ring_exchange"] <= 0:
+            fail(f"ring_exchange was not launched on leg {name}")
+    for k in ("merge_stage", "ring_all_to_all"):
+        if legs["K-small"]["launches"][k] <= 0:
+            fail(f"{k} was not launched on leg K-small")
+
+    def launches(k):
+        return sum(legs[n]["launches"][k] for n in legs)
+
+    def by_leg(k):
+        return {n: legs[n]["launches"][k] for n in LEGS_I_TO_L}
+
+    def sub(phase, keys):
+        return {k: phase[k] for k in keys}
+
+    kernels = [
+        {"name": "merge_stage", "route": "cuda",
+         "source": "sparkrdma_tpu_torch/csrc/merge_path.cu",
+         "replaces": "sparkrdma_tpu/kernels/merge_sort.py:309",
+         "launches": launches("merge_stage"),
+         "split_launches": launches("merge_splits"),
+         "launches_i_to_l": by_leg("merge_stage"),
+         "max_abs_err": merge["max_abs_err"], "ms": merge["kernel_ms"],
+         "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "ring_exchange", "route": "cuda",
+         "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
+         "replaces": "sparkrdma_tpu/exchange/ring.py:140",
+         "launches": launches("ring_exchange"),
+         "launches_i_to_l": by_leg("ring_exchange"),
+         "max_abs_err": max(p["max_abs_err"] for p in (
+             ring, ring_w3, ring_chunk, ring_ooc)),
+         "ms": ring["kernel_ms"],
+         "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
+         "bound_by": "bytes", "library_ms": ring["library_ms"],
+         "w3": sub(ring_w3, ("shape", "max_abs_err", "kernel_ms",
+                             "plain_ms", "bound_ms", "library_ms")),
+         "chunk": sub(ring_chunk, ("shape", "fine_shape", "max_abs_err",
+                                   "kernel_ms", "plain_ms", "bound_ms",
+                                   "library_ms")),
+         "ooc_chunk": sub(ring_ooc, ("shape", "max_abs_err", "kernel_ms",
+                                     "plain_ms", "bound_ms",
+                                     "library_ms"))},
+        {"name": "ring_all_to_all", "route": "cuda",
+         "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
+         "replaces": "sparkrdma_tpu/exchange/ring.py:87",
+         "launches": launches("ring_all_to_all"),
+         "launches_i_to_l": by_leg("ring_all_to_all"),
+         "max_abs_err": a2a["max_abs_err"], "ms": a2a["kernel_ms"],
+         "plain_ms": a2a["plain_ms"], "bound_ms": a2a["bound_ms"],
+         "bound_by": "bytes", "library_ms": a2a["library_ms"]},
+    ]
+    report({"kernels": kernels})
+    report({"ok": True, "device": {"platform": "gpu",
+                                   "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}})
+    return 0
+
+
+def earlier_legs(legs: dict):
+    """Legs A-H, into ``legs``; returns the ring kernel's
+    phases at leg F's chunk shape and leg H's."""
     outs = {}
     for name, d, transport, fused in (("A", 1, "xla", True),
                                       ("B", 8, "pallas_ring", True),
@@ -1445,6 +2093,7 @@ def main() -> int:
     ring_ooc = ring_ooc_phase()
     torch.cuda.empty_cache()
     legs["H-small"] = leg_h_small()
+    torch.cuda.empty_cache()
     for k, name in (("ring_exchange", "D"), ("ring_exchange", "E"),
                     ("ring_exchange", "D-small"),
                     ("ring_all_to_all", "D-small"),
@@ -1458,52 +2107,7 @@ def main() -> int:
                     ("ring_all_to_all", "H-small")):
         if legs[name]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg {name}")
-
-    def launches(k):
-        return sum(legs[n]["launches"][k] for n in legs)
-
-    kernels = [
-        {"name": "merge_stage", "route": "cuda",
-         "source": "sparkrdma_tpu_torch/csrc/merge_path.cu",
-         "replaces": "sparkrdma_tpu/kernels/merge_sort.py:309",
-         "launches": launches("merge_stage"),
-         "split_launches": launches("merge_splits"),
-         "max_abs_err": merge["max_abs_err"], "ms": merge["kernel_ms"],
-         "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "ring_exchange", "route": "cuda",
-         "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
-         "replaces": "sparkrdma_tpu/exchange/ring.py:140",
-         "launches": launches("ring_exchange"),
-         "max_abs_err": max(ring["max_abs_err"], ring_w3["max_abs_err"],
-                            ring_chunk["max_abs_err"],
-                            ring_ooc["max_abs_err"]),
-         "ms": ring["kernel_ms"],
-         "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
-         "bound_by": "bytes", "library_ms": ring["library_ms"],
-         "w3": {k: ring_w3[k] for k in ("shape", "max_abs_err", "kernel_ms",
-                                        "plain_ms", "bound_ms",
-                                        "library_ms")},
-         "chunk": {k: ring_chunk[k] for k in ("shape", "fine_shape",
-                                              "max_abs_err", "kernel_ms",
-                                              "plain_ms", "bound_ms",
-                                              "library_ms")},
-         "ooc_chunk": {k: ring_ooc[k] for k in ("shape", "max_abs_err",
-                                                "kernel_ms", "plain_ms",
-                                                "bound_ms", "library_ms")}},
-        {"name": "ring_all_to_all", "route": "cuda",
-         "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
-         "replaces": "sparkrdma_tpu/exchange/ring.py:87",
-         "launches": launches("ring_all_to_all"),
-         "max_abs_err": a2a["max_abs_err"], "ms": a2a["kernel_ms"],
-         "plain_ms": a2a["plain_ms"], "bound_ms": a2a["bound_ms"],
-         "bound_by": "bytes", "library_ms": a2a["library_ms"]},
-    ]
-    report({"kernels": kernels})
-    report({"ok": True, "device": {"platform": "gpu",
-                                   "kind": torch.cuda.get_device_name(0),
-                                   "count": torch.cuda.device_count()}})
-    return 0
+    return ring_chunk, ring_ooc
 
 
 if __name__ == "__main__":

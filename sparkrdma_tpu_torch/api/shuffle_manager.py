@@ -50,6 +50,7 @@ from sparkrdma_tpu_torch.hbm.tiered_store import TieredStore
 from sparkrdma_tpu_torch.kernels.aggregate import OPS
 from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
 from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
+from sparkrdma_tpu_torch.meta.map_output import DuplicateShuffleIdError
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
@@ -317,7 +318,8 @@ class ShuffleManager:
     def register_shuffle(self, shuffle_id: int, num_parts: int,
                          partitioner: Callable) -> ShuffleHandle:
         if shuffle_id in self._handles:
-            raise ValueError(f"shuffle {shuffle_id} already registered")
+            raise DuplicateShuffleIdError(
+                f"shuffle {shuffle_id} already registered")
         handle = ShuffleHandle(shuffle_id, num_parts, partitioner)
         self._handles[shuffle_id] = handle
         return handle

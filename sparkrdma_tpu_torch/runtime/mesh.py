@@ -67,6 +67,19 @@ class MeshRuntime:
             raise ValueError(f"partition {device_index} out of range")
         return ManagerId(process_index=0, device_index=device_index)
 
+    def shard_rows(self, x) -> torch.Tensor:
+        """Host array ``[N, ...]`` -> the same array on the device, its
+        rows split evenly over the stacked partitions (partition ``d``
+        holds rows ``d*N/D .. (d+1)*N/D``), as the reference's
+        ``shard_rows`` splits them over its devices. Any dtype torch
+        takes; ``N`` a multiple of the partition count."""
+        x = np.ascontiguousarray(x)
+        if x.ndim < 1 or x.shape[0] % self.num_partitions:
+            raise ValueError(
+                f"leading dimension must be a multiple of "
+                f"{self.num_partitions}, got shape {x.shape}")
+        return torch.from_numpy(x).to(self.device)
+
     def shard_records(self, rows) -> torch.Tensor:
         """Host rows ``uint32[N, W]`` -> columnar ``int32[W, N]`` on the
         device (N a multiple of the partition count)."""
@@ -75,13 +88,18 @@ class MeshRuntime:
             raise ValueError(
                 f"rows must be [N, W] with N a multiple of "
                 f"{self.num_partitions}, got {rows.shape}")
-        cols = np.ascontiguousarray(rows.T).view(np.int32)
-        return torch.from_numpy(cols).to(self.device)
+        # the rows cross as they are and are transposed by torch on the
+        # device (on the CPU, by torch's threads): a numpy transpose of a
+        # [N, 25] array is several times slower
+        src = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32))
+        src = src.to(self.device)
+        cols = torch.empty((src.shape[1], src.shape[0]), dtype=torch.int32,
+                           device=self.device)
+        return cols.copy_(src.T)
 
     def host_rows(self, cols: torch.Tensor) -> np.ndarray:
         """Columnar ``[W, N]`` -> host rows ``uint32[N, W]``."""
-        arr = cols.detach().cpu().contiguous().numpy().view(np.uint32)
-        return np.ascontiguousarray(arr.T)
+        return cols.detach().T.contiguous().cpu().numpy().view(np.uint32)
 
     def partition(self, cols: torch.Tensor, d: int) -> torch.Tensor:
         """Partition ``d``'s column group of a stacked batch (a view)."""

@@ -488,9 +488,41 @@ def test_exchange_acquires_through_the_store(tmp_path, monkeypatch):
         bounded(m.stop)
 
 
-def test_tiered_terasort_bit_equal_to_in_hbm(manager, rng):
+def _watch_fetches(store, monkeypatch):
+    """``(read, counted)``: the keys the store read from its disk tier
+    (prefetcher or consumer), and the keys whose ``get`` counted a
+    prefetch hit or a sync fetch. Only a ``get`` moves those two
+    counters, and it moves one of them by one."""
+    read, counted = [], []
+    real_read, real_get = store._read_segment, store.get
+
+    def read_segment(seg):
+        data = real_read(seg)
+        read.append(seg.key)
+        return data
+
+    def get(key):
+        before = store_totals()
+        data = real_get(key)
+        after = store_totals()
+        if after[2:] != before[2:]:
+            assert sum(after[2:]) - sum(before[2:]) == 1
+            counted.append(key)
+        return data
+
+    monkeypatch.setattr(store, "_read_segment", read_segment)
+    monkeypatch.setattr(store, "get", get)
+    return read, counted
+
+
+def test_tiered_terasort_bit_equal_to_in_hbm(manager, rng, monkeypatch):
     """An out-of-core run whose map output spills to disk gives the same
-    sorted stream as the all-in-memory control, bit for bit."""
+    sorted stream as the all-in-memory control, bit for bit. How far the
+    prefetcher keeps ahead of the consumer depends on the scheduling, so
+    only what holds under any scheduling is asserted of the counters:
+    every chunk read back from disk counts as a prefetch hit or as a
+    sync fetch (:func:`test_prefetcher_keeps_ahead` pins the keep-ahead
+    itself)."""
     from sparkrdma_tpu_torch.workloads.streaming import (_canon,
                                                          run_tiered_terasort)
 
@@ -502,19 +534,57 @@ def test_tiered_terasort_bit_equal_to_in_hbm(manager, rng):
         manager, cols, chunk_records=C, shuffle_id_base=9600), 60)
     assert control.store_stats[0] == 0
     manager.tiered._watermark = 4 * W * C * 4
+    read, counted = _watch_fetches(manager.tiered, monkeypatch)
     tiered = bounded(lambda: run_tiered_terasort(
         manager, cols, chunk_records=C, shuffle_id_base=9700), 60)
     manager.tiered._watermark = manager.conf.spill_tier_host_bytes
     spill, fetch, hits, sync = tiered.store_stats
     assert spill > 0 and fetch > 0
-    assert hits >= n_chunks - 2
-    assert sync <= 2
+    assert fetch == len(read) * W * C * 4
+    assert set(counted) == set(read)
+    assert hits + sync == len(counted)
     assert tiered.records == control.records == n_chunks * C
     assert tiered.staging == {}                   # no staging on the CPU
     np.testing.assert_array_equal(tiered.rows, control.rows)
     np.testing.assert_array_equal(
         control.rows, _canon(np.ascontiguousarray(cols.T)))
     assert manager.tiered.keys() == []
+
+
+def test_prefetcher_keeps_ahead(manager, rng, monkeypatch):
+    """The prefetcher's keep-ahead, made deterministic: each ``get``
+    first waits for the promotions queued before it and for the writer's
+    evictions (``drain``). Then every chunk that comes back from disk was
+    promoted ahead of its ``get``: as many prefetch hits as chunks
+    fetched, and no sync fetch."""
+    from sparkrdma_tpu_torch.workloads.streaming import (_canon,
+                                                         run_tiered_terasort)
+
+    W, C = 4, 1024
+    n_chunks = 8
+    cols = rng.integers(0, 2**32, size=(W, n_chunks * C), dtype=np.uint32)
+    store = manager.tiered
+    real_get = store.get
+
+    def get(key):
+        bounded(store.drain)
+        return real_get(key)
+
+    monkeypatch.setattr(store, "get", get)
+    store._watermark = 4 * W * C * 4
+    try:
+        res = bounded(lambda: run_tiered_terasort(
+            manager, cols, chunk_records=C, shuffle_id_base=9800), 60)
+    finally:
+        store._watermark = manager.conf.spill_tier_host_bytes
+    spill, fetch, hits, sync = res.store_stats
+    fetched = fetch // (W * C * 4)
+    assert spill > 0 and fetched > 0
+    assert hits == fetched
+    assert sync == 0
+    np.testing.assert_array_equal(
+        res.rows, _canon(np.ascontiguousarray(cols.T)))
+    assert store.keys() == []
 
 
 def test_reference_checkpoint_resumes_in_port(tmp_path):
