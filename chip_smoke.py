@@ -74,7 +74,21 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               resume after losing half the chunks; the spill mode from
               chunk files, verified; ``fast_sort`` and ``ring_fused=False``
               variants;
-6. one ``{"kernels": [...]}`` line and, last, the device line.
+6. the verbs over the exchange (``transport="pallas_ring"``):
+     I        ``run_repartition``, ``BASELINE.md`` config 1: 134,217,728
+              8-byte records into 256 parts, placement checked on the card;
+     J        ``run_hash_join``, 16,777,216 × 100-byte rows a side, and
+              ``Dataset.join`` on the same rows, held against numpy;
+     K        every ``Dataset`` verb on 16,777,216 Zipf-keyed 100-byte
+              records, each held against numpy;
+     K-small  2^20 records through every verb, card against CPU, with
+              ``fast_sort`` + ``"pow2"`` and ``ring_fused=False`` variants;
+     L        ``run_als``, ``BASELINE.md`` config 4, at MovieLens-20M's
+              dimensions, held against ``_numpy_als``;
+     L-small  both ALS half-steps at 1/16 of that, card against CPU;
+   then the ring kernel at every send shape these legs launched it at,
+   each against its plain version and timed;
+7. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -1259,6 +1273,69 @@ def ring_ooc_phase() -> dict:
     return line
 
 
+class RingShapes:
+    """The send shapes the ring kernel is launched at while inside the
+    ``with``, with their launch counts: ``exchange/ring.py``'s ``_launch``
+    is wrapped for the duration (the launch counts stay the wrappers'
+    own). ``ring_all_to_all``'s ``[D, D, ...]`` reaches ``_launch`` as
+    ``[D, 1, D, ...]``, the same kernel on the same permutation."""
+
+    def __enter__(self):
+        from sparkrdma_tpu_torch.exchange import ring
+
+        self.counts = {}
+        self._ring, self._launch = ring, ring._launch
+
+        def launch(send, out):
+            shape = tuple(send.shape)
+            self.counts[shape] = self.counts.get(shape, 0) + 1
+            return self._launch(send, out)
+
+        ring._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._ring._launch = self._launch
+
+
+def ring_leg_phases(shapes: dict) -> list:
+    """The ring kernel at every send shape legs I-L launched it at: random
+    words at each shape, bit-exact against ``ring_exchange_plain``, timed
+    beside its bound and ``permute().contiguous()``. One line per leg and
+    shape."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_exchange,
+                                                   ring_exchange_plain)
+
+    lines = []
+    for seed, (leg_name, shape, n) in enumerate(
+            (leg_name, shape, n) for leg_name, counts in shapes.items()
+            for shape, n in sorted(counts.items())):
+        send = rand_words(shape, seed=100 + seed)
+        got = ring_exchange(send)
+        err = max_abs_err(got, ring_exchange_plain(send))
+        if err:
+            fail(f"ring_exchange disagrees with its plain version at leg "
+                 f"{leg_name}'s shape {list(shape)}: {err}")
+        bound_ms = 2 * send.numel() * 4 / MEM_RATE * 1e3
+        # short kernels are timed back to back, without the launch gap
+        inner = 20 if bound_ms < 0.5 else 1
+        line = {"phase": "ring_exchange", "leg": leg_name,
+                "shape": list(shape), "launches": n, "max_abs_err": err,
+                "kernel_ms": time_ms(lambda: ring_exchange(send, out=got),
+                                     reps=10, inner=inner),
+                "bound_ms": bound_ms,
+                "plain_ms": time_ms(lambda: ring_exchange_plain(send),
+                                    reps=5, inner=inner),
+                "library_ms": time_ms(
+                    lambda: send.permute(2, 1, 0, *range(3, send.dim()))
+                    .contiguous(), reps=5, inner=inner)}
+        report(line)
+        lines.append(line)
+        del send, got
+        torch.cuda.empty_cache()
+    return lines
+
+
 def same_runs(a, b) -> bool:
     """Two tiered runs' per-partition reads, chunk by chunk, bit for bit."""
     return len(a) == len(b) and all(
@@ -1971,11 +2048,15 @@ def main() -> int:
 
     legs = {}
     ring_chunk, ring_ooc = earlier_legs(legs)
+    shapes = {}
     for name, fn in (("I", leg_i), ("J", leg_j), ("K", leg_k),
                      ("K-small", leg_k_small), ("L", leg_l),
                      ("L-small", leg_l_small)):
-        legs[name] = fn()
+        with RingShapes() as seen:
+            legs[name] = fn()
+        shapes[name] = seen.counts
         torch.cuda.empty_cache()
+    ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
             fail(f"ring_exchange was not launched on leg {name}")
@@ -2008,7 +2089,7 @@ def main() -> int:
          "launches": launches("ring_exchange"),
          "launches_i_to_l": by_leg("ring_exchange"),
          "max_abs_err": max(p["max_abs_err"] for p in (
-             ring, ring_w3, ring_chunk, ring_ooc)),
+             ring, ring_w3, ring_chunk, ring_ooc, *ring_legs)),
          "ms": ring["kernel_ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
          "bound_by": "bytes", "library_ms": ring["library_ms"],
@@ -2019,7 +2100,10 @@ def main() -> int:
                                    "library_ms")),
          "ooc_chunk": sub(ring_ooc, ("shape", "max_abs_err", "kernel_ms",
                                      "plain_ms", "bound_ms",
-                                     "library_ms"))},
+                                     "library_ms")),
+         "legs_i_to_l": [sub(p, ("leg", "shape", "launches", "max_abs_err",
+                                 "kernel_ms", "plain_ms", "bound_ms",
+                                 "library_ms")) for p in ring_legs]},
         {"name": "ring_all_to_all", "route": "cuda",
          "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "sparkrdma_tpu/exchange/ring.py:87",

@@ -97,47 +97,41 @@ def _strip_filler(m: ShuffleManager, r: torch.Tensor, t: int
     return sort_by_lead_cols(r, ~v, mode), int(v.sum())
 
 
-def _join_count(m: ShuffleManager, a: "Dataset", b: "Dataset", key_ix: int,
-                pay_ix: int) -> Tuple[int, float]:
-    """Filler-stripped :func:`_local_join` of every partition, summed
-    over the partitions (the reference's ``psum``)."""
+def _join_counts(m: ShuffleManager, a: "Dataset", b: "Dataset",
+                 key_ix: int) -> Tuple[np.ndarray, float]:
+    """Filler-stripped :func:`_local_join` of every partition: the
+    per-partition match counts and the sum of payload products over all
+    partitions (the reference's ``psum``)."""
     mesh = m.runtime.num_partitions
-    count, sums = 0, []
+    counts, sums = [], []
     for ra, ta, rb, tb in zip(_parts(a.records, mesh), a.totals.tolist(),
                               _parts(b.records, mesh), b.totals.tolist()):
         ra, ta = _strip_filler(m, ra, ta)
         rb, tb = _strip_filler(m, rb, tb)
-        c, s = _local_join(ra, ta, rb, tb, key_ix=key_ix, pay_ix=pay_ix)
-        count += c
+        c, s = _local_join(ra, ta, rb, tb, key_ix=key_ix,
+                           pay_ix=m.conf.key_words)
+        counts.append(c)
         sums.append(s)
-    return count, float(torch.stack(sums).sum())
+    return (np.asarray(counts, dtype=np.int64),
+            float(torch.stack(sums).sum()))
 
 
 def _join_rows(m: ShuffleManager, a: "Dataset", b: "Dataset",
-               out_capacity: int, key_ix: int, count_only: bool = False):
+               out_capacity: int, key_ix: int):
     """Filler-stripped :func:`_local_join_rows` of every partition:
-    ``(joined [kw + 2*vw, D*out_capacity], counts int64[D])``, or only
-    the per-partition counts (the counting pass)."""
+    ``(joined [kw + 2*vw, D*out_capacity], counts int64[D])``."""
     mesh = m.runtime.num_partitions
     kw, vw = m.conf.key_words, m.conf.val_words
-    pack = m._exchange.sort_mode(m.conf.record_words) == "pack"
     counts, pieces = [], []
     for ra, ta, rb, tb in zip(_parts(a.records, mesh), a.totals.tolist(),
                               _parts(b.records, mesh), b.totals.tolist()):
         ra, ta = _strip_filler(m, ra, ta)
         rb, tb = _strip_filler(m, rb, tb)
-        if count_only:
-            counts.append(_local_join(ra, ta, rb, tb, key_ix=key_ix,
-                                      pay_ix=kw)[0])
-            continue
         joined, c = _local_join_rows(ra, ta, rb, tb, out_capacity, key_ix,
-                                     kw, vw, vw, pack=pack)
+                                     kw, vw, vw)
         pieces.append(joined)
         counts.append(c)
-    counts = np.asarray(counts, dtype=np.int64)
-    if count_only:
-        return counts
-    return torch.cat(pieces, dim=1), counts
+    return torch.cat(pieces, dim=1), np.asarray(counts, dtype=np.int64)
 
 
 @dataclasses.dataclass
@@ -567,8 +561,8 @@ class Dataset:
         ``other`` on the LOW key word (the aggregate join of TPC-DS-style
         queries). The reserved null key never matches."""
         a, b, key_ix = self._co_partition(other)
-        return _join_count(self.manager, a, b, key_ix,
-                           self.manager.conf.key_words)
+        counts, sums = _join_counts(self.manager, a, b, key_ix)
+        return int(counts.sum()), sums
 
     def join(self, other: "Dataset", out_capacity: Optional[int] = None
              ) -> Tuple[torch.Tensor, np.ndarray]:
@@ -585,7 +579,7 @@ class Dataset:
         m = self.manager
         a, b, key_ix = self._co_partition(other)
         if out_capacity is None:
-            per = _join_rows(m, a, b, 0, key_ix, count_only=True)
+            per, _ = _join_counts(m, a, b, key_ix)
             out_capacity = size_class(max(1, int(per.max())))
         joined, totals = _join_rows(m, a, b, out_capacity, key_ix)
         if int(totals.max(initial=0)) > out_capacity:

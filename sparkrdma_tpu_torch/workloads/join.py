@@ -86,17 +86,17 @@ def _local_join(cols_a: torch.Tensor, total_a: int, cols_b: torch.Tensor,
 
 def _local_join_rows(cols_a: torch.Tensor, total_a: int,
                      cols_b: torch.Tensor, total_b: int, out_capacity: int,
-                     key_ix: int, kw: int, val_a: int, val_b: int,
-                     pack: bool = False) -> Tuple[torch.Tensor, int]:
+                     key_ix: int, kw: int, val_a: int, val_b: int
+                     ) -> Tuple[torch.Tensor, int]:
     """One partition's sort-merge join MATERIALIZING the joined rows:
     ``(joined [kw + val_a + val_b, out_capacity], count)``, ``count`` the
     TRUE match count — ``count > out_capacity`` means the capacity was too
     small and rows past it are absent. A joined row is A's key words, A's
     payload words, then B's payload words; the tail is zero.
 
-    Both sides sort stably by the key, full records riding (``pack``
-    names the reference's u64-packed route, the same stable sort here).
-    Each A row's match range in B gives, by an exclusive prefix sum of
+    Both sides sort stably by the key, full records riding: one
+    permutation and one gather at any width, so the reference's
+    u64-packed route (``pack=True``) gives the same rows. Each A row's match range in B gives, by an exclusive prefix sum of
     match counts, its output offset; every output slot finds its A row
     by one ``searchsorted`` into those offsets and its B row by
     inverting B's validity prefix sum. A count past ``2**31 - 1``, where

@@ -89,6 +89,8 @@ def test_local_join_rows_bit_equal(ref, case, w, pack):
     a, _ = _side(3, w, ca, ta, kr, sent)
     b, _ = _side(4, w, cb, tb, kr, sent)
     vw = w - 2
+    # the port's one route (a permutation sort at any width) against the
+    # reference's full-record route at W=4 and its u64-packed one at W=25
     count = _numpy_reference_join(a[:, :ta].T, b[:, :tb].T)[0]
     # exact fit, and too small (the overflow contract: the true count
     # comes back with the first out_capacity rows); the multiset test
@@ -99,7 +101,7 @@ def test_local_join_rows_bit_equal(ref, case, w, pack):
             jnp.asarray([tb]), cap, 1, 2, vw, vw, pack=pack)
         pj, pc = _local_join_rows(records_to_torch(a, "cpu"), ta,
                                   records_to_torch(b, "cpu"), tb, cap, 1, 2,
-                                  vw, vw, pack=pack)
+                                  vw, vw)
         assert pc == int(rc) == count
         np.testing.assert_array_equal(records_from_torch(pj), np.asarray(rj))
 
