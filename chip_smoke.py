@@ -16,7 +16,14 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    sort, and on all-ones records; one ``merge_shape`` line each gives
    ``kernel_ms``, ``bound_ms`` by the rows merged and the share;
    The ring exchange is also checked and timed at leg E's width (W=3),
-   and a ``combine`` phase times the float segmented scan (the mirrored
+   each ring line with its device time (``device_ms``: 20 launches in a
+   CUDA graph, replayed between CUDA events), ``permute().contiguous()``'s
+   (``library_device_ms``) and the host cost of a launch (``ring_host``:
+   1000 enqueues of a tiny shape); a ``ring_edges`` phase checks it at
+   odd shapes (chunk = 0-3 mod 4, below 4 words, below and just above
+   one work item, 0; D = 3 with R = 5; D = 1) as views based 4, 8 and
+   12 bytes into larger buffers, written with ``out=``; and a
+   ``combine`` phase times the float segmented scan (the mirrored
    reference tree) against the uint32 closed forms at leg D's shape;
 2. TeraSort legs at the full width of the benchmark configuration
    (100-byte records, W = 25, 16,777,216 records):
@@ -86,8 +93,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      L        ``run_als``, ``BASELINE.md`` config 4, at MovieLens-20M's
               dimensions, held against ``_numpy_als``;
      L-small  both ALS half-steps at 1/16 of that, card against CPU;
-   then the ring kernel at every send shape these legs launched it at,
-   each against its plain version and timed;
+   then the ring kernel at every send shape legs B-L launched it at
+   (recorded while each leg ran), each against its plain version and
+   timed;
 7. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
@@ -165,9 +173,51 @@ def time_ms(fn, reps: int, warm: int = 2, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: one warm-up call outside
+    the capture (it builds, loads and plans), then ``launches`` calls
+    captured in one CUDA graph, the replay timed with CUDA events
+    (median of ``reps``) over ``launches``. No host time is in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call over ``calls`` enqueues (the loop timed
+    with ``time.perf_counter``, then one synchronise)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape:
         fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
@@ -290,6 +340,63 @@ def merge_phase() -> dict:
     return line
 
 
+#: host microseconds per launch of each ring wrapper and of
+#: ``permute().contiguous()``, measured once by ``ring_host_phase``
+RING_HOST_US = {}
+#: what ``ring_device`` adds to each ring line
+RING_DEVICE_KEYS = ("device_ms", "library_device_ms", "device_share_of_bound",
+                    "host_us_per_launch", "library_host_us_per_launch")
+
+
+def ring_host_phase() -> dict:
+    """Host cost of one launch: 1000 enqueues of a tiny shape
+    ``[8, 1, 8, 1, 1, 4]`` through ``ring_exchange``, its ``[8, 8, 1, 1,
+    4]`` form through ``ring_all_to_all``, and ``permute().contiguous()``
+    (which allocates its output, as the library call does)."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
+                                                   ring_exchange)
+
+    tiny = rand_words((PARTS, 1, PARTS, 1, 1, 4), seed=97)
+    out = torch.empty_like(tiny)
+    tiny2, out2 = tiny.squeeze(1), out.squeeze(1)
+    RING_HOST_US.update(
+        ring_exchange=host_us(lambda: ring_exchange(tiny, out=out)),
+        ring_all_to_all=host_us(lambda: ring_all_to_all(tiny2, out=out2)),
+        permute_contiguous=host_us(
+            lambda: tiny.permute(2, 1, 0, 3, 4, 5).contiguous()))
+    line = {"phase": "ring_host", "shape": list(tiny.shape), "calls": 1000,
+            "host_us_per_launch": dict(RING_HOST_US)}
+    report(line)
+    return line
+
+
+def ring_device(send: torch.Tensor, out: torch.Tensor,
+                a2a: bool = False) -> dict:
+    """The ring kernel's device time at ``send``'s shape (CUDA-graph
+    replay, no host time), the same for ``permute().contiguous()``'s copy
+    into a buffer allocated outside the graph, the share of the bound,
+    and the host cost per launch. ``a2a``: ``send`` is ``[D, D, ...]``
+    through ``ring_all_to_all``."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
+                                                   ring_exchange)
+
+    kernel = ring_all_to_all if a2a else ring_exchange
+    lib_out = torch.empty_like(send)
+    dims = (1, 0, *range(2, send.dim())) if a2a else \
+        (2, 1, 0, *range(3, send.dim()))
+    dev = graph_ms(lambda: kernel(send, out=out))
+    line = {"device_ms": dev,
+            "library_device_ms": graph_ms(
+                lambda: lib_out.copy_(send.permute(dims))),
+            "device_share_of_bound":
+                2 * send.numel() * 4 / MEM_RATE * 1e3 / dev,
+            "host_us_per_launch":
+                RING_HOST_US["ring_all_to_all" if a2a else "ring_exchange"],
+            "library_host_us_per_launch": RING_HOST_US["permute_contiguous"]}
+    del lib_out
+    return line
+
+
 def ring_phase() -> dict:
     """Fused exchange at leg B's shape (R=1, C=2^19) and at R=3."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_exchange,
@@ -313,7 +420,8 @@ def ring_phase() -> dict:
     line = {"phase": "ring_exchange", "shape": list(send.shape),
             "rounds_checked": [1, 3], "max_abs_err": err, "kernel_ms": ms,
             "bound_ms": 2 * send.numel() * 4 / MEM_RATE * 1e3,
-            "plain_ms": plain_ms, "library_ms": library_ms}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **ring_device(send, got)}
     report(line)
     return line
 
@@ -335,7 +443,8 @@ def a2a_phase() -> dict:
     line = {"phase": "ring_all_to_all", "shape": list(send.shape),
             "max_abs_err": err, "kernel_ms": ms,
             "bound_ms": 2 * send.numel() * 4 / MEM_RATE * 1e3,
-            "plain_ms": plain_ms, "library_ms": library_ms}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **ring_device(send, got, a2a=True)}
     report(line)
     return line
 
@@ -357,7 +466,8 @@ def ring_w3_phase() -> dict:
     line = {"phase": "ring_exchange", "leg": "E", "shape": list(send.shape),
             "max_abs_err": err, "kernel_ms": ms,
             "bound_ms": 2 * send.numel() * 4 / MEM_RATE * 1e3,
-            "plain_ms": plain_ms, "library_ms": library_ms}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **ring_device(send, got)}
     report(line)
     return line
 
@@ -912,7 +1022,8 @@ def ring_chunk_phase(leg_f_line: dict) -> dict:
                                 inner=20),
             "library_ms": time_ms(
                 lambda: send.permute(2, 1, 0, 3, 4, 5).contiguous(),
-                reps=10, inner=20)}
+                reps=10, inner=20),
+            **ring_device(send, got)}
     report(line)
     return line
 
@@ -1268,7 +1379,8 @@ def ring_ooc_phase() -> dict:
                                 inner=5),
             "library_ms": time_ms(
                 lambda: send.permute(2, 1, 0, 3, 4, 5).contiguous(),
-                reps=10, inner=5)}
+                reps=10, inner=5),
+            **ring_device(send, got)}
     report(line)
     return line
 
@@ -1277,8 +1389,8 @@ class RingShapes:
     """The send shapes the ring kernel is launched at while inside the
     ``with``, with their launch counts: ``exchange/ring.py``'s ``_launch``
     is wrapped for the duration (the launch counts stay the wrappers'
-    own). ``ring_all_to_all``'s ``[D, D, ...]`` reaches ``_launch`` as
-    ``[D, 1, D, ...]``, the same kernel on the same permutation."""
+    own). Each shape is the canonical ``[D, R, D, ...]`` with a flag:
+    ``ring_all_to_all``'s ``[D, D, ...]`` is ``[D, 1, D, ...]``, a2a."""
 
     def __enter__(self):
         from sparkrdma_tpu_torch.exchange import ring
@@ -1286,10 +1398,12 @@ class RingShapes:
         self.counts = {}
         self._ring, self._launch = ring, ring._launch
 
-        def launch(send, out):
-            shape = tuple(send.shape)
-            self.counts[shape] = self.counts.get(shape, 0) + 1
-            return self._launch(send, out)
+        def launch(send, out, round_axis=True):
+            shape = tuple(send.shape) if round_axis else \
+                (send.shape[0], 1) + tuple(send.shape[1:])
+            key = (shape, not round_axis)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self._launch(send, out, round_axis)
 
         ring._launch = launch
         return self
@@ -1298,42 +1412,138 @@ class RingShapes:
         self._ring._launch = self._launch
 
 
+def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
+    """``legs[name] = fn()``, recording the ring shapes it launched."""
+    with RingShapes() as seen:
+        legs[name] = fn()
+    shapes[name] = seen.counts
+    torch.cuda.empty_cache()
+    return legs[name]
+
+
 def ring_leg_phases(shapes: dict) -> list:
-    """The ring kernel at every send shape legs I-L launched it at: random
-    words at each shape, bit-exact against ``ring_exchange_plain``, timed
-    beside its bound and ``permute().contiguous()``. One line per leg and
-    shape."""
-    from sparkrdma_tpu_torch.exchange.ring import (ring_exchange,
+    """The ring kernel at every send shape legs B-L launched it at: random
+    words at each shape, bit-exact against its plain version, timed
+    beside its bound and ``permute().contiguous()`` (CUDA events over
+    20-launch batches below 0.5 ms of bound, and CUDA-graph replay). One
+    line per shape, with the launches each leg made at it
+    (``scripts/torch_ring_ab.py`` keeps the list for A/B runs)."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
+                                                   ring_exchange,
                                                    ring_exchange_plain)
 
+    by_shape = {}
+    for leg_name, counts in shapes.items():
+        for key, n in counts.items():
+            by_shape.setdefault(key, {})[leg_name] = n
     lines = []
-    for seed, (leg_name, shape, n) in enumerate(
-            (leg_name, shape, n) for leg_name, counts in shapes.items()
-            for shape, n in sorted(counts.items())):
+    for seed, ((shape, a2a), legs) in enumerate(sorted(by_shape.items())):
         send = rand_words(shape, seed=100 + seed)
-        got = ring_exchange(send)
-        err = max_abs_err(got, ring_exchange_plain(send))
+        if a2a:
+            send = send.squeeze(1)
+            kernel, dims = ring_all_to_all, (1, 0, *range(2, send.dim()))
+            want = send.transpose(0, 1).contiguous()
+        else:
+            kernel, dims = ring_exchange, (2, 1, 0, *range(3, send.dim()))
+            want = ring_exchange_plain(send)
+        got = kernel(send)
+        err = max_abs_err(got, want)
+        del want
         if err:
-            fail(f"ring_exchange disagrees with its plain version at leg "
-                 f"{leg_name}'s shape {list(shape)}: {err}")
+            fail(f"the ring kernel disagrees with its plain version at "
+                 f"{list(shape)} (a2a {a2a}, legs {sorted(legs)}): {err}")
         bound_ms = 2 * send.numel() * 4 / MEM_RATE * 1e3
         # short kernels are timed back to back, without the launch gap
         inner = 20 if bound_ms < 0.5 else 1
-        line = {"phase": "ring_exchange", "leg": leg_name,
-                "shape": list(shape), "launches": n, "max_abs_err": err,
-                "kernel_ms": time_ms(lambda: ring_exchange(send, out=got),
+        line = {"phase": "ring_exchange", "shape": list(shape), "a2a": a2a,
+                "legs": ", ".join(sorted(legs)), "launches_by_leg": legs,
+                "launches": sum(legs.values()), "max_abs_err": err,
+                "kernel_ms": time_ms(lambda: kernel(send, out=got),
                                      reps=10, inner=inner),
                 "bound_ms": bound_ms,
-                "plain_ms": time_ms(lambda: ring_exchange_plain(send),
-                                    reps=5, inner=inner),
+                "plain_ms": time_ms(
+                    lambda: send.permute(dims).contiguous() if a2a
+                    else ring_exchange_plain(send), reps=5, inner=inner),
                 "library_ms": time_ms(
-                    lambda: send.permute(2, 1, 0, *range(3, send.dim()))
-                    .contiguous(), reps=5, inner=inner)}
+                    lambda: send.permute(dims).contiguous(), reps=5,
+                    inner=inner),
+                **ring_device(send, got, a2a)}
         report(line)
         lines.append(line)
         del send, got
         torch.cuda.empty_cache()
     return lines
+
+
+#: the odd shapes ``tests/test_torch_ring.py`` holds the kernel's plan and
+#: per-item copy at: chunk = 1, 2, 3 mod 4, below 4 words, below one item,
+#: one item + 1, two items, 0; D = 3 with R = 5; D = 1
+RING_EDGE_SHAPES = [(8, 2, 8, 1, 3, 7), (4, 1, 4, 2, 1, 3), (8, 2, 8, 1, 3, 5),
+                    (8, 1, 8, 3), (8, 2, 8, 1), (8, 1, 8, 1, 25, 129),
+                    (2, 1, 2, 8193), (2, 3, 2, 16384), (8, 1, 8, 0),
+                    (3, 5, 3, 2, 7, 101), (1, 2, 1, 9)]
+#: (send, out) base offsets in words: 0, 4, 8 and 12 bytes
+RING_EDGE_OFFSETS = [(0, 0), (1, 0), (0, 2), (3, 1), (2, 3)]
+
+
+def ring_edge_phase() -> dict:
+    """The ring kernel at ``RING_EDGE_SHAPES``, each as views based 0, 4,
+    8 and 12 bytes into larger buffers and written with ``out=``, through
+    ``ring_exchange`` and (R = 1 shapes) ``ring_all_to_all``; then the
+    unfused streaming loop's form, ``ring_all_to_all(send[f],
+    out=recv[f])`` at a chunk that is not a multiple of 4 words, with D =
+    3. Bit-exact against the plain version; the words around each
+    ``out`` stay untouched."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
+                                                   ring_exchange,
+                                                   ring_exchange_plain)
+
+    def views(shape, so, oo, seed):
+        n = int(np.prod(shape))
+        send = rand_words((n + 4,), seed)[so:so + n].view(shape)
+        obuf = torch.full((n + 4,), -7, dtype=torch.int32, device="cuda")
+        return send, obuf, obuf[oo:oo + n].view(shape), n
+
+    err, checked = 0, 0
+    for i, shape in enumerate(RING_EDGE_SHAPES):
+        for so, oo in RING_EDGE_OFFSETS:
+            send, obuf, out, n = views(shape, so, oo, 300 + i)
+            forms = [(ring_exchange, send, out, ring_exchange_plain(send))]
+            if shape[1] == 1:
+                s2, o2 = send.squeeze(1), out.squeeze(1)
+                forms.append((ring_all_to_all, s2, o2,
+                              s2.transpose(0, 1).contiguous()))
+            for kernel, x, o, want in forms:
+                o.fill_(-7)
+                got = kernel(x, out=o)
+                torch.cuda.synchronize()
+                if got.data_ptr() != o.data_ptr():
+                    fail(f"{kernel.__name__} did not write into out at "
+                         f"{list(shape)}")
+                err = max(err, max_abs_err(got, want))
+                if not (bool((obuf[:oo] == -7).all())
+                        and bool((obuf[oo + n:] == -7).all())):
+                    fail(f"{kernel.__name__} wrote outside out at "
+                         f"{list(shape)}, offsets {(so, oo)}")
+                checked += 1
+    # the unfused streaming loop: views send[f], recv[f] of [F, D, D, ...]
+    f_in, d, cap = 2, 3, 29
+    send = rand_words((f_in, d, d, 2, 5, cap), seed=399)
+    recv = torch.full_like(send, -7)
+    for f in range(f_in):
+        ring_all_to_all(send[f], out=recv[f])
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(recv, send.transpose(1, 2).contiguous()))
+    checked += 1
+    if err:
+        fail(f"the ring kernel disagrees with its plain version at an "
+             f"edge shape: {err}")
+    line = {"phase": "ring_edges", "shapes": [list(x) for x in
+                                              RING_EDGE_SHAPES],
+            "offsets_words": RING_EDGE_OFFSETS, "launches_checked": checked,
+            "streaming_views": [f_in, d, d, 2, 5, cap], "max_abs_err": err}
+    report(line)
+    return line
 
 
 def same_runs(a, b) -> bool:
@@ -2040,22 +2250,20 @@ def main() -> int:
             "libraries": sorted(libs)})
 
     merge = merge_phase()
+    ring_host_phase()
     ring = ring_phase()
     ring_w3 = ring_w3_phase()
     a2a = a2a_phase()
+    edges = ring_edge_phase()
     combine_phase()
     torch.cuda.empty_cache()
 
-    legs = {}
-    ring_chunk, ring_ooc = earlier_legs(legs)
-    shapes = {}
+    legs, shapes = {}, {}
+    ring_chunk, ring_ooc = earlier_legs(legs, shapes)
     for name, fn in (("I", leg_i), ("J", leg_j), ("K", leg_k),
                      ("K-small", leg_k_small), ("L", leg_l),
                      ("L-small", leg_l_small)):
-        with RingShapes() as seen:
-            legs[name] = fn()
-        shapes[name] = seen.counts
-        torch.cuda.empty_cache()
+        run_leg(legs, shapes, name, fn)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -2068,7 +2276,7 @@ def main() -> int:
         return sum(legs[n]["launches"][k] for n in legs)
 
     def by_leg(k):
-        return {n: legs[n]["launches"][k] for n in LEGS_I_TO_L}
+        return {n: legs[n]["launches"][k] for n in legs}
 
     def sub(phase, keys):
         return {k: phase[k] for k in keys}
@@ -2079,7 +2287,7 @@ def main() -> int:
          "replaces": "sparkrdma_tpu/kernels/merge_sort.py:309",
          "launches": launches("merge_stage"),
          "split_launches": launches("merge_splits"),
-         "launches_i_to_l": by_leg("merge_stage"),
+         "launches_by_leg": by_leg("merge_stage"),
          "max_abs_err": merge["max_abs_err"], "ms": merge["kernel_ms"],
          "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
@@ -2087,31 +2295,36 @@ def main() -> int:
          "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "sparkrdma_tpu/exchange/ring.py:140",
          "launches": launches("ring_exchange"),
-         "launches_i_to_l": by_leg("ring_exchange"),
+         "launches_by_leg": by_leg("ring_exchange"),
          "max_abs_err": max(p["max_abs_err"] for p in (
-             ring, ring_w3, ring_chunk, ring_ooc, *ring_legs)),
+             ring, ring_w3, ring_chunk, ring_ooc, edges, *ring_legs)),
          "ms": ring["kernel_ms"],
          "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
          "bound_by": "bytes", "library_ms": ring["library_ms"],
+         **sub(ring, RING_DEVICE_KEYS),
          "w3": sub(ring_w3, ("shape", "max_abs_err", "kernel_ms",
-                             "plain_ms", "bound_ms", "library_ms")),
+                             "plain_ms", "bound_ms", "library_ms",
+                             *RING_DEVICE_KEYS)),
          "chunk": sub(ring_chunk, ("shape", "fine_shape", "max_abs_err",
                                    "kernel_ms", "plain_ms", "bound_ms",
-                                   "library_ms")),
+                                   "library_ms", *RING_DEVICE_KEYS)),
          "ooc_chunk": sub(ring_ooc, ("shape", "max_abs_err", "kernel_ms",
                                      "plain_ms", "bound_ms",
-                                     "library_ms")),
-         "legs_i_to_l": [sub(p, ("leg", "shape", "launches", "max_abs_err",
-                                 "kernel_ms", "plain_ms", "bound_ms",
-                                 "library_ms")) for p in ring_legs]},
+                                     "library_ms", *RING_DEVICE_KEYS)),
+         "edges": sub(edges, ("launches_checked", "max_abs_err")),
+         "leg_shapes": [sub(p, ("shape", "a2a", "launches_by_leg",
+                                "max_abs_err", "kernel_ms", "plain_ms",
+                                "bound_ms", "library_ms",
+                                *RING_DEVICE_KEYS)) for p in ring_legs]},
         {"name": "ring_all_to_all", "route": "cuda",
          "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
          "replaces": "sparkrdma_tpu/exchange/ring.py:87",
          "launches": launches("ring_all_to_all"),
-         "launches_i_to_l": by_leg("ring_all_to_all"),
+         "launches_by_leg": by_leg("ring_all_to_all"),
          "max_abs_err": a2a["max_abs_err"], "ms": a2a["kernel_ms"],
          "plain_ms": a2a["plain_ms"], "bound_ms": a2a["bound_ms"],
-         "bound_by": "bytes", "library_ms": a2a["library_ms"]},
+         "bound_by": "bytes", "library_ms": a2a["library_ms"],
+         **sub(a2a, RING_DEVICE_KEYS)},
     ]
     report({"kernels": kernels})
     report({"ok": True, "device": {"platform": "gpu",
@@ -2120,21 +2333,26 @@ def main() -> int:
     return 0
 
 
-def earlier_legs(legs: dict):
-    """Legs A-H, into ``legs``; returns the ring kernel's
-    phases at leg F's chunk shape and leg H's."""
+def earlier_legs(legs: dict, shapes: dict):
+    """Legs A-H, into ``legs``, and the ring shapes each launched, into
+    ``shapes``; returns the ring kernel's phases at leg F's chunk shape
+    and leg H's."""
     outs = {}
     for name, d, transport, fused in (("A", 1, "xla", True),
                                       ("B", 8, "pallas_ring", True),
                                       ("C", 8, "pallas_ring", False)):
-        legs[name], out, totals = leg(name, d, RECORDS, transport, fused,
-                                      seed=0, full=True)
+        with RingShapes() as seen:
+            legs[name], out, totals = leg(name, d, RECORDS, transport,
+                                          fused, seed=0, full=True)
+        shapes[name] = seen.counts
         if name in ("B", "C"):
             outs[name] = (out, totals)
         del out, totals
         torch.cuda.empty_cache()
-        leg(name + "-small", d, 1 << 20, transport, fused, seed=5,
-            full=False)
+        with RingShapes() as seen:
+            leg(name + "-small", d, 1 << 20, transport, fused, seed=5,
+                full=False)
+        shapes[name + "-small"] = seen.counts
     # the two transports of the 8-partition path give the same bytes
     (ob, tb), (oc, tc) = outs["B"], outs["C"]
     if not (torch.equal(ob, oc) and torch.equal(tb, tc)):
@@ -2153,31 +2371,22 @@ def earlier_legs(legs: dict):
         wide_sort_min_payload=0), "profiles/torch_legB.txt")
     torch.cuda.empty_cache()
 
-    legs["D"] = leg_d()
-    torch.cuda.empty_cache()
-    legs["D-small"] = leg_d_small()
-    torch.cuda.empty_cache()
-    legs["E"] = leg_e()
-    torch.cuda.empty_cache()
-    legs["F"] = leg_f(legs["B"]["gbps"])
-    torch.cuda.empty_cache()
+    run_leg(legs, shapes, "D", leg_d)
+    run_leg(legs, shapes, "D-small", leg_d_small)
+    run_leg(legs, shapes, "E", leg_e)
+    run_leg(legs, shapes, "F", lambda: leg_f(legs["B"]["gbps"]))
     profile_read("leg F read", default_conf(val_words=VAL_WORDS),
                  "profiles/torch_legF.txt")
     torch.cuda.empty_cache()
     ring_chunk = ring_chunk_phase(legs["F"])
     torch.cuda.empty_cache()
-    legs["F-small"] = leg_f_small()
-    torch.cuda.empty_cache()
-    legs["G"] = leg_g()
-    torch.cuda.empty_cache()
-    legs["G-small"] = leg_g_small()
-    torch.cuda.empty_cache()
-    legs["H"] = leg_h()
-    torch.cuda.empty_cache()
+    run_leg(legs, shapes, "F-small", leg_f_small)
+    run_leg(legs, shapes, "G", leg_g)
+    run_leg(legs, shapes, "G-small", leg_g_small)
+    run_leg(legs, shapes, "H", leg_h)
     ring_ooc = ring_ooc_phase()
     torch.cuda.empty_cache()
-    legs["H-small"] = leg_h_small()
-    torch.cuda.empty_cache()
+    run_leg(legs, shapes, "H-small", leg_h_small)
     for k, name in (("ring_exchange", "D"), ("ring_exchange", "E"),
                     ("ring_exchange", "D-small"),
                     ("ring_all_to_all", "D-small"),

@@ -36,7 +36,7 @@ SIGNATURES = {
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
     },
     "ring_exchange": {
-        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _P], _I),
+        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _I, _L, _P], _I),
     },
 }
 
@@ -119,11 +119,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
 
 
-def stream_ptr(device) -> int:
-    """Raw pointer of PyTorch's current stream on ``device``."""
+def stream_ptr(index: int) -> int:
+    """Raw pointer of PyTorch's current stream on card ``index`` (a graph
+    capture's stream while one is capturing), read without making a
+    ``Stream`` object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 __all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT"]

@@ -12,6 +12,8 @@ concat_axis=0, tiled=True)`` on a D-device mesh. The hand-written kernel
 is ``csrc/ring_exchange.cu`` (its source note gives the bound and the
 design); one launch carries every round. ``make_ring_all_to_all`` is its
 R = 1 case, the counterpart of the reference's single-round kernel.
+:func:`launch_plan` gives each launch's geometry (work items of a chunk,
+one CTA each), so the decomposition is held on the CPU too.
 
 On a CPU tensor :func:`ring_exchange` runs its plain version (indexing);
 on a CUDA tensor it launches the kernel or raises.
@@ -19,12 +21,12 @@ on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 import zlib
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from sparkrdma_tpu_torch import _build
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 
 
@@ -47,22 +49,54 @@ def _check_send(send: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous send buffer")
 
 
-def _launch(send: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch ``csrc/ring_exchange.cu`` on ``send [D, R, D, ...]``."""
-    from sparkrdma_tpu_torch import _build
+#: words per work item: 16 KB, one pass of a CTA's 256 threads x 4
+#: vectors (``csrc/ring_exchange.cu``'s source note says why)
+ITEM_WORDS = 1 << 12
 
-    d, r = send.shape[0], send.shape[1]
+
+class RingPlan(NamedTuple):
+    """One launch's geometry: each of the ``D*R*D`` chunks is cut into
+    ``items_per_chunk`` items of ``item_words`` words (the last one
+    shorter), ``grid`` in all, one CTA each."""
+
+    item_words: int
+    items_per_chunk: int
+    grid: int
+
+
+def launch_plan(d: int, r: int, chunk: int) -> RingPlan:
+    """The kernel's geometry for ``send [D, R, D, chunk words]``."""
+    per = -(-chunk // ITEM_WORDS)
+    return RingPlan(ITEM_WORDS, per, d * r * d * per)
+
+
+_kernel = None      # sr_ring_exchange, bound at the first launch
+
+
+def _launch(send: torch.Tensor, out: Optional[torch.Tensor],
+            round_axis: bool = True) -> torch.Tensor:
+    """Launch ``csrc/ring_exchange.cu`` on ``send [D, R, D, ...]``, or on
+    ``send [D, D, ...]`` as R = 1 when it has no ``round_axis``."""
+    global _kernel
     if out is None:
         out = torch.empty_like(send)
     elif (out.shape != send.shape or out.dtype != send.dtype
           or out.device != send.device or not out.is_contiguous()):
         raise ValueError("out must be a contiguous tensor like send")
-    lib = _build.library("ring_exchange")
-    err = lib.sr_ring_exchange(
-        ctypes.c_void_p(send.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        d, r, send[0, 0, 0].numel(),
-        ctypes.c_void_p(_build.stream_ptr(send.device)))
-    _build.check(err, "ring_exchange launch")
+    words = send.numel()
+    if words == 0:
+        return out
+    d = send.shape[0]
+    r = send.shape[1] if round_axis else 1
+    chunk = words // (d * r * d)
+    if _kernel is None:
+        _kernel = _build.library("ring_exchange").sr_ring_exchange
+    plan = launch_plan(d, r, chunk)
+    err = _kernel(send.data_ptr(), out.data_ptr(), d, r, chunk,
+                  plan.item_words, plan.items_per_chunk,
+                  _build.stream_ptr(send.get_device()))
+    if err:
+        _build.check(err, "ring_exchange launch")
     return out
 
 
@@ -77,7 +111,8 @@ def ring_exchange(send: torch.Tensor,
     if not send.is_cuda:
         recv = ring_exchange_plain(send)
         return recv if out is None else out.copy_(recv)
-    ring_exchange.launches += 1
+    if send.numel():
+        ring_exchange.launches += 1
     return _launch(send, out)
 
 
@@ -123,9 +158,9 @@ def ring_all_to_all(send: torch.Tensor,
     if not send.is_cuda:
         recv = send.transpose(0, 1).contiguous()
         return recv if out is None else out.copy_(recv)
-    ring_all_to_all.launches += 1
-    return _launch(send.unsqueeze(1),
-                   None if out is None else out.unsqueeze(1)).squeeze(1)
+    if send.numel():
+        ring_all_to_all.launches += 1
+    return _launch(send, out, round_axis=False)
 
 
 ring_all_to_all.launches = 0
@@ -150,4 +185,4 @@ def make_ring_all_to_all(num_partitions: int,
 
 __all__ = ["make_ring_exchange", "make_ring_all_to_all",
            "derive_collective_id", "ring_exchange", "ring_exchange_plain",
-           "ring_all_to_all"]
+           "ring_all_to_all", "launch_plan", "RingPlan", "ITEM_WORDS"]

@@ -12,8 +12,10 @@ Counterpart of ``sparkrdma_tpu.hbm.slot_pool``:
   misses and the buffers outstanding (with their high-water mark).
 
 Buffers are torch tensors on the pool's device (``int32`` word views by
-default). Only a miss is zero-filled: a hit hands the buffer back as its
-last user left it, and the caller writes what it reads.
+default). The device is the card unless the caller passes another, as
+``MeshRuntime`` does; without CUDA the default raises. Only a miss is
+zero-filled: a hit hands the buffer back as its last user left it, and
+the caller writes what it reads.
 
 JAX donation has no counterpart here: nothing deletes a buffer, so there
 is no ``is_deleted`` check and nothing is ever dropped. A buffer may be
@@ -36,6 +38,7 @@ import torch
 
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.runtime.device import resolve_device
 
 
 class Slot:
@@ -85,10 +88,10 @@ class SlotPool:
     """Per-runtime pool of device buffers, bucketed by size class (``get``)
     or by exact shape and dtype (``get_shaped``)."""
 
-    def __init__(self, conf: Optional[ShuffleConf] = None, device="cpu",
+    def __init__(self, conf: Optional[ShuffleConf] = None, device="cuda",
                  metrics: Optional[MetricsRegistry] = None):
         self.conf = conf or ShuffleConf()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._free: Dict[Tuple, List[torch.Tensor]] = defaultdict(list)
         self._lock = threading.Lock()
         self.allocations = 0               # guarded-by: _lock

@@ -162,7 +162,7 @@ def merge_splits(cols: torch.Tensor, run: int, tile: int) -> torch.Tensor:
     err = lib.sr_merge_splits(
         ctypes.c_void_p(cols.data_ptr()), ctypes.c_void_p(splits.data_ptr()),
         w, n, _ld(cols), run, tile,
-        ctypes.c_void_p(_build.stream_ptr(cols.device)))
+        ctypes.c_void_p(_build.stream_ptr(cols.get_device())))
     _build.check(err, "merge_splits launch")
     return splits
 
@@ -218,7 +218,7 @@ def merge_stage(cols: torch.Tensor, run: int,
     err = lib.sr_merge_stage(
         ctypes.c_void_p(cols.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(splits.data_ptr()), w, n, _ld(cols), _ld(out), run,
-        tile, ctypes.c_void_p(_build.stream_ptr(cols.device)))
+        tile, ctypes.c_void_p(_build.stream_ptr(cols.get_device())))
     _build.check(err, "merge_stage launch")
     return out
 

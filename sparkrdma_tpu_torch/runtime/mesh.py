@@ -23,19 +23,7 @@ import torch
 
 from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.hbm.slot_pool import SlotPool
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent — the port never carries on on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run the plain versions on the CPU")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from sparkrdma_tpu_torch.runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)

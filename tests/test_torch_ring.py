@@ -7,6 +7,8 @@ source axis lives: the reference's global ``[R, D*D, ...]`` holds device
 ``s``'s slots at ``[:, s*D:(s+1)*D]``; the port stacks them as ``send[s]``.
 """
 
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,3 +185,195 @@ def test_kernel_matches_plain_on_card(cuda, shape):
     torch.cuda.synchronize()
     assert port.ring_exchange.launches == before + 1
     assert torch.equal(got, port.ring_exchange_plain(send))
+
+
+# --- the kernel's launch plan and per-item copy, held on the CPU ---------
+#
+# ``csrc/ring_exchange.cu`` cannot run here. What it computes is pinned
+# in two steps: the launch plan from ``launch_plan`` covers every word of
+# every chunk once, at every send shape ``chip_smoke.py`` checks and at
+# odd ones; and a numpy emulation of the kernel's per-item copy (scalar
+# head, 16-byte body aligned or at a word shift, scalar tail, the guard
+# that keeps the shifted body's reads inside send) equals
+# ``ring_exchange_plain``, the buffers based at 0, 4, 8 and 12 bytes.
+
+#: send shapes [D, R, D, ...]: every shape chip_smoke.py checks (those
+#: legs B-L launched the kernel at on an H100, then the kernel phases'
+#: own), and edge cases
+RING_SHAPES = {
+    "D-small 1x3x32769": (8, 1, 8, 1, 3, 32769),
+    "E 1x3x2097153": (8, 1, 8, 1, 3, 2097153),
+    "D-small a2a 1x4x32768": (8, 1, 8, 1, 4, 32768),
+    "D-small 1x4x32769": (8, 1, 8, 1, 4, 32769),
+    "D 1x4x524289": (8, 1, 8, 1, 4, 524289),
+    "H-small a2a 1x25x1152": (8, 1, 8, 1, 25, 1152),
+    "H-small 1x25x1153": (8, 1, 8, 1, 25, 1153),
+    "H-small a2a 1x25x1216": (8, 1, 8, 1, 25, 1216),
+    "H-small 1x25x1217": (8, 1, 8, 1, 25, 1217),
+    "H-small 1x25x2049": (8, 1, 8, 1, 25, 2049),
+    "F-small, K-small a2a 1x25x4096": (8, 1, 8, 1, 25, 4096),
+    "C-small a2a 1x25x32768": (8, 1, 8, 1, 25, 32768),
+    "B-small 1x25x32769": (8, 1, 8, 1, 25, 32769),
+    "H 1x25x34817": (8, 1, 8, 1, 25, 34817),
+    "H 1x25x36865": (8, 1, 8, 1, 25, 36865),
+    "C a2a 1x25x524288": (8, 1, 8, 1, 25, 524288),
+    "B 1x25x524289": (8, 1, 8, 1, 25, 524289),
+    "L-small 1x46x32769": (8, 1, 8, 1, 46, 32769),
+    "L 1x46x524289": (8, 1, 8, 1, 46, 524289),
+    "G-small 1x4x4096": (8, 2, 8, 1, 4, 4096),
+    "F-small, K, K-small 1x25x4096": (8, 2, 8, 1, 25, 4096),
+    "K-small 1x25x4097": (8, 2, 8, 1, 25, 4097),
+    "G 2x4x4096": (8, 2, 8, 2, 4, 4096),
+    "F, J, K 2x25x4096": (8, 2, 8, 2, 25, 4096),
+    "I 32x2x4096": (8, 2, 8, 32, 2, 4096),
+    "F-small 1x25x4097": (8, 5, 8, 1, 25, 4097),
+    "F 2x25x4097": (8, 34, 8, 2, 25, 4097),
+    "R=3 kernel phase": (8, 3, 8, 1, 25, (1 << 17) + 1),
+    "F fine class": (8, 2, 8, 2, 25, 29),
+    "chunk 1 mod 4": (8, 2, 8, 1, 3, 7),
+    "chunk 2 mod 4": (4, 1, 4, 2, 1, 3),
+    "chunk 3 mod 4": (8, 2, 8, 1, 3, 5),
+    "chunk < 4": (8, 1, 8, 3),
+    "chunk 1": (8, 2, 8, 1),
+    "chunk < item": (8, 1, 8, 1, 25, 129),
+    "chunk = item + 1": (2, 1, 2, port.ITEM_WORDS + 1),
+    "chunk = 2 items": (2, 3, 2, 2 * port.ITEM_WORDS),
+    "chunk 0": (8, 1, 8, 0),
+    "D=3, R=5": (3, 5, 3, 2, 7, 101),
+    "D=1": (1, 2, 1, 9),
+}
+#: (send, recv) base offsets in words: 4, 8 and 12 bytes
+PHASES = [(0, 0), (1, 0), (0, 2), (3, 1), (2, 3)]
+
+
+def _geometry(shape):
+    d, r = shape[0], shape[1]
+    chunk = int(np.prod(shape[3:], dtype=np.int64))
+    return d, r, chunk, port.launch_plan(d, r, chunk)
+
+
+def _items(d, r, chunk, plan):
+    """Every item's (source offset, destination offset, length) in words,
+    as the kernel computes them from its item index."""
+    it = np.arange(plan.grid, dtype=np.int64)
+    c = it // plan.items_per_chunk
+    lo = (it - c * plan.items_per_chunk) * plan.item_words
+    s, rr, dd = c // (r * d), (c // d) % r, c % d
+    src = c * chunk + lo
+    dst = ((dd * r + rr) * d + s) * chunk + lo
+    return src, dst, np.minimum(plan.item_words, chunk - lo)
+
+
+def _tiles(off, ln, total):
+    """The intervals [off, off + ln) tile [0, total) exactly."""
+    order = np.argsort(off, kind="stable")
+    off, ln = off[order], ln[order]
+    return (bool((ln > 0).all()) and (total == 0 or off[0] == 0)
+            and bool((off[1:] == off[:-1] + ln[:-1]).all())
+            and int(off[-1] + ln[-1] if len(off) else 0) == total)
+
+
+@pytest.mark.parametrize("name", list(RING_SHAPES))
+def test_launch_plan_covers_every_word(name):
+    shape = RING_SHAPES[name]
+    d, r, chunk, plan = _geometry(shape)
+    total = d * r * d * chunk
+    assert plan.item_words % 4 == 0
+    assert plan.grid == d * r * d * plan.items_per_chunk < 2**31
+    if chunk == 0:
+        assert plan.grid == 0
+        return
+    assert (plan.items_per_chunk - 1) * plan.item_words < chunk \
+        <= plan.items_per_chunk * plan.item_words
+    src, dst, ln = _items(d, r, chunk, plan)
+    assert _tiles(src, ln, total) and _tiles(dst, ln, total)
+    # an item's words go to where the permutation sends them
+    c_src, c_dst = src // chunk, dst // chunk
+    s, rr, dd = c_src // (r * d), (c_src // d) % r, c_src % d
+    np.testing.assert_array_equal(c_dst, (dd * r + rr) * d + s)
+    np.testing.assert_array_equal(src % chunk, dst % chunk)
+
+
+def _emulated_chunk(shape):
+    """The chunk length the emulation runs at: the shape's own up to 2^21
+    words in all, else two items plus the shape's remainder (the same
+    residue mod 4, so the same alignment cases)."""
+    d, r, chunk, _ = _geometry(shape)
+    if d * r * d * chunk <= 1 << 21:
+        return chunk
+    return 2 * port.ITEM_WORDS + chunk % port.ITEM_WORDS
+
+
+def _emulate(send, d, r, chunk, plan, send_phase, recv_phase):
+    """The kernel's copy, item by item, of the flat int32 ``send`` (its
+    first word ``send_phase`` words past a 16-byte boundary) into a recv
+    based ``recv_phase`` words past one. Returns recv and the write count
+    of each word; asserts that every 16-byte block read lies in send and
+    every vector store is aligned."""
+    total = send.size
+    recv = np.zeros_like(send)
+    writes = np.zeros(total, dtype=np.int64)
+    for src, dst, ln in zip(*_items(d, r, chunk, plan)):
+        src, dst, ln = int(src), int(dst), int(ln)
+        head = min((4 - (recv_phase + dst) % 4) % 4, ln)
+        shift = (send_phase + src + head) % 4
+        nvec = (ln - head) // 4
+        if shift and nvec:
+            if src + head < shift:
+                head, nvec = head + 4, nvec - 1
+            if nvec and (ln - head - 4 * nvec) + (total - src - ln) \
+                    < 4 - shift:
+                nvec -= 1
+        body = 4 * nvec
+        assert (recv_phase + dst + head) % 4 == 0 or nvec == 0
+        recv[dst:dst + head] = send[src:src + head]
+        if shift == 0:
+            recv[dst + head:dst + head + body] = \
+                send[src + head:src + head + body]
+        elif nvec:
+            first = src + head - shift
+            assert first >= 0 and first + 4 * (nvec + 1) <= total
+            assert (send_phase + first) % 4 == 0
+            blocks = send[first:first + 4 * (nvec + 1)].reshape(nvec + 1, 4)
+            window = np.concatenate([blocks[:-1], blocks[1:]], axis=1)
+            recv[dst + head:dst + head + body] = \
+                window[:, shift:shift + 4].reshape(-1)
+        recv[dst + head + body:dst + ln] = \
+            send[src + head + body:src + ln]
+        writes[dst:dst + ln] += 1
+    return recv, writes
+
+
+@pytest.mark.parametrize("phases", PHASES,
+                         ids=[f"send+{4 * a}B-recv+{4 * b}B"
+                              for a, b in PHASES])
+@pytest.mark.parametrize("name", list(RING_SHAPES))
+def test_item_copy_emulation_matches_plain(name, phases):
+    shape = RING_SHAPES[name]
+    d, r = shape[0], shape[1]
+    chunk = _emulated_chunk(shape)
+    plan = port.launch_plan(d, r, chunk)
+    rng = np.random.default_rng(zlib.crc32(repr((name, phases)).encode()))
+    send = rng.integers(-2**31, 2**31, size=(d, r, d, chunk),
+                        dtype=np.int64).astype(np.int32)
+    want = port.ring_exchange_plain(torch.from_numpy(send)).numpy()
+    got, writes = _emulate(send.reshape(-1), d, r, chunk, plan, *phases)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want.reshape(-1))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 3, 2, 7, 101), (8, 2, 8, 1, 3, 5),
+                                   (8, 1, 8, 0)])
+def test_cpu_wrappers_take_views_and_out(shape):
+    """On CPU tensors the wrappers run the plain permutation, into
+    ``out`` views at a word offset too."""
+    n = int(np.prod(shape))
+    base = torch.arange(n + 3, dtype=torch.int32)
+    send = base[1:1 + n].view(shape)
+    out = torch.full((n + 2,), -1, dtype=torch.int32)[2:].view(shape)
+    got = port.ring_exchange(send, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, port.ring_exchange_plain(send))
+    a2a = send[:, 0]
+    assert torch.equal(port.ring_all_to_all(a2a),
+                       a2a.transpose(0, 1).contiguous())

@@ -34,10 +34,24 @@ D = 8
 
 
 def make_pool(**kw):
-    return SlotPool(ShuffleConf(**kw))
+    return SlotPool(ShuffleConf(**kw), device="cpu")
 
 
 # --- the pool's own contract (mirrors tests/test_slot_pool.py) ---------
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_default_device_is_the_card(monkeypatch, device):
+    """A pool built without a device (or with ``"cuda"``) lives on the
+    current card, as ``MeshRuntime``'s device does; without CUDA it
+    raises instead of carrying on on the CPU."""
+    kw = {} if device is None else {"device": device}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlotPool(ShuffleConf(), **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert SlotPool(ShuffleConf(), **kw).device == torch.device("cuda", 0)
+
 
 def test_get_rounds_to_size_class():
     pool = make_pool()
@@ -121,7 +135,7 @@ def test_shaped_buffers_and_stats():
     zero-filled; the outstanding count and its high-water mark follow
     the buffers out and back, and the counters reach the registry."""
     reg = MetricsRegistry()
-    pool = SlotPool(ShuffleConf(), metrics=reg)
+    pool = SlotPool(ShuffleConf(), device="cpu", metrics=reg)
     a = pool.get_shaped((3, 5))
     b = pool.get_shaped((3, 5))
     assert a.shape == (3, 5) and a.dtype == torch.int32 and not a.any()
