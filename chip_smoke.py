@@ -17,8 +17,11 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    ``kernel_ms``, ``bound_ms`` by the rows merged and the share;
    The ring exchange is also checked and timed at leg E's width (W=3),
    each ring line with its device time (``device_ms``: 20 launches in a
-   CUDA graph, replayed between CUDA events), ``permute().contiguous()``'s
-   (``library_device_ms``) and the host cost of a launch (``ring_host``:
+   CUDA graph, replayed between CUDA events; ``device_cold_ms``: the
+   launches rotate over 128 MB of copies of the buffers, so none is
+   found in L2, and the share of bound is taken from it),
+   ``permute().contiguous()``'s (``library_device_ms``,
+   ``library_device_cold_ms``) and the host cost of a launch (``ring_host``:
    1000 enqueues of a tiny shape); a ``ring_edges`` phase checks it at
    odd shapes (chunk = 0-3 mod 4, below 4 words, below and just above
    one work item, 0; D = 3 with R = 5; D = 1) as views based 4, 8 and
@@ -104,6 +107,7 @@ port is not beside it, or if any phase fails.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -340,15 +344,63 @@ def merge_phase() -> dict:
     return line
 
 
+#: the send shapes ``[D, R, D, ppd, W, C]`` legs B-L launch the ring
+#: kernel at, with the legs that launch each (what ``RingShapes`` recorded
+#: on an H100; ``ring_leg_phases`` fails if a run records another set);
+#: an a2a shape goes through ``ring_all_to_all`` as ``[D, D, ppd, W, C]``.
+#: ``tests/test_torch_ring.py`` holds the kernel's launch plan and per-item
+#: copy at these, the phase shapes and the edge shapes;
+#: ``scripts/torch_ring_ab.py`` times these and the phase shapes.
+RING_LEG_SHAPES = [
+    # (legs, shape, a2a)
+    ("D-small", (8, 1, 8, 1, 3, 32769), False),
+    ("E", (8, 1, 8, 1, 3, 2097153), False),
+    ("D-small", (8, 1, 8, 1, 4, 32768), True),
+    ("D-small", (8, 1, 8, 1, 4, 32769), False),
+    ("D", (8, 1, 8, 1, 4, 524289), False),
+    ("H-small", (8, 1, 8, 1, 25, 1152), True),
+    ("H-small", (8, 1, 8, 1, 25, 1153), False),
+    ("H-small", (8, 1, 8, 1, 25, 1216), True),
+    ("H-small", (8, 1, 8, 1, 25, 1217), False),
+    ("H-small", (8, 1, 8, 1, 25, 2049), False),
+    ("F-small, K-small", (8, 1, 8, 1, 25, 4096), True),
+    ("C-small", (8, 1, 8, 1, 25, 32768), True),
+    ("B-small", (8, 1, 8, 1, 25, 32769), False),
+    ("H", (8, 1, 8, 1, 25, 34817), False),
+    ("H", (8, 1, 8, 1, 25, 36865), False),
+    ("C", (8, 1, 8, 1, 25, 524288), True),
+    ("B", (8, 1, 8, 1, 25, 524289), False),
+    ("L-small", (8, 1, 8, 1, 46, 32769), False),
+    ("L", (8, 1, 8, 1, 46, 524289), False),
+    ("G-small", (8, 2, 8, 1, 4, 4096), False),
+    ("F-small, K, K-small", (8, 2, 8, 1, 25, 4096), False),
+    ("K-small", (8, 2, 8, 1, 25, 4097), False),
+    ("G", (8, 2, 8, 2, 4, 4096), False),
+    ("F, J, K", (8, 2, 8, 2, 25, 4096), False),
+    ("I", (8, 2, 8, 32, 2, 4096), False),
+    ("F-small", (8, 5, 8, 1, 25, 4097), False),
+    ("F", (8, 34, 8, 2, 25, 4097), False),
+]
+#: the kernel phases' own shapes that no leg launches: ``ring_phase``'s
+#: R = 3 and ``ring_chunk_phase``'s fine class (29 words, not a multiple
+#: of 4)
+RING_PHASE_SHAPES = {
+    "R=3 kernel phase": (8, 3, 8, 1, 25, (1 << 17) + 1),
+    "F fine class": (8, 2, 8, 2, 25, 29),
+}
+#: buffers streamed between two uses of one send/out pair when timing
+#: cold: over twice the H100's 50 MB L2
+COLD_BYTES = 1 << 27
 #: host microseconds per launch of each ring wrapper and of
 #: ``permute().contiguous()``, measured once by ``ring_host_phase``
 RING_HOST_US = {}
 #: what ``ring_device`` adds to each ring line
-RING_DEVICE_KEYS = ("device_ms", "library_device_ms", "device_share_of_bound",
+RING_DEVICE_KEYS = ("device_ms", "library_device_ms", "device_cold_ms",
+                    "library_device_cold_ms", "device_share_of_bound",
                     "host_us_per_launch", "library_host_us_per_launch")
 
 
-def ring_host_phase() -> dict:
+def ring_host_us() -> dict:
     """Host cost of one launch: 1000 enqueues of a tiny shape
     ``[8, 1, 8, 1, 1, 4]`` through ``ring_exchange``, its ``[8, 8, 1, 1,
     4]`` form through ``ring_all_to_all``, and ``permute().contiguous()``
@@ -359,42 +411,79 @@ def ring_host_phase() -> dict:
     tiny = rand_words((PARTS, 1, PARTS, 1, 1, 4), seed=97)
     out = torch.empty_like(tiny)
     tiny2, out2 = tiny.squeeze(1), out.squeeze(1)
-    RING_HOST_US.update(
-        ring_exchange=host_us(lambda: ring_exchange(tiny, out=out)),
-        ring_all_to_all=host_us(lambda: ring_all_to_all(tiny2, out=out2)),
-        permute_contiguous=host_us(
-            lambda: tiny.permute(2, 1, 0, 3, 4, 5).contiguous()))
-    line = {"phase": "ring_host", "shape": list(tiny.shape), "calls": 1000,
-            "host_us_per_launch": dict(RING_HOST_US)}
+    return {"ring_exchange": host_us(lambda: ring_exchange(tiny, out=out)),
+            "ring_all_to_all": host_us(
+                lambda: ring_all_to_all(tiny2, out=out2)),
+            "permute_contiguous": host_us(
+                lambda: tiny.permute(2, 1, 0, 3, 4, 5).contiguous())}
+
+
+def ring_host_phase() -> dict:
+    RING_HOST_US.update(ring_host_us())
+    line = {"phase": "ring_host", "shape": [PARTS, 1, PARTS, 1, 1, 4],
+            "calls": 1000, "host_us_per_launch": dict(RING_HOST_US)}
     report(line)
+    return line
+
+
+def ring_times(send: torch.Tensor, out: torch.Tensor,
+               a2a: bool = False) -> dict:
+    """Device ms of the ring kernel on ``send`` (``[D, D, ...]`` through
+    ``ring_all_to_all`` when ``a2a``) and of ``permute().contiguous()``'s
+    copy into a buffer allocated outside the graph, each by CUDA-graph
+    replay, twice. Warm: 20 launches on the same buffers, so a pair that
+    fits the 50 MB L2 is read from there (a just-gathered send partly is
+    on the main path; the pooled out is not). Cold: the launches rotate
+    over copies of the pair, ``COLD_BYTES`` in all, so each finds its
+    buffers evicted; a pair of ``COLD_BYTES`` or more is cold when warm,
+    and is timed once. The share of the HBM bound is the cold one."""
+    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
+                                                   ring_exchange)
+
+    kernel = ring_all_to_all if a2a else ring_exchange
+    dims = (1, 0, *range(2, send.dim())) if a2a else \
+        (2, 1, 0, *range(3, send.dim()))
+    lib_out = torch.empty_like(send)
+    pair = 2 * send.numel() * 4
+    line = {"device_ms": graph_ms(lambda: kernel(send, out=out)),
+            "library_device_ms": graph_ms(
+                lambda: lib_out.copy_(send.permute(dims)))}
+    copies = -(-COLD_BYTES // max(pair, 1))
+    if copies > 1:
+        sends = [send] + [send.clone() for _ in range(copies - 1)]
+        outs = [out] + [torch.empty_like(out) for _ in range(copies - 1)]
+        libs = [lib_out] + [torch.empty_like(send)
+                            for _ in range(copies - 1)]
+        turn = itertools.count()
+
+        def cold_kernel():
+            k = next(turn) % copies
+            kernel(sends[k], out=outs[k])
+
+        def cold_library():
+            k = next(turn) % copies
+            libs[k].copy_(sends[k].permute(dims))
+
+        launches = max(20, copies)
+        line["device_cold_ms"] = graph_ms(cold_kernel, launches)
+        line["library_device_cold_ms"] = graph_ms(cold_library, launches)
+        del sends, outs, libs
+    else:
+        line["device_cold_ms"] = line["device_ms"]
+        line["library_device_cold_ms"] = line["library_device_ms"]
+    line["device_share_of_bound"] = \
+        pair / MEM_RATE * 1e3 / line["device_cold_ms"]
+    del lib_out
     return line
 
 
 def ring_device(send: torch.Tensor, out: torch.Tensor,
                 a2a: bool = False) -> dict:
-    """The ring kernel's device time at ``send``'s shape (CUDA-graph
-    replay, no host time), the same for ``permute().contiguous()``'s copy
-    into a buffer allocated outside the graph, the share of the bound,
-    and the host cost per launch. ``a2a``: ``send`` is ``[D, D, ...]``
-    through ``ring_all_to_all``."""
-    from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
-                                                   ring_exchange)
-
-    kernel = ring_all_to_all if a2a else ring_exchange
-    lib_out = torch.empty_like(send)
-    dims = (1, 0, *range(2, send.dim())) if a2a else \
-        (2, 1, 0, *range(3, send.dim()))
-    dev = graph_ms(lambda: kernel(send, out=out))
-    line = {"device_ms": dev,
-            "library_device_ms": graph_ms(
-                lambda: lib_out.copy_(send.permute(dims))),
-            "device_share_of_bound":
-                2 * send.numel() * 4 / MEM_RATE * 1e3 / dev,
+    """``ring_times`` and the host cost per launch."""
+    return {**ring_times(send, out, a2a),
             "host_us_per_launch":
                 RING_HOST_US["ring_all_to_all" if a2a else "ring_exchange"],
             "library_host_us_per_launch": RING_HOST_US["permute_contiguous"]}
-    del lib_out
-    return line
 
 
 def ring_phase() -> dict:
@@ -1426,8 +1515,9 @@ def ring_leg_phases(shapes: dict) -> list:
     words at each shape, bit-exact against its plain version, timed
     beside its bound and ``permute().contiguous()`` (CUDA events over
     20-launch batches below 0.5 ms of bound, and CUDA-graph replay). One
-    line per shape, with the launches each leg made at it
-    (``scripts/torch_ring_ab.py`` keeps the list for A/B runs)."""
+    line per shape, with the launches each leg made at it. Fails if the
+    shapes and their legs are not those of ``RING_LEG_SHAPES``, which the
+    CPU tests and the A/B script take."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
                                                    ring_exchange,
                                                    ring_exchange_plain)
@@ -1472,16 +1562,33 @@ def ring_leg_phases(shapes: dict) -> list:
         lines.append(line)
         del send, got
         torch.cuda.empty_cache()
+    seen = {(tuple(shape), a2a, ", ".join(sorted(legs)))
+            for (shape, a2a), legs in by_shape.items()}
+    table = {(shape, a2a, legs) for legs, shape, a2a in RING_LEG_SHAPES}
+    if seen != table:
+        fail(f"the legs launched the ring kernel at other shapes than "
+             f"RING_LEG_SHAPES lists: recorded, not listed "
+             f"{sorted(seen - table)}; listed, not recorded "
+             f"{sorted(table - seen)}")
     return lines
 
 
-#: the odd shapes ``tests/test_torch_ring.py`` holds the kernel's plan and
-#: per-item copy at: chunk = 1, 2, 3 mod 4, below 4 words, below one item,
-#: one item + 1, two items, 0; D = 3 with R = 5; D = 1
-RING_EDGE_SHAPES = [(8, 2, 8, 1, 3, 7), (4, 1, 4, 2, 1, 3), (8, 2, 8, 1, 3, 5),
-                    (8, 1, 8, 3), (8, 2, 8, 1), (8, 1, 8, 1, 25, 129),
-                    (2, 1, 2, 8193), (2, 3, 2, 16384), (8, 1, 8, 0),
-                    (3, 5, 3, 2, 7, 101), (1, 2, 1, 9)]
+#: the odd shapes the ring kernel is checked at, beside
+#: ``RING_LEG_SHAPES`` and ``RING_PHASE_SHAPES`` (``tests/test_torch_ring.py``
+#: holds the item sizes against ``exchange/ring.py::ITEM_WORDS``, 4096)
+RING_EDGE_SHAPES = {
+    "chunk 1 mod 4": (8, 2, 8, 1, 3, 7),
+    "chunk 2 mod 4": (4, 1, 4, 2, 1, 3),
+    "chunk 3 mod 4": (8, 2, 8, 1, 3, 5),
+    "chunk < 4": (8, 1, 8, 3),
+    "chunk 1": (8, 2, 8, 1),
+    "chunk < item": (8, 1, 8, 1, 25, 129),
+    "chunk = item + 1": (2, 1, 2, 4096 + 1),
+    "chunk = 2 items": (2, 3, 2, 2 * 4096),
+    "chunk 0": (8, 1, 8, 0),
+    "D=3, R=5": (3, 5, 3, 2, 7, 101),
+    "D=1": (1, 2, 1, 9),
+}
 #: (send, out) base offsets in words: 0, 4, 8 and 12 bytes
 RING_EDGE_OFFSETS = [(0, 0), (1, 0), (0, 2), (3, 1), (2, 3)]
 
@@ -1505,7 +1612,7 @@ def ring_edge_phase() -> dict:
         return send, obuf, obuf[oo:oo + n].view(shape), n
 
     err, checked = 0, 0
-    for i, shape in enumerate(RING_EDGE_SHAPES):
+    for i, shape in enumerate(RING_EDGE_SHAPES.values()):
         for so, oo in RING_EDGE_OFFSETS:
             send, obuf, out, n = views(shape, so, oo, 300 + i)
             forms = [(ring_exchange, send, out, ring_exchange_plain(send))]
@@ -1539,7 +1646,7 @@ def ring_edge_phase() -> dict:
         fail(f"the ring kernel disagrees with its plain version at an "
              f"edge shape: {err}")
     line = {"phase": "ring_edges", "shapes": [list(x) for x in
-                                              RING_EDGE_SHAPES],
+                                              RING_EDGE_SHAPES.values()],
             "offsets_words": RING_EDGE_OFFSETS, "launches_checked": checked,
             "streaming_views": [f_in, d, d, 2, 5, cap], "max_abs_err": err}
     report(line)

@@ -3,152 +3,56 @@
 shape ``chip_smoke.py`` checks.
 
     python3 scripts/torch_ring_ab.py [--root DIR] [--label NAME]
-                                     [--item-words N]
 
 Imports ``sparkrdma_tpu_torch`` from DIR (default: the checkout holding
 this script), builds its kernels there, and prints one JSON line per
-shape, each checked bit-exact against ``ring_exchange_plain`` first:
+shape of ``chip_smoke.py``'s ``RING_LEG_SHAPES`` and ``RING_PHASE_SHAPES``
+(taken from the ``chip_smoke.py`` beside this script), each checked
+bit-exact against ``ring_exchange_plain`` first. The timings are
+``chip_smoke.ring_times``':
 
-  device_ms          20 launches captured in a CUDA graph, the replay
-                     timed with CUDA events, over 20 (median of 5);
-  library_device_ms  the same for ``out.copy_(send.permute(...))``, the
-                     copy ``permute().contiguous()`` makes, into a
-                     buffer allocated outside the graph;
-  kernel_ms          20 back-to-back launches timed with CUDA events,
-                     over 20 (median of 5): the host's launch path shows
-                     when it is slower than the kernel;
-  bound_ms           every word read once and written once at 3.35 TB/s,
-                     and ``share`` = bound_ms / device_ms.
+  device_ms, library_device_ms
+      20 launches captured in a CUDA graph, the replay timed with CUDA
+      events, over 20 (median of 5), for the kernel and for
+      ``out.copy_(send.permute(...))``, the copy ``permute().contiguous()``
+      makes; a pair of buffers that fits the 50 MB L2 stays there;
+  device_cold_ms, library_device_cold_ms
+      the same with the launches rotating over 128 MB of copies of the
+      buffers, so none is found in L2;
+  share
+      every word read once and written once at 3.35 TB/s, over
+      ``device_cold_ms``;
 
-Repeated launches find part of a small shape's buffers in the 50 MB L2
-(K-small's are 52 MB in all); the exchange's own send was just written
-by the gather, so that is what the main path sees too.
+and ``kernel_ms``, 20 back-to-back launches timed with CUDA events, over
+20 (median of 5): the host's launch path shows when it is slower than
+the kernel. Then one ``host`` line: microseconds per call of 1000
+enqueues of a tiny shape for ``ring_exchange``, ``ring_all_to_all`` and
+``permute().contiguous()`` (``chip_smoke.ring_host_us``).
 
-Then one ``host`` line: microseconds per call of 1000 enqueues of a tiny
-shape (``time.perf_counter`` around the loop, then one synchronise) for
-``ring_exchange``, ``ring_all_to_all`` and ``permute().contiguous()``.
-
-The shapes are the canonical ``[D, R, D, ppd, W, C]``; an ``a2a`` shape
-is launched through ``ring_all_to_all`` as ``[D, D, ppd, W, C]``.
-
-``--item-words`` overrides the work-item size of a tree that has
-``launch_plan`` (to tune it). To compare two trees on one
-card, run it on both in one command, in turns: old, new, new, old.
-Needs a CUDA device.
+To compare two trees on one card, unpack the other with ``git archive``
+into a gitignored directory and run this script on both in one command,
+in turns: old, new, new, old. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 import torch
 
-MEM_RATE = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
-GRAPH_LAUNCHES = 20
 
-#: (legs, shape, a2a): the send shapes chip_smoke.py checks: those legs
-#: B-L launched the kernel at (its ``ring_exchange`` lines' ``shape`` and
-#: ``a2a`` on an H100), then the kernel phases' own
-SHAPES = [
-    ("D-small", (8, 1, 8, 1, 3, 32769), False),
-    ("E", (8, 1, 8, 1, 3, 2097153), False),
-    ("D-small", (8, 1, 8, 1, 4, 32768), True),
-    ("D-small", (8, 1, 8, 1, 4, 32769), False),
-    ("D", (8, 1, 8, 1, 4, 524289), False),
-    ("H-small", (8, 1, 8, 1, 25, 1152), True),
-    ("H-small", (8, 1, 8, 1, 25, 1153), False),
-    ("H-small", (8, 1, 8, 1, 25, 1216), True),
-    ("H-small", (8, 1, 8, 1, 25, 1217), False),
-    ("H-small", (8, 1, 8, 1, 25, 2049), False),
-    ("F-small, K-small", (8, 1, 8, 1, 25, 4096), True),
-    ("C-small", (8, 1, 8, 1, 25, 32768), True),
-    ("B-small", (8, 1, 8, 1, 25, 32769), False),
-    ("H", (8, 1, 8, 1, 25, 34817), False),
-    ("H", (8, 1, 8, 1, 25, 36865), False),
-    ("C", (8, 1, 8, 1, 25, 524288), True),
-    ("B", (8, 1, 8, 1, 25, 524289), False),
-    ("L-small", (8, 1, 8, 1, 46, 32769), False),
-    ("L", (8, 1, 8, 1, 46, 524289), False),
-    ("G-small", (8, 2, 8, 1, 4, 4096), False),
-    ("F-small, K, K-small", (8, 2, 8, 1, 25, 4096), False),
-    ("K-small", (8, 2, 8, 1, 25, 4097), False),
-    ("G", (8, 2, 8, 2, 4, 4096), False),
-    ("F, J, K", (8, 2, 8, 2, 25, 4096), False),
-    ("I", (8, 2, 8, 32, 2, 4096), False),
-    ("F-small", (8, 5, 8, 1, 25, 4097), False),
-    ("F", (8, 34, 8, 2, 25, 4097), False),
-    ("R=3 (kernel phase)", (8, 3, 8, 1, 25, 131073), False),
-    ("F fine class (kernel phase)", (8, 2, 8, 2, 25, 29), False),
-]
-
-
-def median_ms(fn, reps: int = 5, per: int = 1) -> float:
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per)
-    return statistics.median(times)
-
-
-def graph_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
-    """Device ms per call of ``fn``: one warm-up call outside the
-    capture, then ``launches`` calls captured in one graph and replayed
-    between CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    ms = median_ms(graph.replay, per=launches)
-    del graph
-    return ms
-
-
-def back_to_back_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
-    fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(launches):
-            fn()
-    return median_ms(run, per=launches)
-
-
-def host_us(fn, calls: int = 1000) -> float:
-    """Host microseconds per call of ``calls`` enqueues."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
-
-
-def permute_dims(n: int, a2a: bool):
-    return (1, 0, *range(2, n)) if a2a else (2, 1, 0, *range(3, n))
-
-
-def random_words(shape, seed: int) -> torch.Tensor:
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(-2**31, 2**31, shape, generator=gen,
-                         dtype=torch.int64, device="cuda").to(torch.int32)
+def load_smoke(here: str):
+    """``chip_smoke.py`` of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(here, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def main() -> int:
@@ -156,11 +60,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here)
     ap.add_argument("--label", default="")
-    ap.add_argument("--item-words", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_ring_ab: needs a CUDA device", file=sys.stderr)
         return 1
+    smoke = load_smoke(here)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from sparkrdma_tpu_torch.exchange import ring
@@ -169,9 +73,6 @@ def main() -> int:
         print(f"torch_ring_ab: imported {ring.__file__}, not from {root}",
               file=sys.stderr)
         return 1
-    if args.item_words:
-        ring.ITEM_WORDS = args.item_words
-    geometry = {"ITEM_WORDS": getattr(ring, "ITEM_WORDS", None)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -179,11 +80,14 @@ def main() -> int:
     label = args.label or root
 
     def emit(line):
-        line.update(label=label, card=card, **geometry)
+        line.update(label=label, card=card)
         print(json.dumps(line), flush=True)
 
-    for seed, (leg, shape, a2a) in enumerate(SHAPES):
-        send = random_words(shape, seed)
+    shapes = smoke.RING_LEG_SHAPES + [
+        (name, shape, False)
+        for name, shape in smoke.RING_PHASE_SHAPES.items()]
+    for seed, (where, shape, a2a) in enumerate(shapes):
+        send = smoke.rand_words(shape, seed)
         if a2a:
             send = send.squeeze(1)
             kernel, want = ring.ring_all_to_all, \
@@ -198,30 +102,16 @@ def main() -> int:
                   f"version at {list(shape)}", file=sys.stderr)
             return 1
         del want
-        lib_out = torch.empty_like(send)
-        dims = permute_dims(send.dim(), a2a)
-        bound = 2 * send.numel() * 4 / MEM_RATE * 1e3
-        dev = graph_ms(lambda: kernel(send, out=out))
-        emit({"leg": leg, "shape": list(shape), "a2a": a2a,
-              "device_ms": dev,
-              "library_device_ms": graph_ms(
-                  lambda: lib_out.copy_(send.permute(dims))),
-              "kernel_ms": back_to_back_ms(lambda: kernel(send, out=out)),
-              "bound_ms": bound, "share": bound / dev})
-        del send, out, lib_out
+        times = smoke.ring_times(send, out, a2a)
+        emit({"leg": where, "shape": list(shape), "a2a": a2a, **times,
+              "kernel_ms": smoke.time_ms(lambda: kernel(send, out=out),
+                                         reps=5, inner=20),
+              "bound_ms": 2 * send.numel() * 4 / smoke.MEM_RATE * 1e3,
+              "share": times["device_share_of_bound"]})
+        del send, out
         torch.cuda.empty_cache()
 
-    tiny = random_words((8, 1, 8, 1, 1, 4), 99)
-    tiny_out = torch.empty_like(tiny)
-    tiny2 = tiny.squeeze(1)
-    tiny2_out = torch.empty_like(tiny2)
-    emit({"host": "us_per_launch", "calls": 1000,
-          "ring_exchange": host_us(
-              lambda: ring.ring_exchange(tiny, out=tiny_out)),
-          "ring_all_to_all": host_us(
-              lambda: ring.ring_all_to_all(tiny2, out=tiny2_out)),
-          "permute_contiguous": host_us(
-              lambda: tiny.permute(2, 1, 0, 3, 4, 5).contiguous())})
+    emit({"host": "us_per_launch", "calls": 1000, **smoke.ring_host_us()})
     return 0
 
 

@@ -36,7 +36,7 @@ SIGNATURES = {
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
     },
     "ring_exchange": {
-        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _I, _L, _P], _I),
+        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _I, _L, _L, _P], _I),
     },
 }
 

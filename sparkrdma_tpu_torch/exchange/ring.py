@@ -93,7 +93,7 @@ def _launch(send: torch.Tensor, out: Optional[torch.Tensor],
         _kernel = _build.library("ring_exchange").sr_ring_exchange
     plan = launch_plan(d, r, chunk)
     err = _kernel(send.data_ptr(), out.data_ptr(), d, r, chunk,
-                  plan.item_words, plan.items_per_chunk,
+                  plan.item_words, plan.items_per_chunk, plan.grid,
                   _build.stream_ptr(send.get_device()))
     if err:
         _build.check(err, "ring_exchange launch")

@@ -9,6 +9,7 @@ source axis lives: the reference's global ``[R, D*D, ...]`` holds device
 
 import zlib
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,50 +198,17 @@ def test_kernel_matches_plain_on_card(cuda, shape):
 # that keeps the shifted body's reads inside send) equals
 # ``ring_exchange_plain``, the buffers based at 0, 4, 8 and 12 bytes.
 
+def _leg_label(legs, shape, a2a):
+    return f"{legs}{' a2a' if a2a else ''} {'x'.join(map(str, shape[3:]))}"
+
+
 #: send shapes [D, R, D, ...]: every shape chip_smoke.py checks (those
-#: legs B-L launched the kernel at on an H100, then the kernel phases'
-#: own), and edge cases
+#: legs B-L launch the kernel at, then the kernel phases' own), and its
+#: edge cases
 RING_SHAPES = {
-    "D-small 1x3x32769": (8, 1, 8, 1, 3, 32769),
-    "E 1x3x2097153": (8, 1, 8, 1, 3, 2097153),
-    "D-small a2a 1x4x32768": (8, 1, 8, 1, 4, 32768),
-    "D-small 1x4x32769": (8, 1, 8, 1, 4, 32769),
-    "D 1x4x524289": (8, 1, 8, 1, 4, 524289),
-    "H-small a2a 1x25x1152": (8, 1, 8, 1, 25, 1152),
-    "H-small 1x25x1153": (8, 1, 8, 1, 25, 1153),
-    "H-small a2a 1x25x1216": (8, 1, 8, 1, 25, 1216),
-    "H-small 1x25x1217": (8, 1, 8, 1, 25, 1217),
-    "H-small 1x25x2049": (8, 1, 8, 1, 25, 2049),
-    "F-small, K-small a2a 1x25x4096": (8, 1, 8, 1, 25, 4096),
-    "C-small a2a 1x25x32768": (8, 1, 8, 1, 25, 32768),
-    "B-small 1x25x32769": (8, 1, 8, 1, 25, 32769),
-    "H 1x25x34817": (8, 1, 8, 1, 25, 34817),
-    "H 1x25x36865": (8, 1, 8, 1, 25, 36865),
-    "C a2a 1x25x524288": (8, 1, 8, 1, 25, 524288),
-    "B 1x25x524289": (8, 1, 8, 1, 25, 524289),
-    "L-small 1x46x32769": (8, 1, 8, 1, 46, 32769),
-    "L 1x46x524289": (8, 1, 8, 1, 46, 524289),
-    "G-small 1x4x4096": (8, 2, 8, 1, 4, 4096),
-    "F-small, K, K-small 1x25x4096": (8, 2, 8, 1, 25, 4096),
-    "K-small 1x25x4097": (8, 2, 8, 1, 25, 4097),
-    "G 2x4x4096": (8, 2, 8, 2, 4, 4096),
-    "F, J, K 2x25x4096": (8, 2, 8, 2, 25, 4096),
-    "I 32x2x4096": (8, 2, 8, 32, 2, 4096),
-    "F-small 1x25x4097": (8, 5, 8, 1, 25, 4097),
-    "F 2x25x4097": (8, 34, 8, 2, 25, 4097),
-    "R=3 kernel phase": (8, 3, 8, 1, 25, (1 << 17) + 1),
-    "F fine class": (8, 2, 8, 2, 25, 29),
-    "chunk 1 mod 4": (8, 2, 8, 1, 3, 7),
-    "chunk 2 mod 4": (4, 1, 4, 2, 1, 3),
-    "chunk 3 mod 4": (8, 2, 8, 1, 3, 5),
-    "chunk < 4": (8, 1, 8, 3),
-    "chunk 1": (8, 2, 8, 1),
-    "chunk < item": (8, 1, 8, 1, 25, 129),
-    "chunk = item + 1": (2, 1, 2, port.ITEM_WORDS + 1),
-    "chunk = 2 items": (2, 3, 2, 2 * port.ITEM_WORDS),
-    "chunk 0": (8, 1, 8, 0),
-    "D=3, R=5": (3, 5, 3, 2, 7, 101),
-    "D=1": (1, 2, 1, 9),
+    **{_leg_label(*entry): entry[1] for entry in chip_smoke.RING_LEG_SHAPES},
+    **chip_smoke.RING_PHASE_SHAPES,
+    **chip_smoke.RING_EDGE_SHAPES,
 }
 #: (send, recv) base offsets in words: 4, 8 and 12 bytes
 PHASES = [(0, 0), (1, 0), (0, 2), (3, 1), (2, 3)]
@@ -271,6 +239,18 @@ def _tiles(off, ln, total):
     return (bool((ln > 0).all()) and (total == 0 or off[0] == 0)
             and bool((off[1:] == off[:-1] + ln[:-1]).all())
             and int(off[-1] + ln[-1] if len(off) else 0) == total)
+
+
+@pytest.mark.parametrize("name,items,rest", [("chunk < item", 1, None),
+                                             ("chunk = item + 1", 2, 1),
+                                             ("chunk = 2 items", 2, 0)])
+def test_edge_shapes_straddle_items(name, items, rest):
+    """The edge shapes named for the work item sit where their names say,
+    at the item size ``launch_plan`` uses."""
+    d, r, chunk, plan = _geometry(RING_SHAPES[name])
+    assert plan.item_words == port.ITEM_WORDS
+    assert plan.items_per_chunk == items
+    assert chunk % plan.item_words == (chunk if rest is None else rest)
 
 
 @pytest.mark.parametrize("name", list(RING_SHAPES))
