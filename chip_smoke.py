@@ -96,10 +96,23 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      L        ``run_als``, ``BASELINE.md`` config 4, at MovieLens-20M's
               dimensions, held against ``_numpy_als``;
      L-small  both ALS half-steps at 1/16 of that, card against CPU;
-   then the ring kernel at every send shape legs B-L launched it at
-   (recorded while each leg ran), each against its plain version and
-   timed;
-7. one ``{"kernels": [...]}`` line and, last, the device line.
+7. the planner's TPC-DS queries and the serde round trip (the
+   reference's default slots, ``"fine"`` classes, the ring kernel):
+     M-small  q64, q95 and the star suite at the reference tests' sizes,
+              card against CPU, every ``plan_*`` knob on against all off;
+     P        the serde round trip: 4,194,304 records with 0-92 B payloads
+              through ``from_host_payloads``, ``sort_by_key`` (the
+              merge-path kernel) and ``to_host_payloads``; 16,777,216
+              rows of a four-column schema through ``from_host_columns``,
+              ``select``, ``repartition`` and ``to_host_columns``;
+     N        q95 at TPC-DS SF100's ``web_sales`` / ``web_returns``;
+     O        the star suite at scale 64 (287,996,928 fact rows), with
+              ``queries_per_hour`` and the four rewrite counters;
+     M        q64 at SF100 (287,997,024 ``store_sales`` rows);
+   each checked against numpy; then the ring kernel at every send shape
+   legs B-P launched it at (recorded while each leg ran), each against
+   its plain version and timed;
+8. one ``{"kernels": [...]}`` line and, last, the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -107,6 +120,8 @@ port is not beside it, or if any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -149,6 +164,21 @@ K_SMALL = 1 << 20           # leg K-small: card against CPU
 L_USERS, L_ITEMS, L_RATINGS = 138_493, 26_744, 20_000_263  # MovieLens-20M
 L_RANK, L_ITERS = 8, 5
 LEGS_I_TO_L = ("I", "J", "K", "K-small", "L", "L-small")
+#: leg M: TPC-DS SF100 store_sales (287,997,024 rows, no cut), item
+#: (204,000, no cut) and store (402, cut to 400: a table loads only in
+#: multiples of the partition count)
+M_FACT_PER_PART = 287_997_024 // 8
+M_ITEMS, M_STORES = 204_000, 400
+#: leg N: SF100 web_sales and web_returns, each cut to a multiple of 8;
+#: 6,000,000 orders is the port's choice (~12 lines an order)
+N_SALES, N_RETURNS = 72_001_232, 7_197_664
+N_ORDERS, N_WAREHOUSES = 6_000_000, 15
+#: leg O: the star suite at scale 64 (287,996,928 fact rows)
+O_SCALE, O_PER_DEVICE = 64, 562_494
+#: leg P: the serde round trip
+P_V1, P_MAXB = 1 << 22, 92
+P_COLS, P_BYTES = 1 << 24, 68
+LEGS_M_TO_P = ("M-small", "P", "N", "O", "M")
 
 
 def fail(msg: str) -> None:
@@ -344,7 +374,7 @@ def merge_phase() -> dict:
     return line
 
 
-#: the send shapes ``[D, R, D, ppd, W, C]`` legs B-L launch the ring
+#: the send shapes ``[D, R, D, ppd, W, C]`` legs B-P launch the ring
 #: kernel at, with the legs that launch each (what ``RingShapes`` recorded
 #: on an H100; ``ring_leg_phases`` fails if a run records another set);
 #: an a2a shape goes through ``ring_all_to_all`` as ``[D, D, ppd, W, C]``.
@@ -353,11 +383,29 @@ def merge_phase() -> dict:
 #: ``scripts/torch_ring_ab.py`` times these and the phase shapes.
 RING_LEG_SHAPES = [
     # (legs, shape, a2a)
+    ("M-small", (8, 1, 8, 1, 3, 14), False),
     ("D-small", (8, 1, 8, 1, 3, 32769), False),
     ("E", (8, 1, 8, 1, 3, 2097153), False),
+    ("M-small", (8, 1, 8, 1, 4, 5), False),
+    ("M-small", (8, 1, 8, 1, 4, 8), False),
+    ("M-small", (8, 1, 8, 1, 4, 14), False),
+    ("M-small", (8, 1, 8, 1, 4, 43), False),
+    ("M-small", (8, 1, 8, 1, 4, 45), False),
+    ("M-small", (8, 1, 8, 1, 4, 89), False),
+    ("M-small", (8, 1, 8, 1, 4, 193), False),
+    ("M-small", (8, 1, 8, 1, 4, 513), False),
+    ("M", (8, 1, 8, 1, 4, 3201), False),
     ("D-small", (8, 1, 8, 1, 4, 32768), True),
     ("D-small", (8, 1, 8, 1, 4, 32769), False),
     ("D", (8, 1, 8, 1, 4, 524289), False),
+    ("M-small", (8, 1, 8, 1, 6, 2), False),
+    ("M-small", (8, 1, 8, 1, 6, 6), False),
+    ("M-small", (8, 1, 8, 1, 6, 12), False),
+    ("M-small", (8, 1, 8, 1, 6, 14), False),
+    ("M-small", (8, 1, 8, 1, 6, 16), False),
+    ("M-small", (8, 1, 8, 1, 6, 43), False),
+    ("M-small", (8, 1, 8, 1, 6, 249), False),
+    ("M-small", (8, 1, 8, 1, 6, 1665), False),
     ("H-small", (8, 1, 8, 1, 25, 1152), True),
     ("H-small", (8, 1, 8, 1, 25, 1153), False),
     ("H-small", (8, 1, 8, 1, 25, 1216), True),
@@ -372,12 +420,22 @@ RING_LEG_SHAPES = [
     ("B", (8, 1, 8, 1, 25, 524289), False),
     ("L-small", (8, 1, 8, 1, 46, 32769), False),
     ("L", (8, 1, 8, 1, 46, 524289), False),
-    ("G-small", (8, 2, 8, 1, 4, 4096), False),
+    ("G-small, N", (8, 2, 8, 1, 4, 4096), False),
+    ("M-small", (8, 2, 8, 1, 6, 4096), False),
     ("F-small, K, K-small", (8, 2, 8, 1, 25, 4096), False),
     ("K-small", (8, 2, 8, 1, 25, 4097), False),
+    ("P", (8, 2, 8, 1, 26, 4096), False),
     ("G", (8, 2, 8, 2, 4, 4096), False),
+    ("P", (8, 2, 8, 2, 22, 4096), False),
     ("F, J, K", (8, 2, 8, 2, 25, 4096), False),
+    ("N", (8, 2, 8, 5, 4, 4096), False),
+    ("M", (8, 2, 8, 18, 4, 4096), False),
+    ("O", (8, 2, 8, 18, 6, 4096), False),
+    ("O", (8, 2, 8, 29, 3, 4096), False),
+    ("O", (8, 2, 8, 29, 6, 4096), False),
     ("I", (8, 2, 8, 32, 2, 4096), False),
+    ("O", (8, 2, 8, 76, 6, 4096), False),
+    ("M", (8, 2, 8, 97, 4, 4096), False),
     ("F-small", (8, 5, 8, 1, 25, 4097), False),
     ("F", (8, 34, 8, 2, 25, 4097), False),
 ]
@@ -1502,16 +1560,21 @@ class RingShapes:
 
 
 def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
-    """``legs[name] = fn()``, recording the ring shapes it launched."""
+    """``legs[name] = fn()``, recording the ring shapes it launched and
+    its seconds."""
+    t0 = time.perf_counter()
     with RingShapes() as seen:
         legs[name] = fn()
     shapes[name] = seen.counts
+    gc.collect()
     torch.cuda.empty_cache()
+    report({"leg_s": name, "seconds": time.perf_counter() - t0,
+            "memory_allocated_gb_after": torch.cuda.memory_allocated() / 1e9})
     return legs[name]
 
 
 def ring_leg_phases(shapes: dict) -> list:
-    """The ring kernel at every send shape legs B-L launched it at: random
+    """The ring kernel at every send shape legs B-P launched it at: random
     words at each shape, bit-exact against its plain version, timed
     beside its bound and ``permute().contiguous()`` (CUDA events over
     20-launch batches below 0.5 ms of bound, and CUDA-graph replay). One
@@ -2340,7 +2403,395 @@ def leg_l_small() -> dict:
     return line
 
 
-def main() -> int:
+# --- legs M-P: the planner's TPC-DS queries and the serde round trip ----
+
+
+def planner_manager(val_words: int, device: str = "cuda", **kw):
+    """The planner legs' geometry: the reference's default slots
+    (4096 records, two rounds in flight, ``queue_depth`` 8; the ring
+    kernel) and ``bench.py``'s ``"fine"`` classes. ``bench.py``'s
+    ``run_planner`` also sizes a slot for every record of a partition,
+    but stacked on one card a hash-co-located exchange (the star suite's
+    reduce after its repartition) then needs a [D, D] send buffer of
+    whole partitions (28.5 GiB at leg O), and 2^21-record slots stream
+    it in 6.4 GB chunks, eight in flight; ``"pow2"`` classes pad leg O's
+    36 M-record partitions to 2^26."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    return ShuffleManager(MeshRuntime(default_conf(val_words=val_words,
+                                                   geometry_classes="fine",
+                                                   **kw),
+                                      num_partitions=PARTS, device=device))
+
+
+def plan_counters(m) -> dict:
+    return {k: int(v) for k, v in sorted(m.metrics.snapshot().items())
+            if k.startswith("plan.")}
+
+
+def profile_once(label: str, fn, path: str) -> dict:
+    """Device busy time of one ``fn()`` under torch.profiler, against its
+    wall time under the profiler: the idle share of the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    os.makedirs("profiles", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    line = {"profile": label, "wall_ms_profiled": wall * 1e3,
+            "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
+            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:8]]}
+    report(line)
+    return line
+
+
+def leg_m() -> dict:
+    """q64 through the planner at TPC-DS SF100's counts: 287,997,024
+    ``store_sales`` rows (16 B, 4.6 GB), 204,000 items, 400 stores (402
+    cut to a multiple of 8); every ``plan_*`` knob on (the store side
+    broadcasts, the item side takes the shuffle join). The tables of
+    ``run_q64_shape`` load into ``Dataset``s and its plan runs through
+    ``PlanExecutor.run`` (launches, counters, peak memory, the numpy
+    check), then again with a fresh executor (the query alone, timed)
+    and once more under the profiler."""
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+    from sparkrdma_tpu_torch.workloads import tpcds
+
+    m = planner_manager(2)
+    fact, item, store = tpcds._q64_tables(PARTS, M_FACT_PER_PART, M_ITEMS,
+                                          M_STORES, 16, 8, 0)
+    want = tpcds._q64_expect(fact, item, store, M_ITEMS, M_STORES, 3)
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    q, load_s = timed(lambda: tpcds._q64_plan(m, fact, item, store, 3))
+    query_s, checks = [], []
+    for _ in range(2):
+        out, s = timed(lambda: PlanExecutor(m).run(q))
+        if not query_s:
+            launches = {k: v.launches for k, v in kernels.items()}
+            counters = plan_counters(m)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = out.to_host_rows()
+        groups = tpcds._grouped(rows[:, 1], rows[:, 3])
+        checks.append(groups == want)
+        query_s.append(s)
+        del out
+    prof = profile_once("leg M q64 query", lambda: PlanExecutor(m).run(q),
+                        "profiles/torch_legM.txt")
+    line = {"leg": "M", "workload": "q64 (run_q64_shape's tables and "
+                                    "plan; BASELINE.md config 3)",
+            "fact_rows": fact.shape[0], "record_bytes": 16,
+            "fact_gb": fact.nbytes / 1e9, "n_items": M_ITEMS,
+            "n_stores": M_STORES, "partitions": PARTS,
+            "transport": "pallas_ring", "groups": len(groups),
+            "total_value": sum(groups.values()), "load_s": load_s,
+            "query_s": query_s,
+            "fact_gbps": [fact.nbytes / s / 1e9 for s in query_s],
+            "plan_counters": counters, "max_memory_gb": peak_gb,
+            "idle_share": prof["idle_share"], "verified": checks,
+            "check": "host: numpy grouped sums per category",
+            "launches": launches}
+    report(line)
+    if not all(checks):
+        fail("leg M: q64 disagrees with numpy")
+    if counters.get("plan.broadcast_joins") != 1:
+        fail(f"leg M: expected the store join alone to broadcast: "
+             f"{counters}")
+    m.stop()
+    return line
+
+
+def leg_n() -> dict:
+    """q95 at TPC-DS SF100's counts: 72,001,232 ``web_sales`` rows and
+    7,197,664 ``web_returns`` rows (each cut to a multiple of 8), 15
+    warehouses, 6,000,000 orders (the port's choice: ~12 lines an
+    order); checked against numpy, then once more under the profiler."""
+    from sparkrdma_tpu_torch.workloads import tpcds
+
+    m = planner_manager(2)
+    kw = dict(sales_rows_per_device=N_SALES // PARTS,
+              return_rows_per_device=N_RETURNS // PARTS,
+              n_orders=N_ORDERS, n_warehouses=N_WAREHOUSES)
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: tpcds.run_q95_shape(m, **kw))
+    launches = {k: v.launches for k, v in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_once("leg N q95", lambda: tpcds.run_q95_shape(
+        m, verify=False, **kw), "profiles/torch_legN.txt")
+    nbytes = (N_SALES + N_RETURNS) * 16
+    line = {"leg": "N", "workload": "run_q95_shape (BASELINE.md config 3)",
+            "sales_rows": N_SALES, "return_rows": N_RETURNS,
+            "n_orders": N_ORDERS, "n_warehouses": N_WAREHOUSES,
+            "partitions": PARTS, "transport": "pallas_ring",
+            "qualifying": res.qualifying, "net_sum": res.net_sum,
+            "exchange_s": res.shuffle_s, "wall_s": wall,
+            "gbps": nbytes / res.shuffle_s / 1e9,
+            "wall_gbps": nbytes / wall / 1e9,
+            "max_memory_gb": peak_gb, "idle_share": prof["idle_share"],
+            "verified": res.verified,
+            "check": "host: numpy count exact, float32 net at rtol 1e-6",
+            "launches": launches}
+    report(line)
+    if not res.verified:
+        fail("leg N: q95 disagrees with numpy")
+    m.stop()
+    return line
+
+
+def leg_o() -> dict:
+    """The star suite at scale 64 (dims of 4,096, 2,048 and 1,024 rows,
+    287,996,928 fact rows of 24 B, 6.9 GB) with every ``plan_*`` knob on,
+    both queries checked against numpy; ``queries_per_hour`` as
+    ``bench.py``'s ``run_planner`` computes it."""
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+    from sparkrdma_tpu_torch.workloads import tpcds
+
+    m = planner_manager(4)
+    ex = PlanExecutor(m)
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    res, elapsed = timed(lambda: tpcds.run_star_suite(
+        m, fact_rows_per_device=O_PER_DEVICE, scale=O_SCALE, executor=ex))
+    launches = {k: v.launches for k, v in kernels.items()}
+    counters = plan_counters(m)
+    line = {"leg": "O", "workload": "run_star_suite (bench.py run_planner)",
+            "scale": O_SCALE, "fact_rows_per_device": O_PER_DEVICE,
+            "fact_rows": res.fact_rows, "record_bytes": 24,
+            "fact_gb": res.fact_rows * 24 / 1e9, "partitions": PARTS,
+            "rev": [res.rev_groups, res.rev_total],
+            "all": [res.all_groups, res.all_total],
+            "suite_s": res.suite_s, "elapsed_s": elapsed,
+            "queries_per_hour": 2 / elapsed * 3600.0,
+            "plan_counters": counters,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pool": m.runtime.pool.stats(),
+            "verified": res.verified,
+            "check": "host: numpy grouped sums of both queries",
+            "launches": launches}
+    report(line)
+    if not res.verified:
+        fail("leg O: the star suite disagrees with numpy")
+    zero = [k for k in ("plan.reuse_hits", "plan.broadcast_joins",
+                        "plan.overlapped_stages", "plan.pushdown_sunk")
+            if counters.get(k, 0) <= 0]
+    if zero:
+        fail(f"leg O: rewrite counters at 0: {zero}")
+    ex.close()
+    m.stop()
+    return line
+
+
+def leg_p() -> dict:
+    """The serde round trip. v1: 4,194,304 records with 0-92 B payloads
+    (W = 2 + 24) through ``from_host_payloads`` (overlap on and off),
+    ``sort_by_key`` (fast sort: the merge-path kernel) and
+    ``to_host_payloads``, against a numpy sort of the inputs. Columnar:
+    16,777,216 rows of a uint32/int64/float64/bytes(68) schema (W = 25,
+    100 B) through ``from_host_columns``, ``select`` of two columns,
+    ``repartition`` and ``to_host_columns``, re-encoded and held against
+    the inputs with the dropped columns zeroed. MB/s are encoded bytes
+    over host seconds."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.api.serde import (RowSchema, codec_totals,
+                                               encode_bytes_rows,
+                                               encode_cols)
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    rng = np.random.default_rng(31)
+    n = P_V1
+    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
+                     rng.permutation(n).astype(np.uint32)], axis=1)
+    lens = rng.integers(0, P_MAXB + 1, size=n)
+    ends = np.cumsum(lens)
+    blob = rng.bytes(int(ends[-1]))
+    pays = [blob[e - ln:e] for e, ln in zip(ends.tolist(), lens.tolist())]
+    del blob
+    m = ShuffleManager(MeshRuntime(default_conf(val_words=24, fast_sort=True),
+                                   num_partitions=PARTS, device="cuda"))
+    kernels = zeroed_counters()
+    secs = {}
+
+    def codec(key, fn):
+        """``fn()`` timed, with the host codec's own seconds in it."""
+        before = codec_totals()
+        res, secs[key] = timed(fn)
+        after = codec_totals()
+        secs[key + "_codec"] = sum(after[k_] - before[k_] for k_ in (
+            "serde_encode_s", "serde_decode_s"))
+        return res
+
+    # the first load pays for the page-locked leases: it is timed apart
+    codec("load_first", lambda: Dataset.from_host_payloads(
+        m, keys, pays, P_MAXB))
+    ds = codec("load_overlap", lambda: Dataset.from_host_payloads(
+        m, keys, pays, P_MAXB))
+    d2 = codec("load_no_overlap", lambda: Dataset.from_host_payloads(
+        m, keys, pays, P_MAXB, overlap=False))
+    rows = encode_bytes_rows(keys, pays, P_MAXB)
+    checks = {"load_equals_single_shot": bool(
+        torch.equal(ds.records, m.runtime.shard_records(rows))
+        and torch.equal(ds.records, d2.records))}
+    del d2
+    srt, secs["sort_by_key"] = timed(ds.sort_by_key)
+    k, p = codec("decode", srt.to_host_payloads)
+    launches = {k_: v.launches for k_, v in kernels.items()}
+    order = np.lexsort((keys[:, 1], keys[:, 0]))
+    checks["v1_round_trip"] = bool(np.array_equal(k, keys[order])) and \
+        p == [pays[i] for i in order.tolist()]
+    v1_mb = rows.nbytes / 1e6
+    del ds, srt, k, p, pays, rows
+    m.stop()
+    torch.cuda.empty_cache()
+
+    n = P_COLS
+    schema = RowSchema([("u", "uint32"), ("i", "int64"), ("f", "float64"),
+                        ("b", ("bytes", P_BYTES))])
+    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
+                     rng.permutation(n).astype(np.uint32)], axis=1)
+    lens = rng.integers(0, P_BYTES + 1, size=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    cols = {"u": rng.integers(0, 2**32, size=n, dtype=np.uint32),
+            "i": rng.integers(-2**62, 2**62, size=n),
+            "f": rng.standard_normal(n),
+            "b": (offsets, rng.integers(0, 256, size=int(offsets[-1]),
+                                        dtype=np.uint8))}
+    m = terasort_manager("cuda")
+    ds = codec("cols_load_overlap", lambda: Dataset.from_host_columns(
+        m, keys, cols, schema))
+    d2 = codec("cols_load_no_overlap", lambda: Dataset.from_host_columns(
+        m, keys, cols, schema, overlap=False))
+    rows = encode_cols(keys, cols, schema)
+    checks["cols_load_equals_single_shot"] = bool(
+        torch.equal(ds.records, m.runtime.shard_records(rows))
+        and torch.equal(ds.records, d2.records))
+    del d2
+    sel, secs["select_repartition"] = timed(
+        lambda: ds.select("i", "b").repartition())
+    k, c = codec("cols_decode", sel.to_host_columns)
+    launches_cols = {k_: v.launches for k_, v in kernels.items()}
+    idx = np.argsort(keys[:, 1])[k[:, 1]]
+    want = rows[idx]
+    for name in ("u", "f"):
+        off, width = schema.column_word_span(name)
+        want[:, 2 + off:2 + off + width] = 0
+    checks["cols_round_trip"] = bool(
+        np.array_equal(encode_cols(k, c, schema), want)
+        and not c["u"].any() and not np.ascontiguousarray(
+            c["f"]).view(np.uint64).any())
+    cols_mb = rows.nbytes / 1e6
+    line = {"leg": "P", "workload": "serde round trip",
+            "v1_records": P_V1, "v1_max_payload_bytes": P_MAXB,
+            "v1_record_bytes": 4 * 26, "cols_records": P_COLS,
+            "cols_record_bytes": 4 * (2 + schema.payload_words),
+            "schema": [list(f) if isinstance(f[1], str) else
+                       [f[0], list(f[1])] for f in schema.fields],
+            "partitions": PARTS, "transport": "pallas_ring",
+            "seconds": secs,
+            "mbps": {k_: (cols_mb if k_.startswith("cols") else v1_mb) / v
+                     for k_, v in secs.items()
+                     if k_ != "select_repartition" and k_ != "sort_by_key"},
+            "checks": checks, "launches": launches_cols,
+            "launches_v1": launches}
+    report(line)
+    if not all(checks.values()):
+        fail("leg P: " + ", ".join(k_ for k_, v in checks.items() if not v))
+    m.stop()
+    return line
+
+
+def tpcds_small(device: str, knobs: dict) -> dict:
+    """q64, q95 and the star suite at the reference tests' sizes, with
+    the star plans' output records: host values only."""
+    from sparkrdma_tpu_torch.interop import records_from_torch
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+    from sparkrdma_tpu_torch.workloads import tpcds
+
+    def res(r):
+        d = dataclasses.asdict(r)
+        for k in ("shuffle_s", "suite_s"):
+            d.pop(k, None)
+        return d
+
+    out = {}
+    m = planner_manager(2, device=device, **knobs)
+    out["q64"] = res(tpcds.run_q64_shape(m))
+    out["q95"] = res(tpcds.run_q95_shape(m))
+    m.stop()
+    m = planner_manager(4, device=device, **knobs)
+    out["star"] = res(tpcds.run_star_suite(m, fact_rows_per_device=16))
+    fact, *dims = tpcds._star_tables(PARTS, 16, 1, 0)
+    ex = PlanExecutor(m)
+    for name, q in zip(("star_rev", "star_all"),
+                       tpcds._star_plans(m, fact, dims, 1, 0)):
+        d = ex.run(q)
+        out[name] = (records_from_torch(d.records).tolist(),
+                     d.totals.tolist())
+    out["counters"] = plan_counters(m)
+    m.stop()
+    return out
+
+
+def leg_m_small() -> dict:
+    """q64, q95 and the star suite at the reference tests' sizes on the
+    card and on the CPU, every ``plan_*`` knob on and all off: each
+    result, and the star plans' output records, the same on both
+    devices, and on equal to off (the naive replay)."""
+    knobs = {"on": {}, "off": dict(plan_pushdown=False, plan_reuse=False,
+                                   plan_broadcast_join=False,
+                                   plan_overlap=False)}
+    kernels = zeroed_counters()
+    got = {(arm, "cuda"): tpcds_small("cuda", kw)
+           for arm, kw in knobs.items()}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    for arm, kw in knobs.items():
+        got[arm, "cpu"] = tpcds_small("cpu", kw)
+    same = {arm: {k: got[arm, "cuda"][k] == got[arm, "cpu"][k]
+                  for k in got[arm, "cuda"]} for arm in knobs}
+    on_off = {k: got["on", "cuda"][k] == got["off", "cuda"][k]
+              for k in ("q64", "q95", "star")}
+    verified = {f"{arm}_{q}": got[arm, "cuda"][q]["verified"]
+                for arm in knobs for q in ("q64", "q95", "star")}
+    line = {"leg": "M-small", "partitions": PARTS,
+            "card_equals_cpu": same, "on_equals_off": on_off,
+            "verified": verified,
+            "star": {k: v for k, v in got["on", "cuda"]["star"].items()},
+            "counters_on": got["on", "cuda"]["counters"],
+            "launches": launches}
+    report(line)
+    if not (all(v for per in same.values() for v in per.values())
+            and all(on_off.values()) and all(verified.values())):
+        fail("leg M-small: card against CPU, or on against off, disagree")
+    return line
+
+
+NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
+            ("O", leg_o), ("M", leg_m))
+
+
+def main(argv=None) -> int:
+    """``--legs M,P`` runs only those of legs M-P (M-small included) and
+    prints the ring shapes they launched, without the kernel phases or
+    the table check: a quick run while a leg is brought up."""
+    args = sys.argv[1:] if argv is None else argv
+    only = args[1].split(",") if args[:1] == ["--legs"] else None
+    # legs M and O hold several 5-7 GB tables of different shapes: grow
+    # segments instead of leaving freed blocks that fit no later one
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     smi = subprocess.run(
@@ -2356,6 +2807,17 @@ def main() -> int:
     report({"build_s": time.perf_counter() - t0,
             "libraries": sorted(libs)})
 
+    if only is not None:
+        ring_host_phase()
+        legs, shapes = {}, {}
+        for name, fn in NEW_LEGS:
+            if name in only:
+                run_leg(legs, shapes, name, fn)
+        report({"recorded_ring_shapes": sorted(
+            [leg_name, list(shape), a2a, n]
+            for leg_name, counts in shapes.items()
+            for (shape, a2a), n in counts.items())})
+        return 0
     merge = merge_phase()
     ring_host_phase()
     ring = ring_phase()
@@ -2371,6 +2833,8 @@ def main() -> int:
                      ("K-small", leg_k_small), ("L", leg_l),
                      ("L-small", leg_l_small)):
         run_leg(legs, shapes, name, fn)
+    for name, fn in NEW_LEGS:
+        run_leg(legs, shapes, name, fn)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -2378,6 +2842,12 @@ def main() -> int:
     for k in ("merge_stage", "ring_all_to_all"):
         if legs["K-small"]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg K-small")
+    for name in LEGS_M_TO_P:
+        n = legs[name]["launches"]
+        if n["ring_exchange"] + n["ring_all_to_all"] <= 0:
+            fail(f"the ring kernel was not launched on leg {name}")
+    if legs["P"]["launches"]["merge_stage"] <= 0:
+        fail("merge_stage was not launched on leg P")
 
     def launches(k):
         return sum(legs[n]["launches"][k] for n in legs)

@@ -17,10 +17,15 @@ Dataset, filler rows carry the null key; ``to_host_rows``/``count``
 filter them out and the join masks them. ``from_host_rows`` refuses user
 rows with that key.
 
-Not ported yet, each refusing with its ROADMAP item: ``select`` and the
-byte-payload and column methods (serde and the pipeline, A.4), ``plan``
-(the planner, A.5). The job-trace stage of every exchange waits for the
-observability stack (A.8).
+A Dataset may carry a :class:`~sparkrdma_tpu_torch.api.serde.RowSchema`
+(``from_host_columns``, ``from_host_payloads(schema=)``,
+``from_host_rows(schema=)``): layout-preserving verbs keep it, an
+aggregator drops it, ``select`` projects by its columns (lazily, fused
+into the next exchange's ``keep_words``), and ``to_host_columns``
+decodes through it. Byte payloads and columns load and unload through
+the pipelined codec (``api/pipeline.py``). ``plan`` lifts a dataset into
+the query planner (``plan/``). The job-trace stage of every exchange
+waits for the observability stack (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.api.serde import rows_content_digest
+from sparkrdma_tpu_torch.api.pipeline import (decode_cols_from_device,
+                                              decode_rows_from_device,
+                                              encode_cols_to_device,
+                                              encode_rows_to_device)
+from sparkrdma_tpu_torch.api.serde import payload_words, rows_content_digest
 from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
 from sparkrdma_tpu_torch.config import size_class, size_class_fine
 from sparkrdma_tpu_torch.exchange.partitioners import (hash_partitioner,
@@ -53,11 +62,6 @@ _ID_COUNTER = itertools.count(1 << 20)
 _NULL = np.uint32(0xFFFFFFFF)
 _NULL_WORD = -1                 # the int32 bit-view of 0xFFFFFFFF
 _LOW = 0xFFFFFFFF
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _parts(x: torch.Tensor, mesh: int) -> List[torch.Tensor]:
@@ -84,6 +88,11 @@ def _low_word_hash(num_parts: int, key_ix: int) -> Callable:
 
     part.cache_key = ("lowhash", num_parts, key_ix)
     return part
+
+
+def _valid_prefixes(x: torch.Tensor, totals) -> List[torch.Tensor]:
+    """Each partition's first ``totals[d]`` columns (views)."""
+    return [p[..., :int(t)] for p, t in zip(_parts(x, len(totals)), totals)]
 
 
 def _strip_filler(m: ShuffleManager, r: torch.Tensor, t: int
@@ -132,6 +141,26 @@ def _join_rows(m: ShuffleManager, a: "Dataset", b: "Dataset",
         pieces.append(joined)
         counts.append(c)
     return torch.cat(pieces, dim=1), np.asarray(counts, dtype=np.int64)
+
+
+def _check_schema_width(manager: ShuffleManager, schema) -> None:
+    if schema is not None and \
+            schema.payload_words != manager.conf.val_words:
+        raise ValueError(
+            f"schema declares {schema.payload_words} payload words but "
+            f"the manager was configured with "
+            f"val_words={manager.conf.val_words}")
+
+
+def _check_keys(keys: np.ndarray, what: str = "keys") -> None:
+    """Refuse host keys carrying the RESERVED all-ones key, which later
+    verbs would drop silently."""
+    if keys.ndim == 2 and keys.size and \
+            bool((keys == _NULL).all(axis=1).any()):
+        raise ValueError(
+            f"input {what} use the reserved all-ones (0xFFFFFFFF) key, "
+            "which this layer reserves for padding filler — remap that "
+            "key before loading")
 
 
 @dataclasses.dataclass
@@ -217,7 +246,7 @@ class Dataset:
     """A distributed batch of fixed-width records with Spark-ish verbs."""
 
     def __init__(self, manager: ShuffleManager, records: torch.Tensor,
-                 totals: Optional[torch.Tensor] = None):
+                 totals: Optional[torch.Tensor] = None, schema=None):
         self.manager = manager
         self.records = records          # columnar int32 [W, mesh * cap]
         mesh = manager.runtime.num_partitions
@@ -225,10 +254,17 @@ class Dataset:
             totals = torch.full((mesh,), records.shape[1] // mesh,
                                 dtype=torch.int32, device=records.device)
         self.totals = totals
-        #: pending predicate (filter pushdown): consumed by the NEXT
-        #: exchange, where filtered rows never take a slot, or by
+        #: the payload words' RowSchema, if declared (None: opaque words)
+        self.schema = schema
+        #: pending predicate and projection (filter / select pushdown):
+        #: consumed by the NEXT exchange, where filtered rows never take a
+        #: slot and dropped words never move, or by
         #: :meth:`_materialize_pending` for host exits
         self._pending_filter: Optional[Callable] = None
+        self._pending_select: Optional[Tuple[str, ...]] = None
+        #: the live columns after a projection ran (None: all); dropped
+        #: columns read as zeros
+        self.projected: Optional[Tuple[str, ...]] = None
         #: memo of :meth:`_materialize_pending`: chained host exits run the
         #: filter pass once
         self._materialized: Optional["Dataset"] = None
@@ -242,53 +278,125 @@ class Dataset:
                        schema=None) -> "Dataset":
         """Rows ``uint32[N, W]`` -> a Dataset on the runtime's device (N
         divisible by the partition count). Refuses rows carrying the
-        RESERVED all-ones key, which later verbs would drop silently."""
-        if schema is not None:
-            raise _not_ported("a RowSchema (serde's columnar format)", "A.4")
-        kw = manager.conf.key_words
+        RESERVED all-ones key, which later verbs would drop silently.
+        ``schema`` declares the payload layout of already encoded rows
+        (its ``payload_words`` must equal ``val_words``)."""
         rows = np.asarray(rows)
-        if rows.size and bool((rows[:, :kw] == _NULL).all(axis=1).any()):
-            raise ValueError(
-                "input rows use the reserved all-ones (0xFFFFFFFF) key, "
-                "which this layer reserves for padding filler — remap "
-                "that key before loading")
-        ds = cls(manager, manager.runtime.shard_records(rows))
+        _check_schema_width(manager, schema)
+        _check_keys(rows[:, :manager.conf.key_words], "rows")
+        ds = cls(manager, manager.runtime.shard_records(rows), schema=schema)
         ds.content_digest = rows_content_digest(rows)
         return ds
 
     @classmethod
-    def from_host_payloads(cls, *args, **kwargs) -> "Dataset":
-        """Byte payloads through the pipelined serde path: not ported."""
-        raise _not_ported("from_host_payloads (serde and the pipeline)",
-                          "A.4")
+    def from_host_payloads(cls, manager: ShuffleManager, keys: np.ndarray,
+                           payloads, max_payload_bytes: int, *,
+                           chunk_records: Optional[int] = None,
+                           overlap: bool = True,
+                           schema=None) -> "Dataset":
+        """Byte payloads -> a Dataset through the pipelined codec
+        (``api/pipeline.py``): ``keys`` ``uint32[N, key_words]``, N
+        payloads of at most ``max_payload_bytes`` each, and
+        ``payload_words(max_payload_bytes)`` equal to ``val_words``. A
+        bytes-only ``schema`` takes the columnar codec (bit-identical
+        rows) when ``conf.serde_schema_columnar`` is on, and marks the
+        dataset so :meth:`to_host_payloads` decodes through it."""
+        conf = manager.conf
+        pw = payload_words(max_payload_bytes)
+        if pw != conf.val_words:
+            raise ValueError(
+                f"max_payload_bytes={max_payload_bytes} needs "
+                f"val_words={pw} but the manager was configured with "
+                f"val_words={conf.val_words} — size the ShuffleConf with "
+                f"payload_words(max_payload_bytes)")
+        if schema is not None:
+            if not schema.is_bytes_only:
+                raise ValueError(
+                    "from_host_payloads takes a bytes-only schema "
+                    "(use from_host_columns for multi-column schemas)")
+            if schema.var_max_bytes != max_payload_bytes:
+                raise ValueError(
+                    f"schema bytes column caps {schema.var_max_bytes} "
+                    f"bytes but max_payload_bytes={max_payload_bytes}")
+        keys = np.asarray(keys)
+        _check_keys(keys)
+        if schema is not None and conf.serde_schema_columnar:
+            records = encode_cols_to_device(
+                manager, keys, {schema.var_name: payloads}, schema,
+                chunk_records=chunk_records, overlap=overlap)
+        else:
+            records = encode_rows_to_device(
+                manager, keys, payloads, max_payload_bytes,
+                chunk_records=chunk_records, overlap=overlap)
+        return cls(manager, records, schema=schema)
 
     @classmethod
-    def from_host_columns(cls, *args, **kwargs) -> "Dataset":
-        """Named host columns under a RowSchema: not ported."""
-        raise _not_ported("from_host_columns (serde and the pipeline)",
-                          "A.4")
+    def from_host_columns(cls, manager: ShuffleManager, keys: np.ndarray,
+                          columns, schema, *,
+                          chunk_records: Optional[int] = None,
+                          overlap: bool = True) -> "Dataset":
+        """Named host columns -> a Dataset under ``schema``
+        (``schema.payload_words`` equal to ``val_words``), through the
+        pipelined columnar codec."""
+        _check_schema_width(manager, schema)
+        keys = np.asarray(keys)
+        _check_keys(keys)
+        records = encode_cols_to_device(
+            manager, keys, columns, schema,
+            chunk_records=chunk_records, overlap=overlap)
+        return cls(manager, records, schema=schema)
 
-    def to_host_payloads(self, *args, **kwargs):
-        """Inverse of :meth:`from_host_payloads`: not ported."""
-        raise _not_ported("to_host_payloads (serde and the pipeline)",
-                          "A.4")
+    def to_host_payloads(self, *, overlap: bool = True):
+        """Inverse of :meth:`from_host_payloads`: ``(keys uint32[N, kw],
+        payloads)``, filler rows dropped, each partition's window copied
+        down while the one before decodes. With a bytes-only schema (and
+        ``serde_schema_columnar``) the payloads are a lazy
+        :class:`~sparkrdma_tpu_torch.api.serde.BytesColumn`, which
+        compares and iterates like a list of bytes."""
+        if self._pending_filter is not None or \
+                self._pending_select is not None:
+            return self._materialize_pending().to_host_payloads(
+                overlap=overlap)
+        sch = self.schema
+        if (sch is not None and sch.is_bytes_only
+                and self.manager.conf.serde_schema_columnar):
+            keys, cols = decode_cols_from_device(
+                self.manager, self.records, self.totals, sch,
+                overlap=overlap)
+            return keys, cols[sch.var_name]
+        return decode_rows_from_device(self.manager, self.records,
+                                       self.totals, overlap=overlap)
 
-    def to_host_columns(self, *args, **kwargs):
-        """Inverse of :meth:`from_host_columns`: not ported."""
-        raise _not_ported("to_host_columns (serde and the pipeline)",
-                          "A.4")
+    def to_host_columns(self, *, overlap: bool = True):
+        """Decode through the dataset's schema: ``(keys uint32[N, kw],
+        {name: column})``, filler rows dropped; fixed columns are numpy
+        views over each partition's fetched window, the bytes column a
+        ``BytesColumn``."""
+        if self._pending_filter is not None or \
+                self._pending_select is not None:
+            return self._materialize_pending().to_host_columns(
+                overlap=overlap)
+        if self.schema is None:
+            raise ValueError(
+                "to_host_columns needs a schema-carrying dataset — "
+                "declare a RowSchema at from_host_columns/"
+                "from_host_payloads time")
+        return decode_cols_from_device(self.manager, self.records,
+                                       self.totals, self.schema,
+                                       overlap=overlap)
 
     def to_host_rows(self) -> np.ndarray:
         """Valid records only, concatenated in partition order (filler
-        rows filtered out); a pending :meth:`filter` applies here."""
-        if self._pending_filter is not None:
+        rows filtered out); pending :meth:`filter` / :meth:`select` ops
+        apply here."""
+        if self._pending_filter is not None or \
+                self._pending_select is not None:
             return self._materialize_pending().to_host_rows()
-        mesh = self.manager.runtime.num_partitions
-        cap = self.records.shape[1] // mesh
-        cols = records_from_torch(self.records)
-        tot = self.totals.tolist()
-        rows = np.concatenate(
-            [cols[:, d * cap:d * cap + int(tot[d])].T for d in range(mesh)])
+        rt = self.manager.runtime
+        # only the valid prefixes leave the device (an aggregator's
+        # output keeps a few rows in a capacity sized by raw counts)
+        rows = rt.host_rows(torch.cat(_valid_prefixes(
+            self.records, self.totals.tolist()), dim=1))
         kw = self.manager.conf.key_words
         null = (rows[:, :kw] == _NULL).all(axis=1)
         return rows[~null]
@@ -312,9 +420,14 @@ class Dataset:
                   combine_hint: Optional[Tuple[bool, float]] = None
                   ) -> "Dataset":
         """One exchange of this dataset through the SPI, the pending
-        filter pushed into it; the output is copied out of the pool's
-        recycling before the shuffle is unregistered."""
+        filter pushed into it; a recycled output is copied out of the
+        pool's recycling before the shuffle is unregistered. A pending select
+        becomes the read's ``keep_words``; the schema survives a
+        layout-preserving exchange and an aggregator drops it."""
         m = self.manager
+        sel = self._pending_select
+        keep_words = (self.schema.keep_words(sel, m.conf.key_words)
+                      if sel is not None else None)
         # skip ids a user registered explicitly on this manager: draw
         # until one sticks; any other registry error propagates
         while True:
@@ -329,9 +442,20 @@ class Dataset:
             out, totals = m.get_reader(
                 handle, key_ordering=key_ordering, aggregator=aggregator,
                 float_payload=float_payload,
-                row_filter=self._pending_filter,
+                row_filter=self._pending_filter, keep_words=keep_words,
                 combine_hint=combine_hint).read()
-            return Dataset(m, out.clone(), totals.clone())
+            # a fused read's output is the exchange's recycled buffer,
+            # overwritten by its next read: copy it; a streaming read's
+            # is a fresh tensor, which the dataset may keep as it is
+            recycled = any(out is buf
+                           for buf in m._exchange._out_prev.values())
+            res = Dataset(m, out.clone() if recycled else out,
+                          totals.clone(),
+                          schema=self.schema if aggregator is None
+                          else None)
+            if sel is not None and aggregator is None:
+                res.projected = sel
+            return res
         finally:
             m.unregister_shuffle(sid)
 
@@ -362,17 +486,31 @@ class Dataset:
         return torch.cat(pieces, dim=1)
 
     def _materialize_pending(self) -> "Dataset":
-        """Apply a pending :meth:`filter` eagerly — the escape hatch for
-        consumers that cannot fuse it (host exits, verbs that rewrite
-        payload words before their shuffle). Filtered-out rows become
-        null-key filler. Memoized on this instance."""
+        """Apply a pending :meth:`filter` / :meth:`select` eagerly — the
+        escape hatch for consumers that cannot fuse them (host exits,
+        verbs that rewrite payload words before their shuffle).
+        Filtered-out rows become null-key filler, then projected-away
+        words become 0, as the fused path gives them. Memoized on this
+        instance."""
         pred = self._pending_filter
-        if pred is None:
+        sel = self._pending_select
+        if pred is None and sel is None:
             return self
         if self._materialized is None:
-            recs = torch.where(pred(self.records)[None], self.records,
-                               _NULL_WORD)
-            self._materialized = Dataset(self.manager, recs, self.totals)
+            recs = self.records
+            if pred is not None:
+                recs = torch.where(pred(recs)[None], recs, _NULL_WORD)
+            if sel is not None:
+                live = torch.zeros((recs.shape[0], 1), dtype=torch.bool,
+                                   device=recs.device)
+                live[list(self.schema.keep_words(
+                    sel, self.manager.conf.key_words))] = True
+                recs = torch.where(live, recs, 0)
+            res = Dataset(self.manager, recs, self.totals,
+                          schema=self.schema)
+            if sel is not None:
+                res.projected = sel
+            self._materialized = res
         return self._materialized
 
     # ------------------------------------------------------------------
@@ -399,13 +537,40 @@ class Dataset:
             pred.cache_key = ("and",
                               getattr(old, "cache_key", None) or id(old),
                               getattr(new, "cache_key", None) or id(new))
-        ds = Dataset(self.manager, self.records, self.totals)
+        ds = Dataset(self.manager, self.records, self.totals,
+                     schema=self.schema)
         ds._pending_filter = pred
+        ds._pending_select = self._pending_select
+        ds.projected = self.projected
         return ds
 
     def select(self, *columns: str) -> "Dataset":
-        """Projection pushdown by schema column: not ported."""
-        raise _not_ported("select (it needs serde's RowSchema)", "A.4")
+        """LOGICAL projection pushdown (df.select, lazy): keep only the
+        named schema columns. The next exchange ships only the key words
+        and these columns' words (the rest come back zero), and host
+        exits zero the dropped words eagerly. Needs a schema; a chained
+        select names a subset of the previous one."""
+        if self.schema is None:
+            raise ValueError(
+                "select needs a schema-carrying dataset — declare a "
+                "RowSchema at load time")
+        names = tuple(columns)
+        if not names:
+            raise ValueError("select needs at least one column name")
+        for n in names:
+            self.schema.column_word_span(n)  # validates the name
+        if self._pending_select is not None:
+            gone = [n for n in names if n not in self._pending_select]
+            if gone:
+                raise ValueError(
+                    f"column(s) {gone} were already projected away by a "
+                    f"previous select({list(self._pending_select)})")
+        ds = Dataset(self.manager, self.records, self.totals,
+                     schema=self.schema)
+        ds._pending_filter = self._pending_filter
+        ds._pending_select = names
+        ds.projected = self.projected
+        return ds
 
     def repartition(self, num_parts: Optional[int] = None) -> "Dataset":
         """Hash-repartition across the partitions (rdd.repartition)."""
@@ -422,10 +587,12 @@ class Dataset:
         m = self.manager
         mesh = m.runtime.num_partitions
         kw = m.conf.key_words
-        records = self._materialize_pending()._dense_records()
+        base = self._materialize_pending()
+        records = base._dense_records()
         samples = make_sampler(mesh, kw, samples_per_device)(records)
         part = range_partitioner(compute_splitters(samples, mesh), kw)
-        return Dataset(m, records)._exchange(part, mesh, key_ordering=True)
+        return Dataset(m, records, schema=base.schema)._exchange(
+            part, mesh, key_ordering=True)
 
     def reduce_by_key(self, op: str = "sum", float_payload: bool = False,
                       combine_hint: Optional[Tuple[bool, float]] = None
@@ -468,7 +635,8 @@ class Dataset:
             outs.append(out)
             totals.append(nuniq)
         return Dataset(m, torch.cat(outs, dim=1), torch.tensor(
-            totals, dtype=torch.int32, device=a.records.device))
+            totals, dtype=torch.int32, device=a.records.device),
+            schema=self.schema)
 
     def count_by_key(self) -> "Dataset":
         """Per-key record counts (rdd.countByKey): rows become ``(key
@@ -590,20 +758,23 @@ class Dataset:
         return joined, totals
 
     def plan(self, name: str = ""):
-        """Lift into a lazy logical plan: not ported."""
-        raise _not_ported("plan (the query planner)", "A.5")
+        """Lift this dataset into a lazy
+        :class:`~sparkrdma_tpu_torch.plan.LogicalPlan` source node: verbs
+        chained on the plan build a DAG that the optimizer rewrites
+        before anything runs (``plan/``). The source's reuse identity is
+        its ``content_digest`` when it has one, else a process-unique
+        token; a ``name`` asserts that what carries it holds stable
+        content (see ``plan/nodes.py``)."""
+        from sparkrdma_tpu_torch.plan import LogicalPlan
+
+        return LogicalPlan.dataset(self, name=name)
 
     @staticmethod
     def collect_rows(cols: torch.Tensor, totals) -> np.ndarray:
         """Valid rows of a padded columnar result (e.g. :meth:`join`'s),
         concatenated in partition order, as host ``uint32[n, W]``."""
-        totals = np.asarray(totals)
-        mesh = totals.shape[0]
-        cap = cols.shape[1] // mesh
-        arr = records_from_torch(cols)
-        return np.concatenate(
-            [arr[:, d * cap:d * cap + int(totals[d])].T
-             for d in range(mesh)])
+        return np.ascontiguousarray(records_from_torch(torch.cat(
+            _valid_prefixes(cols, np.asarray(totals).tolist()), dim=1)).T)
 
 
 __all__ = ["Dataset", "GroupedData", "CoGroupedData"]

@@ -4,7 +4,8 @@ Only the knobs the ported paths read are kept (TeraSort, the aggregation
 path with its map-side combine gate, the streaming regime with its
 ``queue_depth`` pacing, the slot pool, the pack/wide sort modes, and the
 out-of-core path: host staging, the tiered store and segment
-checkpoints), under the reference's names and with its defaults, so a
+checkpoints; the query planner's rewrite gates and the host codec's
+chunking), under the reference's names and with its defaults, so a
 configuration written for one package means the same thing to the
 other. Transports
 that are not ported (the hierarchical one) are refused; the reference's
@@ -98,6 +99,42 @@ class ShuffleConf:
     #: the map-side combine on
     combine_min_dup_ratio: float = 0.25
 
+    # --- query planner (plan/ package) rewrite gates ---
+    #: sink plan-level ``filter``/``select`` nodes below layout-preserving
+    #: exchanges into the earliest downstream exchange's
+    #: ``row_filter``/``keep_words``, and hoist the combine gate's sample
+    #: to plan time. Off: each filter/select materializes eagerly, so
+    #: dropped rows still ride the wire as null-key filler. Results are
+    #: bit-identical either way
+    plan_pushdown: bool = True
+    #: adopt the output of an earlier exchange with the same canonical
+    #: fingerprint instead of exchanging again (and, with ``spill_dir``,
+    #: persist it through ``checkpoint_segments`` for a restarted
+    #: executor to resume)
+    plan_reuse: bool = True
+    #: a dimension-lookup join whose build side's plan-time row count
+    #: fits ``plan_broadcast_records`` replicates that side to every
+    #: partition and neither side exchanges. A build side with duplicate
+    #: keys raises (the port has no degradation rung)
+    plan_broadcast_join: bool = True
+    #: encode a deferred host source of a join's dimension side on a
+    #: background worker while the fact side's exchanges run
+    plan_overlap: bool = True
+    #: most build-side rows a broadcast join may replicate (0 never
+    #: broadcasts)
+    plan_broadcast_records: int = 4096
+
+    # --- byte-payload serde (api/serde.py, api/pipeline.py) ---
+    #: records per chunk of the pipelined host <-> device load: the host
+    #: encodes chunk k+1 while chunk k is copied to the device. 0 loads
+    #: in one shot
+    serde_chunk_records: int = 1 << 20
+    #: schema-declared byte payloads take the columnar (v2) codec; False
+    #: pins them to the v1 padded-slot codec. Rows are bit-identical
+    #: either way (``from_host_columns`` / ``to_host_columns`` always
+    #: use the columnar layout)
+    serde_schema_columnar: bool = True
+
     # --- host staging / spill ---
     #: with ``spill_dir``: checkpoint every published map output whole
     #: (the reference's ``checkpoint_shuffle``). Not ported yet: True
@@ -171,6 +208,12 @@ class ShuffleConf:
         for name in ("compression_level", "serde_schema_spill_level"):
             if not 0 <= getattr(self, name) <= 9:
                 raise ValueError(f"{name} must be in [0, 9]")
+        if self.plan_broadcast_records < 0:
+            raise ValueError("plan_broadcast_records must be >= 0 (0 = "
+                             "never broadcast)")
+        if self.serde_chunk_records < 0:
+            raise ValueError("serde_chunk_records must be >= 0 (0 = no "
+                             "chunking)")
         if self.spill_tier_host_bytes < 0:
             raise ValueError("spill_tier_host_bytes must be >= 0 (0 = "
                              "evict every unpinned host segment)")

@@ -380,11 +380,25 @@ class ShuffleExchange:
         mode = self.sort_mode(out.shape[0])
         ride = self.conf.wide_sort_ride_words
         if aggregator:
-            valid = torch.arange(out_capacity, device=out.device) < total
-            return combine_by_key_cols(out, valid, self.conf.key_words,
-                                       aggregator, float_payload,
-                                       wide=mode == "wide", ride_words=ride,
-                                       pack=mode == "pack")
+            # the valid rows are the received prefix, and a stable sort
+            # keeps their order whether the rest is masked or cut off:
+            # combine the prefix alone (a map-side combined read receives
+            # a few rows into a capacity sized by the raw counts)
+            n = min(total, out_capacity)
+            part, unique = combine_by_key_cols(
+                out[:, :n], torch.ones(n, dtype=torch.bool,
+                                       device=out.device),
+                self.conf.key_words, aggregator, float_payload,
+                wide=mode == "wide", ride_words=ride, pack=mode == "pack")
+            if float_payload and n == 1 < out_capacity:
+                # the scan over the whole capacity turns -0.0 into +0.0
+                # even for one valid row (``combine_by_key_cols``)
+                kw = self.conf.key_words
+                part[kw:] = (part[kw:].view(torch.float32) + 0).view(
+                    torch.int32)
+            out[:, n:] = 0          # ``out`` is this partition's scratch
+            out[:, :n] = part
+            return out, unique
         if not sort_key_words:
             return out, total
         valid = None if tight_out else (
@@ -794,7 +808,9 @@ class ShuffleExchange:
 
         # --- tail -------------------------------------------------------
         rows = list(keep_words) if keep_words is not None else slice(None)
-        out = torch.zeros((w, mesh * oc), dtype=torch.int32, device=dev)
+        out = (self.pool.zeros((w, mesh * oc)) if self.pool is not None
+               else torch.zeros((w, mesh * oc), dtype=torch.int32,
+                                device=dev))
         new_totals = []
         for d, total in enumerate(totals.tolist()):
             part, total = self._fuse_tail(acc[:, d * oc:(d + 1) * oc], total,

@@ -18,7 +18,10 @@ zero-filled: a hit hands the buffer back as its last user left it, and
 the caller writes what it reads.
 
 JAX donation has no counterpart here: nothing deletes a buffer, so there
-is no ``is_deleted`` check and nothing is ever dropped. A buffer may be
+is no ``is_deleted`` check. The free buffers are a cache of the
+device's memory: an allocation that finds the device full drops them
+all (``evictions`` counts the buffers) and allocates once more, as
+PyTorch's caching allocator does with its own free blocks. A buffer may be
 put back while work that reads it is still queued: the port launches all
 its work on one stream (PyTorch's current one), so whatever the next
 holder queues runs after those reads, in stream order. A caller that
@@ -100,6 +103,7 @@ class SlotPool:
         self.preallocated = 0              # immutable after __init__
         self.outstanding = 0               # guarded-by: _lock
         self.outstanding_high_water = 0    # guarded-by: _lock
+        self.evictions = 0                 # guarded-by: _lock
         #: the owning manager rebinds this to its own registry
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
@@ -113,7 +117,22 @@ class SlotPool:
     def _zeros(self, shape, dtype=torch.int32) -> torch.Tensor:
         with self._lock:
             self.allocations += 1
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+        return self.zeros(shape, dtype)
+
+    def zeros(self, shape, dtype=torch.int32) -> torch.Tensor:
+        """A zero-filled tensor on the pool's device that the caller owns
+        (it never enters the pool); if the device is full, the free
+        buffers go back to it first."""
+        try:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        except torch.OutOfMemoryError:
+            with self._lock:
+                dropped = sum(len(v) for v in self._free.values())
+                self._free.clear()
+                self.evictions += dropped
+            if not dropped:
+                raise
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def _track(self, delta: int) -> None:
         """One buffer handed out (+1) or returned (-1)."""
@@ -197,7 +216,8 @@ class SlotPool:
                     "misses": self.misses,
                     "preallocated": self.preallocated,
                     "outstanding": self.outstanding,
-                    "outstanding_high_water": self.outstanding_high_water}
+                    "outstanding_high_water": self.outstanding_high_water,
+                    "evictions": self.evictions}
 
 
 __all__ = ["Slot", "SlotPool"]

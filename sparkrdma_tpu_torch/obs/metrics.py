@@ -23,6 +23,15 @@ store's ``store.puts``, ``store.put_bytes``, ``store.spill_writes``,
 ``store.compressed_segments`` and ``recover.spill_reread`` (a CRC
 mismatch overcome by a re-read), with the gauges ``store.host_bytes``
 and ``store.disk_bytes``.
+
+The host codec (``api/serde.py``) also has no manager in reach: each
+call adds to ``serde.{encode,decode}_{bytes,ns,calls}`` (the v1 rows
+format) or ``serde.columnar.{encode,decode}_{bytes,ns,calls}`` in the
+process-wide registry (the reference's ``_native`` / ``_fallback`` split
+has no counterpart: the port has the numpy codec only). The query planner counts its
+rewrites on the manager's registry: ``plan.pushdown_sunk`` (a filter or
+select fused into an exchange), ``plan.reuse_hits``,
+``plan.broadcast_joins`` and ``plan.overlapped_stages``.
 """
 
 from __future__ import annotations
@@ -78,6 +87,14 @@ class MetricsRegistry:
             if g is None:
                 g = self._gauges[name] = Gauge(self.enabled)
             return g
+
+    def snapshot(self) -> Dict[str, object]:
+        """Every counter's and gauge's current value, by name."""
+        with self._lock:
+            out: Dict[str, object] = {n: c.value
+                                      for n, c in self._counters.items()}
+            out.update((n, g.value) for n, g in self._gauges.items())
+        return out
 
 
 _global_lock = threading.Lock()

@@ -330,23 +330,103 @@ def test_host_boundary(pairs, RefDataset):
         Dataset.from_host_rows(pm, bad)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda ds: ds.select("a"), "A.4"),
-    (lambda ds: ds.plan(), "A.5"),
-    (lambda ds: ds.to_host_payloads(), "A.4"),
-    (lambda ds: ds.to_host_columns(), "A.4"),
-    (lambda ds: Dataset.from_host_payloads(ds.manager, None, [], 8), "A.4"),
-    (lambda ds: Dataset.from_host_columns(ds.manager, None, {}, None),
-     "A.4"),
-    (lambda ds: Dataset.from_host_rows(ds.manager, ds.to_host_rows(),
-                                       schema=object()), "A.4"),
-], ids=["select", "plan", "to_host_payloads", "to_host_columns",
-        "from_host_payloads", "from_host_columns", "schema"])
-def test_unported_verbs_refuse(pairs, call, item):
-    _, pm = pairs["w4"]
-    ds = Dataset.from_host_rows(pm, _rows(18, 4, n=64))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call(ds)
+#: a schema of every kind whose payload is 6 words, and the byte bound
+#: whose v1 slot is 6 words too
+SCHEMA = [("a", "uint32"), ("b", "int64"), ("p", ("bytes", 6))]
+MAXB = 20
+
+
+@pytest.fixture(scope="module")
+def schema_pair():
+    rm, pm = _pair(val_words=6, serde_chunk_records=64)
+    yield rm, pm
+    rm.stop()
+    pm.stop()
+
+
+def _schema_data(seed, n=8 * 48):
+    rng = np.random.default_rng(seed)
+    keys = np.stack([rng.integers(0, 3, size=n),
+                     rng.permutation(n) + 1], axis=1).astype(np.uint32)
+    cols = {"a": rng.integers(0, 2**32, size=n, dtype=np.uint32),
+            "b": rng.integers(-2**62, 2**62, size=n),
+            "p": [rng.bytes(int(k)) for k in rng.integers(0, 7, size=n)]}
+    pays = [rng.bytes(int(k)) for k in rng.integers(0, MAXB + 1, size=n)]
+    return keys, cols, pays
+
+
+def _same_host(got, want):
+    """Decoded ``(keys, payloads)`` or ``(keys, columns)`` equal."""
+    np.testing.assert_array_equal(got[0], want[0])
+    if isinstance(got[1], dict):
+        assert set(got[1]) == set(want[1])
+        for k, v in got[1].items():
+            if k == "p":
+                assert v == want[1][k].to_list()
+            else:
+                np.testing.assert_array_equal(v, want[1][k])
+    else:
+        assert list(got[1]) == list(want[1])
+
+
+@pytest.mark.parametrize("method", [
+    "select", "plan", "to_host_payloads", "to_host_columns",
+    "from_host_payloads", "from_host_columns", "schema"])
+def test_schema_and_payload_verbs_match_reference(schema_pair, RefDataset,
+                                                  method):
+    """The methods slice 6 left refusing, one case each, held against
+    the reference on the same seeded keys, columns and payloads: the
+    device records bit-equal, and the host decodes equal."""
+    from sparkrdma_tpu.api.serde import RowSchema as RefSchema
+    from sparkrdma_tpu.plan import PlanExecutor as RefExecutor
+
+    from sparkrdma_tpu_torch.api.serde import RowSchema
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+
+    rm, pm = schema_pair
+    keys, cols, pays = _schema_data(20)
+    rsch, psch = RefSchema(SCHEMA), RowSchema(SCHEMA)
+    if method in ("from_host_payloads", "to_host_payloads"):
+        rb, pb = RefSchema.bytes_only(MAXB), RowSchema.bytes_only(MAXB)
+        rds = RefDataset.from_host_payloads(rm, keys, pays, MAXB)
+        pds = Dataset.from_host_payloads(pm, keys, pays, MAXB)
+        _same(rds, pds)
+        rbs = RefDataset.from_host_payloads(rm, keys, pays, MAXB, schema=rb)
+        pbs = Dataset.from_host_payloads(pm, keys, pays, MAXB, schema=pb)
+        _same(rbs, pbs)
+        if method == "to_host_payloads":
+            got = pds.to_host_payloads()
+            _same_host(got, rds.to_host_payloads())
+            _same_host(pbs.to_host_payloads(overlap=False),
+                       rbs.to_host_payloads(overlap=False))
+            assert list(got[1]) == pays
+        return
+    rds = RefDataset.from_host_columns(rm, keys, cols, rsch)
+    pds = Dataset.from_host_columns(pm, keys, cols, psch)
+    _same(rds, pds)
+    if method == "from_host_columns":
+        assert pds.schema == psch
+    elif method == "to_host_columns":
+        _same_host(pds.to_host_columns(), rds.to_host_columns())
+    elif method == "select":
+        r2, p2 = rds.select("b").repartition(), pds.select("b").repartition()
+        _same(r2, p2)
+        _same_host(p2.to_host_columns(), r2.to_host_columns())
+        _same_host(pds.select("a", "p").to_host_columns(),
+                   rds.select("a", "p").to_host_columns())
+    elif method == "plan":
+        want = RefExecutor(rm).run(rds.plan("t").repartition().sink())
+        got = PlanExecutor(pm).run(pds.plan("t").repartition().sink())
+        np.testing.assert_array_equal(got, want)
+    else:
+        rows = pds.to_host_rows()
+        r2 = RefDataset.from_host_rows(rm, rows, schema=rsch)
+        p2 = Dataset.from_host_rows(pm, rows, schema=psch)
+        _same(r2, p2)
+        assert p2.content_digest == r2.content_digest
+        _same_host(p2.to_host_columns(), r2.to_host_columns())
+        with pytest.raises(ValueError, match="payload words"):
+            Dataset.from_host_rows(pm, rows, schema=RowSchema.bytes_only(4))
 
 
 def test_dataset_ids_skip_user_registered(pairs, monkeypatch):

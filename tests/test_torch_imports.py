@@ -52,6 +52,18 @@ def test_out_of_core_modules_scanned(rel):
     assert not [n for _, n in _imports(path) if _forbidden(n)]
 
 
+@pytest.mark.parametrize("rel", [
+    "api/serde.py", "api/pipeline.py", "plan/__init__.py", "plan/nodes.py",
+    "plan/optimizer.py", "plan/executor.py", "workloads/tpcds.py"])
+def test_serde_and_planner_modules_scanned(rel):
+    """The host codec, the pipeline, the planner and the TPC-DS queries
+    are the port's own copies (the reference's ``api/serde.py`` and
+    ``plan/optimizer.py`` import no JAX, and are copied all the same)."""
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):

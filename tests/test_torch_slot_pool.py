@@ -158,6 +158,33 @@ def test_shaped_buffers_and_stats():
         pool.put_shaped(torch.zeros(2, device="meta"))
 
 
+@pytest.mark.parametrize("free", [2, 0], ids=["evicts", "empty"])
+def test_full_device_evicts_free_buffers(monkeypatch, free):
+    """An allocation that finds the device full drops the free buffers
+    and allocates once more; with none to drop it raises."""
+    pool = make_pool()
+    held = [pool.get_shaped((4, 4)) for _ in range(free)]
+    for arr in held:
+        pool.put_shaped(arr)
+    real = torch.zeros
+    calls = []
+
+    def full_once(*a, **k):
+        calls.append(a)
+        if len(calls) == 1:
+            raise torch.OutOfMemoryError("device full")
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch, "zeros", full_once)
+    if not free:
+        with pytest.raises(torch.OutOfMemoryError):
+            pool.get_shaped((8, 8))
+        return
+    arr = pool.get_shaped((8, 8))
+    assert arr.shape == (8, 8) and len(calls) == 2
+    assert pool.free_counts() == {} and pool.stats()["evictions"] == free
+
+
 def test_runtime_owns_pool():
     rt = MeshRuntime(ShuffleConf(prealloc="64:2"), D, device="cpu")
     assert rt.pool.device == rt.device and rt.pool.preallocated == 2
