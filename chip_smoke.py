@@ -109,10 +109,36 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      O        the star suite at scale 64 (287,996,928 fact rows), with
               ``queries_per_hour`` and the four rewrite counters;
      M        q64 at SF100 (287,997,024 ``store_sales`` rows);
-   each checked against numpy; then the ring kernel at every send shape
-   legs B-P launched it at (recorded while each leg ran), each against
-   its plain version and timed;
-8. one ``{"kernels": [...]}`` line and, last, the device line.
+   each checked against numpy;
+8. a check that legs A-P retried and recovered nothing unseen: no
+   ``faults.*`` or ``recover.*`` counter moved and the reader logged no
+   "fetch failed ... retrying" warning (a real failure there would
+   otherwise be absorbed by the retry loop);
+9. durability, the reader's retry loop and the fault plane:
+     Q        leg F's records at the default geometry with ``fast_sort``
+              and ``spill_to_host``: ``stop()`` checkpoints (seconds, GB/s,
+              the file's bytes); a control read, verified on the card; a
+              read under a failed dispatch and a stream failure past
+              ``queue_depth`` chunks (two retries, the pool's
+              ``outstanding`` restored after each failed attempt); a read
+              after the map output is lost from the card (resumed from the
+              checkpoint); a restarted manager's read: each bit-identical
+              to the control;
+     Q-small  2^20 records: that schedule on the card and on the CPU (and
+              ``ring_fused=False``), equal to the reads without faults;
+              checkpoints written on one device and resumed on the other;
+              a persistent fault, the retry deadline, the backoff schedule,
+              a corrupt checkpoint (``UnrecoverableShuffleError``, no
+              retry); ``spill.write``, ``spill.read`` (an H-small-sized
+              tiered run), ``checkpoint.read`` and ``pool.acquire`` faults;
+              the books (hard injections = retries + recoveries); and, in a
+              child process, reads whose ring launches really fail (a grid
+              the entry refuses, an address the card has not mapped);
+   then the ring kernel at every send shape legs B-Q launched it at
+   (recorded while each leg ran), each against its plain version and
+   timed;
+10. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+    the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -124,12 +150,15 @@ import dataclasses
 import gc
 import itertools
 import json
+import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -179,6 +208,10 @@ O_SCALE, O_PER_DEVICE = 64, 562_494
 P_V1, P_MAXB = 1 << 22, 92
 P_COLS, P_BYTES = 1 << 24, 68
 LEGS_M_TO_P = ("M-small", "P", "N", "O", "M")
+#: leg Q: durability at leg F's records and geometry; Q-small: 2^20
+Q_SEED, Q_SID = 0, 90
+Q_SMALL = 1 << 20
+LEGS_Q = ("Q", "Q-small")
 
 
 def fail(msg: str) -> None:
@@ -374,7 +407,7 @@ def merge_phase() -> dict:
     return line
 
 
-#: the send shapes ``[D, R, D, ppd, W, C]`` legs B-P launch the ring
+#: the send shapes ``[D, R, D, ppd, W, C]`` legs B-Q launch the ring
 #: kernel at, with the legs that launch each (what ``RingShapes`` recorded
 #: on an H100; ``ring_leg_phases`` fails if a run records another set);
 #: an a2a shape goes through ``ring_all_to_all`` as ``[D, D, ppd, W, C]``.
@@ -407,11 +440,11 @@ RING_LEG_SHAPES = [
     ("M-small", (8, 1, 8, 1, 6, 249), False),
     ("M-small", (8, 1, 8, 1, 6, 1665), False),
     ("H-small", (8, 1, 8, 1, 25, 1152), True),
-    ("H-small", (8, 1, 8, 1, 25, 1153), False),
+    ("H-small, Q-small", (8, 1, 8, 1, 25, 1153), False),
     ("H-small", (8, 1, 8, 1, 25, 1216), True),
-    ("H-small", (8, 1, 8, 1, 25, 1217), False),
+    ("H-small, Q-small", (8, 1, 8, 1, 25, 1217), False),
     ("H-small", (8, 1, 8, 1, 25, 2049), False),
-    ("F-small, K-small", (8, 1, 8, 1, 25, 4096), True),
+    ("F-small, K-small, Q-small", (8, 1, 8, 1, 25, 4096), True),
     ("C-small", (8, 1, 8, 1, 25, 32768), True),
     ("B-small", (8, 1, 8, 1, 25, 32769), False),
     ("H", (8, 1, 8, 1, 25, 34817), False),
@@ -422,12 +455,12 @@ RING_LEG_SHAPES = [
     ("L", (8, 1, 8, 1, 46, 524289), False),
     ("G-small, N", (8, 2, 8, 1, 4, 4096), False),
     ("M-small", (8, 2, 8, 1, 6, 4096), False),
-    ("F-small, K, K-small", (8, 2, 8, 1, 25, 4096), False),
+    ("F-small, K, K-small, Q-small", (8, 2, 8, 1, 25, 4096), False),
     ("K-small", (8, 2, 8, 1, 25, 4097), False),
     ("P", (8, 2, 8, 1, 26, 4096), False),
     ("G", (8, 2, 8, 2, 4, 4096), False),
     ("P", (8, 2, 8, 2, 22, 4096), False),
-    ("F, J, K", (8, 2, 8, 2, 25, 4096), False),
+    ("F, J, K, Q", (8, 2, 8, 2, 25, 4096), False),
     ("N", (8, 2, 8, 5, 4, 4096), False),
     ("M", (8, 2, 8, 18, 4, 4096), False),
     ("O", (8, 2, 8, 18, 6, 4096), False),
@@ -1574,13 +1607,13 @@ def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
 
 
 def ring_leg_phases(shapes: dict) -> list:
-    """The ring kernel at every send shape legs B-P launched it at: random
+    """The ring kernel at every send shape legs B-Q launched it at: random
     words at each shape, bit-exact against its plain version, timed
     beside its bound and ``permute().contiguous()`` (CUDA events over
     20-launch batches below 0.5 ms of bound, and CUDA-graph replay). One
     line per shape, with the launches each leg made at it. Fails if the
-    shapes and their legs are not those of ``RING_LEG_SHAPES``, which the
-    CPU tests and the A/B script take."""
+    shapes and their legs are not those of ``RING_LEG_SHAPES``, which
+    the CPU tests and the A/B script take."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
                                                    ring_exchange,
                                                    ring_exchange_plain)
@@ -1627,7 +1660,8 @@ def ring_leg_phases(shapes: dict) -> list:
         torch.cuda.empty_cache()
     seen = {(tuple(shape), a2a, ", ".join(sorted(legs)))
             for (shape, a2a), legs in by_shape.items()}
-    table = {(shape, a2a, legs) for legs, shape, a2a in RING_LEG_SHAPES}
+    table = {(shape, a2a, ", ".join(sorted(legs.split(", "))))
+             for legs, shape, a2a in RING_LEG_SHAPES}
     if seen != table:
         fail(f"the legs launched the ring kernel at other shapes than "
              f"RING_LEG_SHAPES lists: recorded, not listed "
@@ -2778,16 +2812,610 @@ def leg_m_small() -> dict:
     return line
 
 
+# --- legs Q and Q-small: durability, the retry loop, the fault plane ----
+
+
+class RetryLog(logging.Handler):
+    """The reader's "fetch failed ... retrying" warnings, as logged.
+    ``probe``, when set, is called at each one (after the failed
+    attempt, before the next) and its values kept in ``probes``."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+        self.probe = None
+        self.probes = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "fetch failed" in msg and "retrying" in msg:
+            self.messages.append(msg)
+            if self.probe is not None:
+                self.probes.append(self.probe())
+
+
+RETRIES = RetryLog()
+
+
+def no_unseen_retries(legs: str) -> dict:
+    """No ``faults.*`` or ``recover.*`` counter moved and no retry was
+    logged while ``legs`` ran: a real failure there would otherwise be
+    absorbed by the retry loop and the leg would still pass."""
+    from sparkrdma_tpu_torch.obs.metrics import global_registry
+
+    moved = {k: v for k, v in global_registry().snapshot().items()
+             if k.startswith(("faults.", "recover.")) and v}
+    line = {"phase": "no_unseen_retries", "legs": legs,
+            "fault_and_recovery_counters": moved,
+            "retry_warnings": list(RETRIES.messages)}
+    report(line)
+    if moved or RETRIES.messages:
+        fail(f"legs {legs} retried or recovered unseen: {line}")
+    return line
+
+
+def stream_fault(chunks: int, first: int, seeds) -> tuple:
+    """``(seed, k, rate)``: an ``exchange.stream_round`` rate rule that,
+    in a plane of ``seed``, fires exactly once over the stream hits of a
+    read under ``exchange.dispatch:fail@attempt<1`` (attempt 1 fails at
+    dispatch; attempt 2 streams chunks 0..k and fails at chunk ``k >=
+    first``; attempt 3 streams all ``chunks``: hits 0..k+chunks). Found
+    from the plane's own draws and checked with ``FaultRule.matches``."""
+    from sparkrdma_tpu_torch import faults
+
+    site = "exchange.stream_round"
+    salt = zlib.crc32(site.encode())
+    for seed in seeds:
+        for k in range(first, chunks):
+            draws = [faults._mix64(seed ^ salt ^ h) / float(1 << 64)
+                     for h in range(k + chunks + 1)]
+            low, second = sorted(draws)[:2]
+            if draws[k] != low or second == low:
+                continue
+            rate = (low + second) / 2
+            rule = faults.parse_fault_spec(f"{site}:fail@{rate!r}")[0]
+            hits = [h for h in range(k + chunks + 1)
+                    if rule.matches(h, seed)]
+            if hits == [k]:
+                return seed, k, rate
+    fail(f"no stream_round rate fires once at a chunk >= {first} of "
+         f"{chunks}")
+
+
+def schedule(rate: float) -> str:
+    """Step 3's schedule: attempt 1 fails at dispatch, one chunk of the
+    stream fails in attempt 2."""
+    return (f"exchange.dispatch:fail@attempt<1;"
+            f"exchange.stream_round:fail@{rate!r}")
+
+
+def fired_chunks(messages) -> list:
+    return [int(m.group(1)) for m in
+            (re.search(r"exchange\.stream_round, chunk (\d+)", msg)
+             for msg in messages) if m]
+
+
+def leg_q() -> dict:
+    """Durability at full width: TeraSort on leg F's 16,777,216 × 100-byte
+    records at the default geometry with ``fast_sort`` (the merge stage)
+    and ``spill_to_host``. ``stop()`` checkpoints; a control read,
+    verified on the card; a read under step 3's schedule (a dispatch
+    failure, then a stream failure past ``queue_depth`` chunks);
+    a read after the map output is lost from the card (recovered from the
+    checkpoint); and a restarted manager's read of the resumed shuffle:
+    each bit-identical to the control."""
+    from sparkrdma_tpu_torch import faults
+    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
+    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
+                                                   make_sampler)
+    from sparkrdma_tpu_torch.workloads.terasort import (device_verify_sort,
+                                                        random_records)
+
+    kernels = zeroed_counters()
+    w = KEY_WORDS + VAL_WORDS
+    checks, times = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as tmp:
+        kw = dict(fast_sort=True, geometry_classes="pow2",
+                  spill_to_host=True, spill_dir=tmp)
+        m = terasort_manager("cuda", **kw)
+        recs = random_records(RECORDS, w, Q_SEED, "cuda")
+        spl = compute_splitters(make_sampler(PARTS, KEY_WORDS, 256, Q_SEED)(
+            recs), PARTS)
+        part = range_partitioner(spl, KEY_WORDS)
+        h = m.register_shuffle(Q_SID, PARTS, part)
+        real_ckpt = m.checkpoint_shuffle
+
+        def timed_ckpt(*a, **k):
+            _, times["checkpoint_s"] = timed(lambda: real_ckpt(*a, **k))
+
+        m.checkpoint_shuffle = timed_ckpt
+        # 1. stop() plans, publishes and checkpoints
+        plan, times["stop_s"] = timed(
+            lambda: m.get_writer(h).write(recs).stop())
+        rec_bytes = recs.numel() * 4
+        file_bytes = os.path.getsize(
+            os.path.join(tmp, f"shuffle_{Q_SID}", "records.u32"))
+        checks["checkpoint_is_records_plus_trailer"] = \
+            file_bytes == rec_bytes + 8
+        # 2. the control read (streaming: a fresh output the leg owns)
+        reader = m.get_reader(h, key_ordering=True)
+        (control, control_totals), times["control_read_s"] = timed(
+            reader.read)
+        checks["control_device_verified"] = device_verify_sort(
+            m, recs, control, control_totals, KEY_WORDS, plan.out_capacity)
+        chunks = -(-plan.num_rounds // m.conf.max_rounds_in_flight)
+        checks["streamed"] = m._exchange.last_dispatches > 1
+        # 3. the schedule, in a plane whose stream rule fires once, past
+        # queue_depth chunks
+        seed, k, rate = stream_fault(chunks, m.conf.queue_depth,
+                                     range(0xFA17, 0xFA17 + 4096))
+        plane = faults.FaultPlane(schedule(rate), seed=seed)
+        pool = m.runtime.pool
+        before = pool.stats()["outstanding"]
+        n0 = len(RETRIES.messages)
+        RETRIES.probes = []
+        RETRIES.probe = lambda: pool.stats()["outstanding"]
+        prev = faults.set_active_plane(plane)
+        try:
+            (out, totals), times["fault_read_s"] = timed(reader.read)
+        finally:
+            faults.set_active_plane(prev)
+            RETRIES.probe = None
+        retries = RETRIES.messages[n0:]
+        fired = fired_chunks(retries)
+        checks["fault_read_bit_identical"] = bool(
+            torch.equal(out, control) and torch.equal(totals, control_totals))
+        checks["two_retries_logged"] = len(retries) == 2
+        checks["stream_fault_past_queue_depth"] = \
+            fired == [k] and k >= m.conf.queue_depth
+        checks["injected_as_scheduled"] = plane.injected_counts() == {
+            "exchange.dispatch": {"fail": 1},
+            "exchange.stream_round": {"fail": 1}}
+        outstanding = {"before": before, "after_each_failed_attempt":
+                       list(RETRIES.probes),
+                       "after": pool.stats()["outstanding"]}
+        checks["pool_outstanding_restored"] = all(
+            v == before for v in RETRIES.probes) and \
+            outstanding["after"] == before and len(RETRIES.probes) == 2
+        del out, totals
+        # 4. the map output lost from the card: the read resumes it
+        real_resume = m.resume_shuffle
+
+        def timed_resume(handle):
+            wr, times["resume_s"] = timed(lambda: real_resume(handle))
+            return wr
+
+        m.resume_shuffle = timed_resume
+        m._writers.clear()
+        (out, totals), times["recovered_read_s"] = timed(reader.read)
+        checks["recovered_read_bit_identical"] = bool(
+            "resume_s" in times and torch.equal(out, control)
+            and torch.equal(totals, control_totals))
+        del out, totals, reader
+        # 5. the process dies without unregistering; a fresh manager on
+        # the same spill_dir resumes and reads
+        m.stop()
+        del m
+        m2 = terasort_manager("cuda", **kw)
+        h2 = m2.register_shuffle(Q_SID, PARTS, part)
+        _, times["restart_resume_s"] = timed(lambda: m2.resume_shuffle(h2))
+        (out, totals), times["restart_read_s"] = timed(
+            m2.get_reader(h2, key_ordering=True).read)
+        checks["restarted_read_bit_identical"] = bool(
+            torch.equal(out, control) and torch.equal(totals, control_totals))
+        del out, totals
+        m2.unregister_shuffle(Q_SID)
+        checks["unregister_deletes_checkpoint"] = not os.path.exists(
+            os.path.join(tmp, f"shuffle_{Q_SID}"))
+        m2.stop()
+    torch.cuda.synchronize()
+    launches = {k_: v.launches for k_, v in kernels.items()}
+    line = {"leg": "Q", "records": RECORDS, "record_bytes": w * 4,
+            "partitions": PARTS, "conf": "defaults + fast_sort, pow2, "
+            "spill_to_host (tempfile spill_dir)",
+            "rounds": plan.num_rounds, "chunks": chunks,
+            "capacity": plan.capacity, "split_factor": plan.split_factor,
+            "out_capacity": plan.out_capacity,
+            "checkpoint_bytes": file_bytes, "records_bytes": rec_bytes,
+            "checkpoint_gbps": rec_bytes / times["checkpoint_s"] / 1e9,
+            **times, "plane_seed": seed, "stream_fault_rate": rate,
+            "stream_fault_chunk": fired, "queue_depth": 8,
+            "retries": retries, "pool_outstanding": outstanding,
+            "checks": checks, "launches": launches}
+    report(line)
+    if not all(checks.values()):
+        fail("leg Q: " + ", ".join(k_ for k_, v in checks.items() if not v))
+    return line
+
+
+def launch_failure_child() -> int:
+    """Leg Q-small's child process: real launches of the ring kernel
+    fail inside reads, here and not in the smoke's own CUDA context
+    (an illegal address is sticky). First a launch the kernel's entry
+    refuses (a grid that does not cover the chunks:
+    ``KernelLaunchError``), then a good read (the context is intact),
+    then a launch that writes through an address the card has not
+    mapped (``torch.AcceleratorError`` at the next sync, and at every
+    CUDA call after it). Prints one JSON line and exits."""
+    from sparkrdma_tpu_torch._build import KernelLaunchError
+    from sparkrdma_tpu_torch.exchange import ring
+    from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    m = terasort_manager("cuda")
+    h = m.register_shuffle(1, PARTS, hash_partitioner(PARTS, 2))
+    m.get_writer(h).write(random_records(1 << 16, KEY_WORDS + VAL_WORDS, 3,
+                                         "cuda")).stop()
+    good, good_totals = m.get_reader(h).read()
+    good = good.clone()
+    res = {"child": "launch_failure", "torch": torch.__version__,
+           "max_retry_attempts": m.conf.max_retry_attempts}
+
+    def failing_read(name):
+        n0 = len(RETRIES.messages)
+        try:
+            m.get_reader(h).read()
+            res[name] = {"raised": None}
+            return
+        except Exception as e:              # noqa: BLE001 — reported
+            chain, c = [], e
+            while c is not None:
+                chain.append(type(c).__name__)
+                c = c.__cause__
+            res[name] = {
+                "raised": type(e).__name__,
+                "attempt": getattr(e, "attempt", None),
+                "cause_chain": chain,
+                "retries": len(RETRIES.messages) - n0,
+                "fetch_failed": isinstance(e, FetchFailedError),
+                "device_error_in_chain": any(
+                    n in ("AcceleratorError", KernelLaunchError.__name__)
+                    for n in chain[1:]),
+                "message": str(e)[:300]}
+
+    real_plan = ring.launch_plan
+    ring.launch_plan = lambda d, r, c: real_plan(d, r, c)._replace(
+        grid=real_plan(d, r, c).grid + 1)
+    try:
+        failing_read("refused_launch")
+    finally:
+        ring.launch_plan = real_plan
+    out, totals = m.get_reader(h).read()
+    res["read_after_refused_launch_equal"] = bool(
+        torch.equal(out, good) and torch.equal(totals, good_totals))
+    real_kernel, calls = ring._kernel, [0]
+
+    def bad_address(send, recv, *rest):
+        calls[0] += 1
+        return real_kernel(send, 0x10000 if calls[0] == 1 else recv, *rest)
+
+    ring._kernel = bad_address
+    failing_read("illegal_address")
+    print(json.dumps(res), flush=True)
+    os._exit(0)
+
+
+def leg_q_small() -> dict:
+    """2^20 records at leg F-small's geometry with ``fast_sort``: step
+    3's schedule on the card and on the CPU (and with
+    ``ring_fused=False``), each equal to the read without faults;
+    checkpoints across devices; the failure paths (a persistent fault,
+    the deadline, the backoff schedule, a corrupt checkpoint); each
+    storage and pool site; the books; and a real failed launch in a
+    child process."""
+    from sparkrdma_tpu_torch import faults
+    from sparkrdma_tpu_torch.api import shuffle_manager as sm_mod
+    from sparkrdma_tpu_torch.exchange.errors import (
+        FetchFailedError, UnrecoverableShuffleError)
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+    from sparkrdma_tpu_torch.workloads.streaming import run_tiered_terasort
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    def qs_manager(device, **kw):
+        """F-small's geometry with ``fast_sort``: the merge stage sorts."""
+        return terasort_manager(device, fast_sort=True, **kw)
+
+    faults.reset_accounting()
+    kernels = zeroed_counters()
+    w = KEY_WORDS + VAL_WORDS
+    recs = random_records(Q_SMALL, w, 9, "cuda")
+    part = hash_partitioner(PARTS, 2)
+    checks, books, info = {}, {}, {}
+
+    def write(m, sid, x=None):
+        if x is None:
+            x = recs if m.runtime.device.type == "cuda" else recs.cpu()
+        h = m.register_shuffle(sid, PARTS, part)
+        plan = m.get_writer(h).write(x).stop()
+        return h, plan
+
+    def read(m, h):
+        out, totals = m.get_reader(h, key_ordering=True).read()
+        return valid_rows(out, totals).cpu(), totals.cpu()
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+    def case(name, fn):
+        """Run ``fn() -> (ok, injected, terminal)`` and keep its books:
+        hard injections, logged retries, recoveries and terminal errors
+        raised by an injected fault."""
+        r0, c0 = len(RETRIES.messages), faults.recovery_total()
+        ok, injected, terminal = fn()
+        books[name] = {"injected": injected,
+                       "retries": len(RETRIES.messages) - r0,
+                       "recoveries": faults.recovery_total() - c0,
+                       "terminal": terminal}
+        checks[name] = bool(ok)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_small_") as tmp:
+        # the schedule, card and CPU, two variants
+        control = {}
+        for variant, vkw in (("default", {}),
+                             ("ring_fused=False", dict(ring_fused=False))):
+            got = {}
+            for device in ("cuda", "cpu"):
+                m = qs_manager(device, **vkw)
+                h, plan = write(m, 1)
+                control[variant, device] = read(m, h)
+                m.stop()
+                chunks = -(-plan.num_rounds // m.conf.max_rounds_in_flight)
+                seed, k, rate = stream_fault(chunks, 0, [0xFA17])
+                info[variant] = {"chunks": chunks, "stream_fault_rate": rate,
+                                 "stream_fault_chunk": k}
+
+                def faulted():
+                    n0 = len(RETRIES.messages)
+                    mf = qs_manager(device, fault_spec=schedule(rate),
+                                          **vkw)
+                    hf, _ = write(mf, 1)
+                    before = mf.runtime.pool.stats()["outstanding"]
+                    got[device] = read(mf, hf)
+                    restored = \
+                        mf.runtime.pool.stats()["outstanding"] == before
+                    injected = mf.faults.injected_total()
+                    mf.stop()
+                    fired = fired_chunks(RETRIES.messages[n0:])
+                    return (same(got[device], control[variant, device])
+                            and restored and fired == [k]), injected, 0
+
+                case(f"schedule {variant} {device}", faulted)
+            checks[f"schedule {variant} card_equals_cpu"] = \
+                same(got["cuda"], got["cpu"]) and same(
+                    control[variant, "cuda"], control[variant, "cpu"])
+        want = control["default", "cuda"]
+        checks["ring_fused=False equals default"] = same(
+            control["ring_fused=False", "cuda"], want)
+
+        # checkpoints across devices
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            root = os.path.join(tmp, f"{src}-to-{dst}")
+            m = qs_manager(src, spill_to_host=True, spill_dir=root)
+            h, _ = write(m, 2)
+            first = read(m, h)
+            m.stop()
+            m = qs_manager(dst, spill_dir=root)
+            h = m.register_shuffle(2, PARTS, part)
+            m.resume_shuffle(h)
+            checks[f"checkpoint {src} resumed on {dst}"] = \
+                same(read(m, h), first) and same(first, want)
+            m.unregister_shuffle(2)
+            m.stop()
+
+        # a persistent fault: attempt == max_retry_attempts
+        def persistent():
+            m = qs_manager("cuda", fault_spec="exchange.dispatch:fail")
+            h, _ = write(m, 3)
+            try:
+                read(m, h)
+                ok = False
+            except FetchFailedError as e:
+                info["persistent"] = {"attempt": e.attempt,
+                                      "message": str(e)}
+                ok = e.attempt == m.conf.max_retry_attempts == 3
+            injected = m.faults.injected_total()
+            m.stop()
+            return ok, injected, 1
+
+        case("persistent fault raises at max_retry_attempts", persistent)
+
+        def deadline():
+            m = qs_manager("cuda", fault_spec="exchange.dispatch:fail",
+                                 max_retry_attempts=100,
+                                 retry_backoff_ms=20.0, retry_deadline_s=0.05)
+            h, _ = write(m, 4)
+            t0 = time.perf_counter()
+            try:
+                read(m, h)
+                ok = False
+            except FetchFailedError as e:
+                info["deadline"] = {"attempt": e.attempt,
+                                    "seconds": time.perf_counter() - t0,
+                                    "message": str(e)}
+                ok = "retry deadline" in str(e) and 1 < e.attempt < 100
+            injected = m.faults.injected_total()
+            m.stop()
+            return ok, injected, 1
+
+        case("retry_deadline_s raises before max_retry_attempts", deadline)
+
+        def backoff():
+            slept = []
+            real_time = sm_mod.time
+
+            class Clock:
+                monotonic = staticmethod(real_time.monotonic)
+
+                @staticmethod
+                def sleep(s):
+                    slept.append(s)
+                    real_time.sleep(s)
+
+            m = qs_manager("cuda", retry_backoff_ms=5.0,
+                                 max_retry_attempts=4,
+                                 fault_spec="exchange.dispatch:fail@attempt<3")
+            h, _ = write(m, 5)
+            sm_mod.time = Clock
+            try:
+                got = read(m, h)
+            finally:
+                sm_mod.time = real_time
+            schedule_ms = [faults.backoff_ms(a, 5.0) for a in (1, 2, 3)]
+            info["backoff_ms"] = {"slept": [v * 1e3 for v in slept],
+                                  "schedule": schedule_ms}
+            injected = m.faults.injected_total()
+            m.stop()
+            return (same(got, want)
+                    and slept == [v / 1e3 for v in schedule_ms]
+                    and all(0.5 * 5.0 * 2 ** a <= v < 5.0 * 2 ** a
+                            for a, v in enumerate(schedule_ms))), injected, 0
+
+        case("retry_backoff_ms sleeps the schedule", backoff)
+
+        def corrupt():
+            root = os.path.join(tmp, "corrupt")
+            m = qs_manager("cuda", spill_to_host=True, spill_dir=root)
+            h, _ = write(m, 6)
+            blob = os.path.join(root, "shuffle_6", "records.u32")
+            with open(blob, "r+b") as f:
+                f.seek(16)
+                b = f.read(1)
+                f.seek(16)
+                f.write(bytes([b[0] ^ 0xFF]))
+            m._writers.clear()
+            calls = []
+            real = m._exchange.exchange
+            m._exchange.exchange = lambda *a, **k_: (calls.append(1),
+                                                     real(*a, **k_))[1]
+            n0 = len(RETRIES.messages)
+            try:
+                read(m, h)
+                ok = False
+            except UnrecoverableShuffleError as e:
+                info["corrupt_checkpoint"] = str(e)[:200]
+                ok = not calls and len(RETRIES.messages) == n0
+            m.stop()
+            return ok, 0, 0
+
+        case("corrupt checkpoint raises UnrecoverableShuffleError at once",
+             corrupt)
+
+        def storage(spec, book, sid):
+            def run():
+                c0 = faults.recovery_counts().get(book, 0)
+                m = qs_manager("cuda", spill_to_host=True,
+                                     spill_dir=os.path.join(tmp, book),
+                                     fault_spec=spec)
+                h, _ = write(m, sid)
+                m._writers.clear()     # the read resumes the checkpoint
+                got = read(m, h)
+                injected = m.faults.injected_total()
+                m.stop()
+                return (same(got, want) and faults.recovery_counts().get(
+                    book, 0) - c0 == 1), injected, 0
+            return run
+
+        case("spill.write:fail@attempt<1 -> spill_rewrite",
+             storage("spill.write:fail@attempt<1", "spill_rewrite", 7))
+        case("checkpoint.read:fail@attempt<1 -> checkpoint_reread",
+             storage("checkpoint.read:fail@attempt<1", "checkpoint_reread",
+                     8))
+
+        def pool_site(spec, sid):
+            def run():
+                m = qs_manager("cuda", fault_spec=spec)
+                h, _ = write(m, sid)
+                got = read(m, h)
+                counts = m.faults.injected_counts()
+                injected = m.faults.injected_total()
+                m.stop()
+                return same(got, want) and bool(counts), injected, 0
+            return run
+
+        case("pool.acquire:fail@attempt<1",
+             pool_site("pool.acquire:fail@attempt<1", 9))
+        case("pool.acquire:delay=1ms@attempt<2",
+             pool_site("pool.acquire:delay=1ms@attempt<2", 10))
+
+        # spill.read on an H-small-sized tiered run
+        cols = np.random.default_rng(15).integers(
+            0, 2**32, size=(w, H_CHUNKS * H_SMALL_CHUNK), dtype=np.uint32)
+        m = ooc_manager(os.path.join(tmp, "tier-control"), H_SMALL_CHUNK)
+        clean = run_tiered_terasort(m, cols, H_SMALL_CHUNK)
+        m.stop()
+
+        def tiered():
+            c0 = faults.recovery_counts().get("spill_reread", 0)
+            m = ooc_manager(os.path.join(tmp, "tier-fault"), H_SMALL_CHUNK,
+                            fault_spec="spill.read:corrupt@attempt<1")
+            res = run_tiered_terasort(m, cols, H_SMALL_CHUNK)
+            injected = m.faults.injected_total()
+            m.stop()
+            rereads = faults.recovery_counts().get("spill_reread", 0) - c0
+            info["tiered_store_stats"] = res.store_stats
+            return (rereads == 1 and np.array_equal(res.rows, clean.rows)
+                    and same_runs(res.runs, clean.runs)), injected, 0
+
+        case("spill.read:corrupt@attempt<1 -> spill_reread", tiered)
+    torch.cuda.synchronize()
+    launches = {k_: v.launches for k_, v in kernels.items()}
+
+    # the books: every hard injection is a retry or a recovery, or (a
+    # persistent fault) the one terminal error after the last retry
+    recovering = {n: b for n, b in books.items() if not b["terminal"]}
+    checks["books: injected == retries + recoveries"] = sum(
+        b["injected"] for b in recovering.values()) == sum(
+        b["retries"] + b["recoveries"] for b in recovering.values()) > 0
+    checks["books: each case balances"] = all(
+        b["injected"] == b["retries"] + b["recoveries"] + b["terminal"]
+        for b in books.values())
+
+    # a real failed launch, in a child process
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--launch-failure-child"], capture_output=True,
+                          text=True, timeout=300)
+    child = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith('{"child"'):
+            child = json.loads(ln)
+    if child is None:
+        fail(f"leg Q-small: the launch-failure child printed no result "
+             f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
+    for name in ("refused_launch", "illegal_address"):
+        r = child[name]
+        checks[f"child {name}: FetchFailedError after max attempts"] = bool(
+            r["fetch_failed"] and r["attempt"] == child["max_retry_attempts"]
+            and r["device_error_in_chain"])
+    checks["child read after a refused launch equal"] = \
+        child["read_after_refused_launch_equal"]
+    line = {"leg": "Q-small", "records": Q_SMALL, "partitions": PARTS,
+            "variants": info, "books": books, "child": child,
+            "child_rc": proc.returncode, "checks": checks,
+            "launches": launches}
+    report(line)
+    if not all(checks.values()):
+        fail("leg Q-small: " + ", ".join(k_ for k_, v in checks.items()
+                                         if not v))
+    return line
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
+DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
 
 
 def main(argv=None) -> int:
-    """``--legs M,P`` runs only those of legs M-P (M-small included) and
-    prints the ring shapes they launched, without the kernel phases or
-    the table check: a quick run while a leg is brought up."""
+    """``--legs M,P,Q`` runs only those of legs M-Q (M-small and Q-small
+    included) and prints the ring shapes they launched, without the
+    kernel phases or the table check: a quick run while a leg is brought
+    up. ``--launch-failure-child`` is leg Q-small's child process."""
     args = sys.argv[1:] if argv is None else argv
     only = args[1].split(",") if args[:1] == ["--legs"] else None
+    t_smoke = time.perf_counter()
+    logging.basicConfig(level=logging.WARNING,
+                        format="%(levelname)s %(name)s: %(message)s")
+    logging.getLogger("sparkrdma_tpu_torch.api").addHandler(RETRIES)
     # legs M and O hold several 5-7 GB tables of different shapes: grow
     # segments instead of leaving freed blocks that fit no later one
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -2799,6 +3427,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args[:1] == ["--launch-failure-child"]:
+        return launch_failure_child()
 
     from sparkrdma_tpu_torch import _build
 
@@ -2813,6 +3443,11 @@ def main(argv=None) -> int:
         for name, fn in NEW_LEGS:
             if name in only:
                 run_leg(legs, shapes, name, fn)
+        no_unseen_retries(", ".join(legs) or "none")
+        for name, fn in DURABILITY_LEGS:
+            if name in only:
+                run_leg(legs, shapes, name, fn)
+        report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
             for leg_name, counts in shapes.items()
@@ -2835,6 +3470,9 @@ def main(argv=None) -> int:
         run_leg(legs, shapes, name, fn)
     for name, fn in NEW_LEGS:
         run_leg(legs, shapes, name, fn)
+    no_unseen_retries("A-P")
+    for name, fn in DURABILITY_LEGS:
+        run_leg(legs, shapes, name, fn)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -2848,6 +3486,11 @@ def main(argv=None) -> int:
             fail(f"the ring kernel was not launched on leg {name}")
     if legs["P"]["launches"]["merge_stage"] <= 0:
         fail("merge_stage was not launched on leg P")
+    for k, name in (("ring_exchange", "Q"), ("merge_stage", "Q"),
+                    ("ring_exchange", "Q-small"), ("merge_stage", "Q-small"),
+                    ("ring_all_to_all", "Q-small")):
+        if legs[name]["launches"][k] <= 0:
+            fail(f"{k} was not launched on leg {name}")
 
     def launches(k):
         return sum(legs[n]["launches"][k] for n in legs)
@@ -2903,6 +3546,7 @@ def main(argv=None) -> int:
          "bound_by": "bytes", "library_ms": a2a["library_ms"],
          **sub(a2a, RING_DEVICE_KEYS)},
     ]
+    report({"smoke_s": time.perf_counter() - t_smoke})
     report({"kernels": kernels})
     report({"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

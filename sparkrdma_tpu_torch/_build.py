@@ -6,7 +6,10 @@ the package. All sources build at once, one ``nvcc`` each, in parallel.
 A build is keyed by a hash of every source and header, so an edited
 source rebuilds and an unchanged one is reused. Libraries load through
 ``ctypes``: pointers and the stream are ``c_void_p``, and each C entry
-point returns a ``cudaError_t`` that :func:`check` turns into an error.
+point returns a ``cudaError_t`` that :func:`check` turns into a
+:class:`KernelLaunchError`: the one type of a launch that failed, which
+the reader's retry loop retries. A build that fails (no ``nvcc``, a
+compile error) raises a plain ``RuntimeError``, which it does not.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -113,10 +116,19 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a nonzero ``cudaError_t``."""
+
+    def __init__(self, what: str, err: int):
+        self.err = err
+        super().__init__(f"{what} failed: cudaError_t {err}")
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    """Raise :class:`KernelLaunchError` on a nonzero ``cudaError_t``
+    returned by a C entry point."""
     if err:
-        raise RuntimeError(f"{what} failed: cudaError_t {err}")
+        raise KernelLaunchError(what, err)
 
 
 def stream_ptr(index: int) -> int:
@@ -128,4 +140,5 @@ def stream_ptr(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-__all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT"]
+__all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT",
+           "KernelLaunchError"]

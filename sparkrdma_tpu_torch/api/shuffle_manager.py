@@ -30,32 +30,72 @@ Out-of-core (``workloads/streaming.py``): every manager owns a
 acquires buffers; with ``conf.spill_dir`` set it also owns a
 ``MapOutputStore`` (``manager.store``) for segment checkpoints
 (``checkpoint_segments`` / ``resume_segments``). ``unregister_shuffle``
-drops the shuffle's segments and ``stop`` closes the store. The
-whole-shuffle checkpoint (``spill_to_host``) and the observability stack
+drops the shuffle's segments and ``stop`` closes the store.
+
+Durability and retry (the reference's Spark contract: a fetch failure,
+then a stage retry from map output that survived):
+
+- ``register_shuffle`` goes through a
+  :class:`~sparkrdma_tpu_torch.meta.map_output.MapOutputRegistry`;
+  ``ShuffleWriter.stop`` publishes the counts and, with
+  ``conf.spill_to_host`` and a store, checkpoints the map output whole
+  (``checkpoint_shuffle``); ``resume_shuffle`` rebuilds a writer from a
+  checkpoint (a restarted manager skips the map stage);
+  ``unregister_shuffle`` deletes the checkpoint, ``stop`` keeps it.
+- ``read`` runs in a retry loop: an attempt that raises
+  ``FetchFailedError`` (an injected fault), ``torch.AcceleratorError``
+  (a CUDA failure, at the closing sync included) or ``KernelLaunchError``
+  (a kernel's entry point refused) is retried up to
+  ``conf.max_retry_attempts`` times within ``conf.retry_deadline_s``,
+  with ``faults.backoff_ms`` sleeps, each retry logged as a warning;
+  before each attempt the writer is recovered (the live one while its
+  records and plan are intact, else the checkpoint). Any other error (a
+  build error, a shape error, a ``TORCH_CHECK``) propagates at once: a
+  retry would hide it. An unreadable checkpoint raises
+  ``UnrecoverableShuffleError`` once.
+- The manager installs its fault plane (``faults.FaultPlane(conf
+  .fault_spec)``) process-wide and puts the earlier one back in ``stop``.
+
+The observability stack (the journal span that would carry the retry
+count, the timeline, the watchdog) and the tenant scoping of the plane
 wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch import faults
+from sparkrdma_tpu_torch._build import KernelLaunchError
 from sparkrdma_tpu_torch.config import ShuffleConf
+from sparkrdma_tpu_torch.exchange.errors import (FetchFailedError,
+                                                 UnrecoverableShuffleError)
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.hbm.slot_pool import Slot
 from sparkrdma_tpu_torch.hbm.tiered_store import TieredStore
 from sparkrdma_tpu_torch.kernels.aggregate import OPS
 from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
 from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
-from sparkrdma_tpu_torch.meta.map_output import DuplicateShuffleIdError
+from sparkrdma_tpu_torch.meta.map_output import MapOutputRegistry
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
 
+log = logging.getLogger("sparkrdma_tpu_torch.api")
+
 _SENTINEL = 0xFFFFFFFF      # rank of a dropped segment (sorts last)
+
+#: what a read attempt maps to ``FetchFailedError`` (the counterpart of
+#: the reference's ``jax.errors.JaxRuntimeError``): a CUDA runtime
+#: failure as PyTorch reports it (``torch.AcceleratorError``), and a
+#: kernel entry point's refusal
+_DEVICE_ERRORS = (torch.AcceleratorError, KernelLaunchError)
 
 
 @dataclasses.dataclass
@@ -106,12 +146,19 @@ class ShuffleWriter:
         return self
 
     def stop(self, success: bool = True) -> Optional[ShufflePlan]:
-        """On success: plan the shuffle (the size exchange)."""
+        """On success: plan the shuffle (the size exchange) and publish
+        its counts; with ``conf.spill_to_host`` and a store, also
+        checkpoint the map output (a restarted job resumes it with
+        :meth:`ShuffleManager.resume_shuffle`)."""
         if not success or self._records is None:
             self._records = None
             return None
         self._plan = self._m._exchange.plan(
             self._records, self._h.partitioner, self._h.num_parts)
+        self._m._registry.publish_map_output(self._h.shuffle_id,
+                                             self._plan.counts)
+        if self._m.store is not None and self._m.conf.spill_to_host:
+            self._m.checkpoint_shuffle(self._h, writer=self)
         return self._plan
 
     @property
@@ -179,13 +226,58 @@ class ShuffleReader:
         partitions' rows. ``aggregator`` turns each partition's rows
         into its unique keys, ascending, with reduced payloads (``totals``
         counts them); otherwise ``key_ordering`` sorts them by key.
-        ``record_stats=False`` skips the closing device sync (warm-up and
-        pipelined reads)."""
+
+        A failed attempt is retried (module docstring). ``record_stats
+        =False`` skips the closing device sync (warm-up and pipelined
+        reads): a CUDA failure of such a read surfaces at the caller's
+        own first sync, outside the retry loop."""
+        writer = self._m._recover_writer(self._h)
+        return self._read_attempts(writer, record_stats)
+
+    def _read_attempts(self, writer: ShuffleWriter, record_stats: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's retry loop: bounded by ``max_retry_attempts``
+        and ``retry_deadline_s``, with ``faults.backoff_ms`` sleeps that
+        never run past the deadline."""
+        conf = self._m.conf
+        sid = self._h.shuffle_id
+        attempt = 0
+        deadline = (time.monotonic() + conf.retry_deadline_s
+                    if conf.retry_deadline_s > 0 else None)
+        while True:
+            attempt += 1
+            try:
+                try:
+                    return self._attempt(writer, record_stats)
+                except _DEVICE_ERRORS as e:
+                    raise FetchFailedError(
+                        sid, f"backend failure during exchange: {e}",
+                        attempt) from e
+            except FetchFailedError as e:
+                if attempt >= conf.max_retry_attempts:
+                    raise FetchFailedError(
+                        sid, f"giving up after {attempt} attempts",
+                        attempt) from e
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise FetchFailedError(
+                        sid, f"retry deadline {conf.retry_deadline_s}s "
+                        f"exceeded after {attempt} attempts", attempt) from e
+                log.warning("shuffle %d fetch failed (attempt %d/%d): %s; "
+                            "retrying", sid, attempt,
+                            conf.max_retry_attempts, e)
+                delay_ms = faults.backoff_ms(attempt, conf.retry_backoff_ms)
+                if delay_ms > 0:
+                    if deadline is not None:
+                        delay_ms = min(delay_ms, max(
+                            (deadline - time.monotonic()) * 1e3, 0.0))
+                    time.sleep(delay_ms / 1e3)
+                writer = self._m._recover_writer(self._h)
+
+    def _attempt(self, writer: ShuffleWriter, record_stats: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One attempt: the exchange, a ranged read's filter and tail,
+        and the closing sync."""
         m = self._m
-        writer = m._writers.get(self._h.shuffle_id)
-        if writer is None or writer.plan is None:
-            raise RuntimeError(f"shuffle {self._h.shuffle_id} has no "
-                               "published map output (writer.stop() first)")
         full = self._full_range
         fuse_agg = (self.aggregator or "") if full else ""
         out, totals, _ = m._exchange.exchange(
@@ -298,9 +390,14 @@ class ShuffleManager:
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
         self.metrics = MetricsRegistry(enabled=True)
+        # the fault plane, process-wide: module-level sites (staging,
+        # the checkpoint store) reach it without a handle
+        self.faults = faults.FaultPlane(self.conf.fault_spec)
+        self._prev_plane = faults.set_active_plane(
+            self.faults if self.faults.enabled else None)
         # the node owns the pool, the exchange draws from it
         self.runtime.pool.metrics = self.metrics
-        #: segment checkpoints under ``conf.spill_dir`` (None without it)
+        #: checkpoints under ``conf.spill_dir`` (None without it)
         self.store = (MapOutputStore(
             self.conf.spill_dir, compression=self.conf.compression,
             compression_level=self.conf.compression_level)
@@ -312,17 +409,16 @@ class ShuffleManager:
                                          metrics=self.metrics,
                                          pool=self.runtime.pool,
                                          store=self.tiered)
-        self._handles: Dict[int, ShuffleHandle] = {}
+        ids = tuple(self.runtime.manager_id(i)
+                    for i in range(self.runtime.num_partitions))
+        self._registry = MapOutputRegistry(ids, metrics=self.metrics)
         self._writers: Dict[int, ShuffleWriter] = {}
 
     def register_shuffle(self, shuffle_id: int, num_parts: int,
                          partitioner: Callable) -> ShuffleHandle:
-        if shuffle_id in self._handles:
-            raise DuplicateShuffleIdError(
-                f"shuffle {shuffle_id} already registered")
-        handle = ShuffleHandle(shuffle_id, num_parts, partitioner)
-        self._handles[shuffle_id] = handle
-        return handle
+        """Raises ``DuplicateShuffleIdError`` for a live id."""
+        self._registry.register(shuffle_id, num_parts, partitioner)
+        return ShuffleHandle(shuffle_id, num_parts, partitioner)
 
     def get_writer(self, handle: ShuffleHandle) -> ShuffleWriter:
         w = ShuffleWriter(self, handle)
@@ -352,12 +448,97 @@ class ShuffleManager:
         """Forget the shuffle and return its recycled output buffers to
         the pool: its reads' outputs must be consumed by now. Its tiered
         store segments and its checkpoint go too."""
-        self._handles.pop(shuffle_id, None)
+        self._registry.unregister(shuffle_id)
         self._writers.pop(shuffle_id, None)
         self._exchange.release_shuffle(shuffle_id)
         self.tiered.delete_shuffle(shuffle_id)
         if self.store is not None:
             self.store.delete(shuffle_id)
+
+    # --- durability: whole-shuffle checkpoints -------------------------
+    def _require_store(self) -> MapOutputStore:
+        if self.store is None:
+            raise RuntimeError("no MapOutputStore configured "
+                               "(set conf.spill_dir)")
+        return self.store
+
+    def checkpoint_shuffle(self, handle: ShuffleHandle,
+                           writer: Optional[ShuffleWriter] = None) -> None:
+        """Persist the published map output to the host store: the
+        stacked ``[W, N]`` records as ``uint32`` and the plan
+        (:meth:`MapOutputStore.save`). ``writer`` checkpoints that
+        writer's state (``ShuffleWriter.stop`` passes itself), even if a
+        later ``get_writer`` displaced it from the manager's table."""
+        store = self._require_store()
+        if writer is None:
+            writer = self._writers.get(handle.shuffle_id)
+        if writer is None or writer.records is None or writer.plan is None:
+            raise RuntimeError(
+                f"shuffle {handle.shuffle_id}: nothing published to "
+                "checkpoint")
+        store.save(handle.shuffle_id, writer.records.cpu().numpy(),
+                   writer.plan, handle.num_parts)
+
+    def resume_shuffle(self, handle: ShuffleHandle) -> ShuffleWriter:
+        """Rebuild the writer of a re-registered shuffle (the same
+        partitioner: functions are not saved, as a restarted Spark job
+        re-creates its lineage) from its checkpoint, whole or sharded,
+        on the runtime's device; the map stage is skipped. An unreadable
+        checkpoint raises ``UnrecoverableShuffleError``."""
+        store = self._require_store()
+        meta = store.load_meta(handle.shuffle_id)
+        plan = store.plan_from_meta(meta)
+        num_parts = int(meta["num_parts"])
+        if num_parts != handle.num_parts:
+            raise ValueError(
+                f"checkpoint has num_parts={num_parts}, handle says "
+                f"{handle.num_parts}")
+        mesh_now = self.runtime.num_partitions
+        if plan.counts.shape[0] != mesh_now:
+            # a stale plan on another mesh would overflow its rounds
+            raise ValueError(
+                f"checkpoint was taken on a {plan.counts.shape[0]}-device "
+                f"mesh; current mesh has {mesh_now} devices — re-run the "
+                "map stage instead of resuming")
+        shape = tuple(meta["shape"])
+        try:
+            if meta.get("sharded"):
+                shard = (shape[0], shape[1] // mesh_now)
+                records = np.concatenate(
+                    [store.read_shard(handle.shuffle_id, c, shard)
+                     for c in range(mesh_now)], axis=1)
+            else:
+                records = store.read_records(handle.shuffle_id, meta)
+        except OSError as e:
+            # the live map output is gone and the persisted copy fails
+            # its CRC check even after the store's re-reads: terminal
+            raise UnrecoverableShuffleError(
+                handle.shuffle_id, f"checkpoint unreadable: {e}") from e
+        w = ShuffleWriter(self, handle)
+        w._records = torch.from_numpy(
+            np.ascontiguousarray(records).view(np.int32)).to(
+                self.runtime.device)
+        w._plan = plan
+        self._writers[handle.shuffle_id] = w
+        self._registry.publish_map_output(handle.shuffle_id, plan.counts)
+        log.info("shuffle %d resumed from checkpoint: %d records",
+                 handle.shuffle_id, plan.total_records)
+        return w
+
+    def _recover_writer(self, handle: ShuffleHandle) -> ShuffleWriter:
+        """The live writer while its map output is intact, else the
+        checkpoint's."""
+        writer = self._writers.get(handle.shuffle_id)
+        if (writer is not None and writer.records is not None
+                and writer.plan is not None):
+            return writer
+        if self.store is not None and \
+                self.store.has_records(handle.shuffle_id):
+            return self.resume_shuffle(handle)
+        raise RuntimeError(
+            f"shuffle {handle.shuffle_id}: no published map output (and "
+            "no checkpoint); call get_writer(handle).write(records).stop() "
+            "first")
 
     # --- durability: segment checkpoints -------------------------------
     def checkpoint_segments(self, shuffle_id: int, segments,
@@ -367,21 +548,15 @@ class ShuffleManager:
         independent CRC-framed segment files and a manifest
         (:meth:`MapOutputStore.save_segments`), for
         :meth:`resume_segments`."""
-        if self.store is None:
-            raise RuntimeError("no MapOutputStore configured "
-                               "(set conf.spill_dir)")
-        self.store.save_segments(shuffle_id, segments, plan, num_parts,
-                                 extra_meta=extra_meta)
+        self._require_store().save_segments(shuffle_id, segments, plan,
+                                            num_parts, extra_meta=extra_meta)
 
     def resume_segments(self, shuffle_id: int) -> List[str]:
         """Adopt a segment checkpoint into the tiered store, only the
         segments missing from it, and without reading them (the
         prefetcher brings them in as they are consumed). Returns the
         adopted keys."""
-        if self.store is None:
-            raise RuntimeError("no MapOutputStore configured "
-                               "(set conf.spill_dir)")
-        meta = self.store.load_segment_meta(shuffle_id)
+        meta = self._require_store().load_segment_meta(shuffle_id)
         adopted = []
         for key, entry in meta["segments"].items():
             if self.tiered.contains(key):
@@ -461,8 +636,11 @@ class ShuffleManager:
         return res, new_totals
 
     def stop(self) -> None:
+        """Release the pooled buffers and close the store; checkpoints
+        stay for a restarted manager to resume."""
+        if faults.active_plane() is self.faults:
+            faults.set_active_plane(self._prev_plane)
         self._exchange.release_all()
-        self._handles.clear()
         self._writers.clear()
         self.tiered.close()
         self.runtime.stop()

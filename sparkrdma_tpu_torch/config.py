@@ -5,18 +5,21 @@ path with its map-side combine gate, the streaming regime with its
 ``queue_depth`` pacing, the slot pool, the pack/wide sort modes, and the
 out-of-core path: host staging, the tiered store and segment
 checkpoints; the query planner's rewrite gates and the host codec's
-chunking), under the reference's names and with its defaults, so a
+chunking; the whole-shuffle checkpoint, the reader's retry loop and
+the fault plane), under the reference's names and with its defaults, so a
 configuration written for one package means the same thing to the
 other. Transports
 that are not ported (the hierarchical one) are refused; the reference's
-``combine_fallback`` rung is not kept at all, because a map-side combine
-that fails raises here.
+``combine_fallback`` and ``transport_fallback`` rungs are not kept at
+all, because a map-side combine or a transport that fails raises here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
+
+from sparkrdma_tpu_torch.faults import parse_fault_spec
 
 DEFAULT_KEY_WORDS = 2
 DEFAULT_VAL_WORDS = 2
@@ -136,10 +139,13 @@ class ShuffleConf:
     serde_schema_columnar: bool = True
 
     # --- host staging / spill ---
-    #: with ``spill_dir``: checkpoint every published map output whole
-    #: (the reference's ``checkpoint_shuffle``). Not ported yet: True
-    #: raises. (The reference's ``use_native_staging`` is left out too:
-    #: the port has no copy of ``native/staging.cpp``.)
+    #: with ``spill_dir``: ``ShuffleWriter.stop`` checkpoints the published
+    #: map output whole (``ShuffleManager.checkpoint_shuffle``), so that a
+    #: read whose map output is lost, or a restarted manager, resumes it
+    #: without running the map stage again; without ``spill_dir`` there
+    #: is no store and nothing is written, as in the reference. (The
+    #: reference's ``use_native_staging`` is left out: the port has no
+    #: copy of ``native/staging.cpp``.)
     spill_to_host: bool = False
     spill_dir: str = ""               # checkpoint root (empty = no store)
     #: codec for spill runs and checkpoints: "" (off), "zlib" or "lzma";
@@ -166,6 +172,23 @@ class ShuffleConf:
     serde_schema_spill_codec: str = ""
     serde_schema_spill_level: int = 1
 
+    # --- fault handling (faults.py, the reader's retry loop) ---
+    max_retry_attempts: int = 3       # maxConnectionAttempts analogue
+    #: probability of an injected fault at each exchange (draws from one
+    #: seeded generator per exchange engine, as in the reference)
+    fault_injection_rate: float = 0.0
+    #: ``;``-joined ``site:action[@predicate]`` rules of the fault plane,
+    #: e.g. ``"exchange.dispatch:fail@attempt<2;spill.read:corrupt@0.01"``;
+    #: empty: no injection. Parsed when the conf is built
+    fault_spec: str = ""
+    #: backoff base of the retry loop: retry ``k`` sleeps about
+    #: ``retry_backoff_ms * 2^(k-1)`` ms, jittered into [0.5x, 1.0x)
+    #: (``faults.backoff_ms``); 0: no backoff
+    retry_backoff_ms: float = 0.0
+    #: once this many seconds have passed since a read's first attempt,
+    #: its next failure is terminal; 0: bounded by attempts only
+    retry_deadline_s: float = 0.0
+
     def __post_init__(self):
         if self.slot_records <= 0:
             raise ValueError("slot_records must be positive")
@@ -177,6 +200,9 @@ class ShuffleConf:
                              "live recv-slot memory)")
         if self.max_slot_records <= 0:
             raise ValueError("max_slot_records must be positive")
+        if self.max_retry_attempts <= 0:
+            raise ValueError("max_retry_attempts must be positive (1 = "
+                             "no retries)")
         if self.key_words <= 0 or self.val_words < 0:
             raise ValueError("key_words must be > 0 and val_words >= 0")
         if self.transport not in _TRANSPORTS:
@@ -223,10 +249,13 @@ class ShuffleConf:
         if self.spill_tier_reread_attempts <= 0:
             raise ValueError("spill_tier_reread_attempts must be >= 1 "
                              "(1 = no re-reads)")
-        if self.spill_to_host:
-            raise NotImplementedError(
-                "spill_to_host (the whole-shuffle checkpoint) is not "
-                "ported yet; segment checkpoints are checkpoint_segments")
+        if not 0.0 <= self.fault_injection_rate <= 1.0:
+            raise ValueError("fault_injection_rate must be in [0, 1]")
+        if self.retry_backoff_ms < 0:
+            raise ValueError("retry_backoff_ms must be >= 0 (0 disables)")
+        if self.retry_deadline_s < 0:
+            raise ValueError("retry_deadline_s must be >= 0 (0 disables)")
+        self.fault_rules()               # validate fault_spec eagerly
         _parse_prealloc(self.prealloc)  # validate eagerly
 
     @property
@@ -236,6 +265,10 @@ class ShuffleConf:
 
     def prealloc_classes(self) -> Dict[int, int]:
         return _parse_prealloc(self.prealloc)
+
+    def fault_rules(self):
+        """Parsed ``fault_spec`` (``faults.FaultRule`` list)."""
+        return parse_fault_spec(self.fault_spec)
 
     def replace(self, **kw) -> "ShuffleConf":
         return dataclasses.replace(self, **kw)

@@ -51,10 +51,18 @@ exchange acquires and releases every pooled buffer through it.
 
 The record-movement strategy of every sort (``sort_mode``: pack, wide
 or plain) is chosen as in the reference; all three are one stable sort
-here (``kernels/sort.py``). Left out of the reference: the degradation
-ladder (transport fallback, the combine-off retry) — the port never
-falls back from a kernel or a pass to something else — and the fault
-sites, the stall watchdog and the timeline spans of the streaming loop.
+here (``kernels/sort.py``).
+
+Faults (``faults.py``): ``exchange`` fires the ``exchange.dispatch``
+site, then the legacy ``fault_hook`` or ``conf.fault_injection_rate``,
+before any work; the streaming loop fires ``exchange.stream_round`` at
+the top of each chunk. Each raises ``FetchFailedError`` (counted as
+``exchange.faults``), which the reader's retry loop takes. An exchange
+abandoned midway gives its pooled buffers back before the error
+propagates. Left out of the reference: the degradation ladder
+(transport fallback, the combine-off retry) — the port never falls back
+from a kernel or a pass to something else — and the stall watchdog and
+the timeline spans of the streaming loop.
 """
 
 from __future__ import annotations
@@ -67,7 +75,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class, size_class_fine
+from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
 from sparkrdma_tpu_torch.exchange.ring import (make_ring_all_to_all,
                                                make_ring_exchange)
 from sparkrdma_tpu_torch.kernels.aggregate import (OPS, combine_by_key_cols,
@@ -160,6 +170,10 @@ class ShuffleExchange:
         self.last_dispatches = 0
         self._last_wire = None
         self._last_wire_stats: Dict[str, float] = {}
+        #: a test's fault injector: called at each exchange, a True
+        #: return fails it (takes priority over ``fault_injection_rate``)
+        self.fault_hook: Optional[Callable[[], bool]] = None
+        self._fault_rng = np.random.default_rng(0xFA17)
 
     def transport(self) -> str:
         return self.conf.transport
@@ -205,6 +219,21 @@ class ShuffleExchange:
         if self.pool is not None:
             self._out_prev[okey] = out
         return out
+
+    def _maybe_inject_fault(self, shuffle_id: int = -1) -> None:
+        """The ``exchange.dispatch`` site, then the legacy injectors."""
+        if faults.fire("exchange.dispatch") == "fail":
+            self.metrics.counter("exchange.faults").inc()
+            raise FetchFailedError(
+                shuffle_id, "injected fault (fault_spec: exchange.dispatch)")
+        if self.fault_hook is not None:
+            if self.fault_hook():
+                self.metrics.counter("exchange.faults").inc()
+                raise FetchFailedError(shuffle_id, "injected fault (hook)")
+        elif self.conf.fault_injection_rate > 0.0:
+            if self._fault_rng.random() < self.conf.fault_injection_rate:
+                self.metrics.counter("exchange.faults").inc()
+                raise FetchFailedError(shuffle_id, "injected fault (rate)")
 
     # ------------------------------------------------------------------
     # phase 1: plan (the metadata fetch)
@@ -513,6 +542,7 @@ class ShuffleExchange:
                             f"{records.dtype}")
         self._last_wire = None
         self._last_wire_stats = {}
+        self._maybe_inject_fault(shuffle_id)
         m = self.metrics
         m.counter("exchange.exchanges").inc()
         m.counter("exchange.rounds").inc(plan.num_rounds)
@@ -531,7 +561,7 @@ class ShuffleExchange:
             out, totals, incoming = self._exchange_streaming(
                 records, partitioner, plan, plan_parts, sort_key_words,
                 aggregator, float_payload, use_combine, row_filter,
-                keep_words)
+                keep_words, shuffle_id)
         else:
             owned = plan.counts.sum(axis=0)
             per_dev = np.array([owned[d::self.mesh_size].sum()
@@ -683,7 +713,7 @@ class ShuffleExchange:
     # ------------------------------------------------------------------
     def _exchange_streaming(self, records, partitioner, plan, num_parts,
                             sort_key_words, aggregator, float_payload,
-                            combine, row_filter, keep_words):
+                            combine, row_filter, keep_words, shuffle_id):
         """The reference's prep, chunk, fold and tail programs as steps
         over the stacked partitions.
 
@@ -707,7 +737,16 @@ class ShuffleExchange:
         for the card except to pace: once ``queue_depth`` chunks are in
         flight, the host waits for the oldest one's fold (a CUDA event;
         on the CPU, where work is synchronous, the same count of waits
-        is kept and there is nothing to wait for)."""
+        is kept and there is nothing to wait for).
+
+        A failure midway (``exchange.stream_round``, ``pool.acquire``, a
+        launch) abandons the exchange: the accumulator and the chunk's
+        send and receive buffers go back to the pool before the error
+        propagates, so the pool's ``outstanding`` reads as before the
+        attempt. The chunks still queued on the stream may read and
+        write them after that; the pool's one-stream rule
+        (``hbm/slot_pool.py``) covers this, as for any buffer put back
+        with work queued: the next holder's work runs after theirs."""
         rt = self.runtime
         m = self.metrics
         mesh = self.mesh_size
@@ -756,68 +795,86 @@ class ShuffleExchange:
         dispatches = 1
 
         acc = self._get_buf((w_eff, mesh * oc + cap), dev)
-        acc.zero_()         # a pooled buffer holds its last user's words
-        shape = ((f_in, mesh, mesh, ppd, w_eff, cap) if unfused
-                 else (mesh, f_in, mesh, ppd, w_eff, cap))
-        move = (make_ring_all_to_all(mesh, m) if unfused
-                else make_ring_exchange(mesh, f_in, m)
-                if self._ring_fused_active() else None)
-        in_flight = collections.deque()
-        for j in range(n_chunks):
-            if len(in_flight) >= self.conf.queue_depth:
-                # the recvQueueDepth throttle: wait for the oldest chunk
-                m.counter("exchange.queue_blocks").inc()
-                done = in_flight.popleft()
-                if done is not None:
-                    done.synchronize()
-            m.counter("exchange.stream_chunks").inc()
-            rounds = slice(j * f_in, (j + 1) * f_in)
-            # chunk: send[s, f, d, q, :, c] = source s's column c of round
-            # j*F+f of partition q*mesh+d, or the zero column
-            pos = (r_ix[rounds, None] + col)[None, :, None, None, :]
-            idx = torch.where(pos < cnt[:, None, :, :, None],
-                              base[:, None, :, :, None] + pos, zero_col)
-            if unfused:
-                idx = idx.transpose(0, 1)          # [F, S, D, ppd, C]
-            send = self._get_buf(shape, dev)
-            torch.gather(src.expand(shape[:4] + src.shape), 5,
-                         idx.unsqueeze(4).expand(shape), out=send)
-            recv = self._get_buf(shape, dev)
-            if unfused:
-                for f in range(f_in):
-                    move(send[f], out=recv[f])
-                view = recv.transpose(0, 1)        # [D, F, S, ppd, W, C]
-            elif move is not None:
-                view = move(send, out=recv)
-            else:
-                view = recv.copy_(send.transpose(0, 2))
-            self._put_buf(send)
-            # fold: column c of (d, f, s, q) lands at its stream offset
-            ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
-            st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
-            acc[:, torch.where(col < ln, st + col, dump)] = \
-                view.permute(4, 0, 1, 2, 3, 5)
-            self._put_buf(recv)     # read by the fold already queued
-            dispatches += 2
-            done = None
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-            in_flight.append(done)
-        del src
+        send = recv = None
+        try:
+            acc.zero_()     # a pooled buffer holds its last user's words
+            shape = ((f_in, mesh, mesh, ppd, w_eff, cap) if unfused
+                     else (mesh, f_in, mesh, ppd, w_eff, cap))
+            move = (make_ring_all_to_all(mesh, m) if unfused
+                    else make_ring_exchange(mesh, f_in, m)
+                    if self._ring_fused_active() else None)
+            in_flight = collections.deque()
+            for j in range(n_chunks):
+                if faults.fire("exchange.stream_round") == "fail":
+                    # abandons the exchange: the accumulator holds
+                    # partial rounds, and the retry starts over
+                    m.counter("exchange.faults").inc()
+                    raise FetchFailedError(
+                        shuffle_id, f"injected fault (fault_spec: "
+                        f"exchange.stream_round, chunk {j})")
+                if len(in_flight) >= self.conf.queue_depth:
+                    # the recvQueueDepth throttle: wait for the oldest
+                    m.counter("exchange.queue_blocks").inc()
+                    done = in_flight.popleft()
+                    if done is not None:
+                        done.synchronize()
+                m.counter("exchange.stream_chunks").inc()
+                rounds = slice(j * f_in, (j + 1) * f_in)
+                # chunk: send[s, f, d, q, :, c] = source s's column c of
+                # round j*F+f of partition q*mesh+d, or the zero column
+                pos = (r_ix[rounds, None] + col)[None, :, None, None, :]
+                idx = torch.where(pos < cnt[:, None, :, :, None],
+                                  base[:, None, :, :, None] + pos, zero_col)
+                if unfused:
+                    idx = idx.transpose(0, 1)      # [F, S, D, ppd, C]
+                send = self._get_buf(shape, dev)
+                torch.gather(src.expand(shape[:4] + src.shape), 5,
+                             idx.unsqueeze(4).expand(shape), out=send)
+                recv = self._get_buf(shape, dev)
+                if unfused:
+                    for f in range(f_in):
+                        move(send[f], out=recv[f])
+                    view = recv.transpose(0, 1)    # [D, F, S, ppd, W, C]
+                elif move is not None:
+                    view = move(send, out=recv)
+                else:
+                    view = recv.copy_(send.transpose(0, 2))
+                self._put_buf(send)
+                send = None
+                # fold: column c of (d, f, s, q) lands at its stream offset
+                ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
+                st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
+                acc[:, torch.where(col < ln, st + col, dump)] = \
+                    view.permute(4, 0, 1, 2, 3, 5)
+                self._put_buf(recv)     # read by the fold already queued
+                recv = None
+                dispatches += 2
+                done = None
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                in_flight.append(done)
+            del src
 
-        # --- tail -------------------------------------------------------
-        rows = list(keep_words) if keep_words is not None else slice(None)
-        out = (self.pool.zeros((w, mesh * oc)) if self.pool is not None
-               else torch.zeros((w, mesh * oc), dtype=torch.int32,
-                                device=dev))
-        new_totals = []
-        for d, total in enumerate(totals.tolist()):
-            part, total = self._fuse_tail(acc[:, d * oc:(d + 1) * oc], total,
-                                          oc, sort_key_words, aggregator,
-                                          float_payload)
-            out[rows, d * oc:(d + 1) * oc] = part
-            new_totals.append(total)
+            # --- tail ---------------------------------------------------
+            rows = (list(keep_words) if keep_words is not None
+                    else slice(None))
+            out = (self.pool.zeros((w, mesh * oc)) if self.pool is not None
+                   else torch.zeros((w, mesh * oc), dtype=torch.int32,
+                                    device=dev))
+            new_totals = []
+            for d, total in enumerate(totals.tolist()):
+                part, total = self._fuse_tail(
+                    acc[:, d * oc:(d + 1) * oc], total, oc, sort_key_words,
+                    aggregator, float_payload)
+                out[rows, d * oc:(d + 1) * oc] = part
+                new_totals.append(total)
+        except BaseException:
+            # an abandoned exchange gives its buffers back (docstring)
+            for buf in (send, recv, acc):
+                if buf is not None:
+                    self._put_buf(buf)
+            raise
         self._put_buf(acc)
         dispatches += 1
         self.last_dispatches = dispatches

@@ -18,9 +18,17 @@ The storage subset of ``sparkrdma_tpu.hbm.host_staging``:
   arrays while the caller goes on;
 - :func:`write_array` / :func:`read_array` — one array, synchronously.
 
+The fault plane's storage sites fire here (``faults.py``):
+``spill.write`` in ``write_array`` and ``SpillWriter.submit`` (an
+injected failure is retried once in place and counted as the
+``spill_rewrite`` recovery; ``corrupt`` flips a bit of the payload after
+its CRC is taken) and ``spill.read`` in ``read_array`` (``fail`` raises
+``OSError``; ``corrupt`` flips a bit of the payload before the CRC
+check).
+
 Not ported: ``native/staging.cpp`` (the C++ pool, spooler and serde
-codecs) — the numpy path writes the same bytes — and the fault sites
-``spill.write`` / ``spill.read`` with their timeline events.
+codecs) — the numpy path writes the same bytes — and the timeline
+events.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.obs.metrics import global_registry
 
 
@@ -245,6 +254,21 @@ class HostBufferPool:
             self._free.clear()
 
 
+def _fire_spill_write(path: str) -> bool:
+    """The ``spill.write`` site; True: corrupt the payload. An injected
+    failure is retried once in place (the ``spill_rewrite`` recovery); a
+    second one raises the writer's ``OSError``."""
+    act = faults.fire("spill.write")
+    if act == "fail":
+        act = faults.fire("spill.write")   # one bounded in-place retry
+        if act == "fail":
+            raise OSError(
+                f"injected fault (spill.write): write of {path} failed "
+                "twice — giving up")
+        faults.note_recovery("spill_rewrite")
+    return act == "corrupt"
+
+
 class SpillWriter:
     """Pipelined spill to disk: submit arrays, keep computing, drain once.
 
@@ -295,6 +319,7 @@ class SpillWriter:
 
     def submit(self, path: str, arr: np.ndarray) -> None:
         _count_spill(arr.nbytes)
+        corrupt = _fire_spill_write(path)
         if self._codec:
             arr = np.frombuffer(
                 compress_array(arr, self._codec, self._level), np.uint8)
@@ -304,6 +329,10 @@ class SpillWriter:
                 self._leases.append(lease)
             else:
                 arr = crc_frame(arr)
+            if corrupt:
+                # the trailer holds the true payload's CRC: what a bit
+                # flip after the write looks like
+                arr[0] ^= 0x01
         arr = np.ascontiguousarray(arr)
         self._pending.append(arr)
         self._q.put((path, arr))
@@ -341,6 +370,7 @@ def write_array(path: str, arr: np.ndarray, codec: str = "", level: int = 1,
     a CRC32 trailer (``checksum=False`` writes the legacy layout).
     ``pool`` stages the frame in a pooled lease, released before return."""
     _count_spill(arr.nbytes)
+    corrupt = _fire_spill_write(path)
     if codec:
         arr = np.frombuffer(compress_array(arr, codec, level), np.uint8)
     lease = None
@@ -349,6 +379,8 @@ def write_array(path: str, arr: np.ndarray, codec: str = "", level: int = 1,
             arr, lease = crc_frame_into(arr, pool)
         else:
             arr = crc_frame(arr)
+        if corrupt:
+            arr[0] ^= 0x01   # see SpillWriter.submit
     try:
         np.ascontiguousarray(arr).tofile(path)
     finally:
@@ -368,6 +400,10 @@ def read_array(path: str, dtype, shape,
     returned."""
     tsz = _CRC_TRAILER.size
     expected = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    act = faults.fire("spill.read")
+    if act == "fail":
+        raise OSError(f"injected fault (spill.read): {path}")
+    corrupt = act == "corrupt"
     try:
         actual = os.path.getsize(path)
     except OSError as e:
@@ -382,6 +418,8 @@ def read_array(path: str, dtype, shape,
                 if (len(data) >= _HDR.size + tsz
                         and data[-tsz:-tsz + 4] == _CRC_MAGIC):
                     body = data[:-tsz]
+                    if corrupt:
+                        body = faults.mangle(body)
                     verify_crc(np.frombuffer(body, np.uint8),
                                data[-tsz:], path)
                     data = body
@@ -404,6 +442,8 @@ def read_array(path: str, dtype, shape,
             raise OSError(f"spill file {path} has wrong size")
         trailer = f.read(tsz) if has_trailer else b""
     if has_trailer:
+        if corrupt:
+            _as_u8(out)[0] ^= 0x01
         verify_crc(out, trailer, path)
     return out
 

@@ -27,8 +27,13 @@ its work on one stream (PyTorch's current one), so whatever the next
 holder queues runs after those reads, in stream order. A caller that
 moves work to another stream must synchronise before putting back.
 
-Left out of the reference's pool: the ``pool.acquire`` fault site, the
-tenant accounts that charge HBM slots, and the timeline events.
+``get`` and ``get_shaped`` fire the fault plane's ``pool.acquire`` site
+before they hand a buffer out: ``delay`` sleeps there, ``fail`` raises
+the retryable ``FetchFailedError`` (the pool itself is intact, so the
+reader's retry loop is the right handler) with nothing handed out.
+
+Left out of the reference's pool: the tenant accounts that charge HBM
+slots, and the timeline events.
 """
 
 from __future__ import annotations
@@ -39,9 +44,18 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class
+from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.runtime.device import resolve_device
+
+
+def _fire_pool_acquire() -> None:
+    """The ``pool.acquire`` site: a ``delay`` rule sleeps in the acquire,
+    a ``fail`` rule raises the retryable fetch error."""
+    if faults.fire("pool.acquire") == "fail":
+        raise FetchFailedError(-1, "injected fault (pool.acquire)")
 
 
 class Slot:
@@ -169,6 +183,7 @@ class SlotPool:
             raise ValueError(f"size class {cls} for request of {n_records} "
                              f"records > max_slot_records "
                              f"{self.conf.max_slot_records}")
+        _fire_pool_acquire()
         arr = self._pop((cls, rw))
         if arr is None:
             arr = self._zeros((cls, rw))
@@ -185,6 +200,7 @@ class SlotPool:
         """Pop (or allocate, zero-filled) a buffer of exactly ``shape`` and
         ``dtype``; hand it back with :meth:`put_shaped`."""
         shape = tuple(int(s) for s in shape)
+        _fire_pool_acquire()
         arr = self._pop(("shaped", shape, dtype))
         if arr is None:
             arr = self._zeros(shape, dtype)

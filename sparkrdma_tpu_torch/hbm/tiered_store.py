@@ -18,16 +18,18 @@ segments while host occupancy is over the watermark, and a
 **prefetcher** that promotes disk segments ahead of the consumer. A
 ``get`` of a disk segment with no promotion in flight is a synchronous
 fetch (``store.sync_fetches``). Disk reads verify the CRC trailer with
-up to ``spill_tier_reread_attempts`` reads; a mismatch overcome counts
-``recover.spill_reread``, a persistent one raises OSError. Counters and
-gauges live in the process-wide registry (``obs/metrics.py``).
+up to ``spill_tier_reread_attempts`` reads; a mismatch overcome is the
+fault plane's ``spill_reread`` recovery (``faults.note_recovery``, which
+counts ``recover.spill_reread``), a persistent one raises OSError.
+Counters and gauges live in the process-wide registry
+(``obs/metrics.py``).
 
 The threads start with the first ``put``, ``adopt``, ``prefetch`` or
 ``drain``: a manager that never stages a segment runs none.
 
 Left out of the reference: the tenant quota accounts
 (``register_account`` and the charges; segments keep their ``tenant``
-tag), the timeline events, and the fault plane's recovery books.
+tag) and the timeline events.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.hbm.host_staging import (HostBuffer, HostBufferPool,
                                                   read_array, write_array)
@@ -337,7 +340,7 @@ class TieredStore:
                     reg.counter("store.crc_rereads").inc()
                 continue
             if attempt > 0:
-                reg.counter("recover.spill_reread").inc()
+                faults.note_recovery("spill_reread")
             reg.counter("store.fetches").inc()
             reg.counter("store.fetch_bytes").inc(seg.nbytes)
             return data

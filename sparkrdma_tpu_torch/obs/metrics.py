@@ -10,9 +10,18 @@ prep + chunk and fold per streaming chunk + tail), the streaming
 regime's ``exchange.stream_chunks`` and ``exchange.queue_blocks`` (host
 waits at ``queue_depth``), the combine gate's decisions on aggregator
 exchanges (``combine.gate_on`` / ``combine.gate_off``), and the
-pushdowns it ran (``pushdown.filters``, ``pushdown.projections``). The
-slot pool counts ``pool.hits`` and ``pool.misses`` and sets the gauge
-``pool.outstanding`` (buffers handed out and not yet returned).
+pushdowns it ran (``pushdown.filters``, ``pushdown.projections``), and
+``exchange.faults`` per injected exchange failure. The slot pool counts
+``pool.hits`` and ``pool.misses`` and sets the gauge
+``pool.outstanding`` (buffers handed out and not yet returned). The
+shuffle registry counts ``meta.registrations``,
+``meta.map_outputs_published`` and ``meta.map_records_published`` and
+sets the gauge ``meta.registered_shuffles``.
+
+The fault plane (``faults.py``) counts each injection as
+``faults.<site>`` and each failure overcome in place as
+``recover.<name>`` (``spill_rewrite``, ``spill_reread``,
+``checkpoint_reread``) in the process-wide registry.
 
 Host staging and the tiered store have no manager in reach, so they
 record in the process-wide :func:`global_registry`, as in the reference:
@@ -20,8 +29,7 @@ record in the process-wide :func:`global_registry`, as in the reference:
 store's ``store.puts``, ``store.put_bytes``, ``store.spill_writes``,
 ``store.spill_bytes``, ``store.fetches``, ``store.fetch_bytes``,
 ``store.prefetch_hits``, ``store.sync_fetches``, ``store.crc_rereads``,
-``store.compressed_segments`` and ``recover.spill_reread`` (a CRC
-mismatch overcome by a re-read), with the gauges ``store.host_bytes``
+``store.compressed_segments``, with the gauges ``store.host_bytes``
 and ``store.disk_bytes``.
 
 The host codec (``api/serde.py``) also has no manager in reach: each

@@ -444,7 +444,7 @@ def test_dataset_ids_skip_user_registered(pairs, monkeypatch):
         x = _rows(19, 4, n=8 * 16)
         ds = Dataset.from_host_rows(pm, x).repartition()
         assert ds.count == x.shape[0]
-        assert base in pm._handles
+        assert base in pm._registry.shuffle_ids()
         assert next(dataset_mod._ID_COUNTER) == base + 2
     finally:
         pm.unregister_shuffle(base)
@@ -467,7 +467,7 @@ def test_run_repartition_matches_reference(num_parts, val_words):
         assert ref.verified and got.verified
         assert (got.records, got.record_bytes) == \
             (ref.records, ref.record_bytes) == (8 * 64, 4 * (2 + val_words))
-        assert pm._handles == {}
+        assert pm._registry.shuffle_ids() == ()
     finally:
         rm.stop()
         pm.stop()

@@ -64,6 +64,18 @@ def test_serde_and_planner_modules_scanned(rel):
     assert not [n for _, n in _imports(path) if _forbidden(n)]
 
 
+@pytest.mark.parametrize("rel", [
+    "faults.py", "exchange/errors.py", "meta/map_output.py",
+    "meta/checkpoint.py"])
+def test_durability_and_fault_modules_scanned(rel):
+    """The fault plane, the failure types, the shuffle registry and the
+    checkpoint store are the port's own copies (the reference's import
+    no JAX, and are copied all the same)."""
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):

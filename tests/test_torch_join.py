@@ -156,7 +156,7 @@ def test_run_hash_join_matches_reference(managers, which, kwargs):
                                rtol=RTOL)
     if "key_offset_b" in kwargs:
         assert got.matches == 0 and got.sum_products == 0.0
-    assert pm._handles == {}
+    assert pm._registry.shuffle_ids() == ()
 
 
 def test_numpy_reference_join_matches_dictionary_loop():

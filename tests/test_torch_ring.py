@@ -198,15 +198,18 @@ def test_kernel_matches_plain_on_card(cuda, shape):
 # that keeps the shifted body's reads inside send) equals
 # ``ring_exchange_plain``, the buffers based at 0, 4, 8 and 12 bytes.
 
-def _leg_label(legs, shape, a2a):
-    return f"{legs}{' a2a' if a2a else ''} {'x'.join(map(str, shape[3:]))}"
+def _shape_label(shape, a2a):
+    """A leg shape's test id: the shape itself, so that a leg that comes
+    to launch the kernel at a listed shape leaves the ids as they were."""
+    return f"{'a2a ' if a2a else ''}{'x'.join(map(str, shape))}"
 
 
 #: send shapes [D, R, D, ...]: every shape chip_smoke.py checks (those
-#: legs B-L launch the kernel at, then the kernel phases' own), and its
+#: legs B-Q launch the kernel at, then the kernel phases' own), and its
 #: edge cases
 RING_SHAPES = {
-    **{_leg_label(*entry): entry[1] for entry in chip_smoke.RING_LEG_SHAPES},
+    **{_shape_label(shape, a2a): shape
+       for _, shape, a2a in chip_smoke.RING_LEG_SHAPES},
     **chip_smoke.RING_PHASE_SHAPES,
     **chip_smoke.RING_EDGE_SHAPES,
 }

@@ -445,21 +445,47 @@ def test_manager_without_spill_dir(tmp_path):
             m.resume_segments(1)
         with pytest.raises(RuntimeError, match="spill_dir"):
             m.checkpoint_segments(1, [], None, 8)
+        with pytest.raises(RuntimeError, match="spill_dir"):
+            m.resume_shuffle(m.register_shuffle(1, 8, None))
     finally:
         bounded(m.stop)
-    with pytest.raises(NotImplementedError, match="spill_to_host"):
-        ShuffleManager(MeshRuntime(ShuffleConf(
-            spill_to_host=True, spill_dir=str(tmp_path)), 8, device="cpu"))
+    # with a spill_dir, spill_to_host is accepted and the store is empty
+    m = ShuffleManager(MeshRuntime(ShuffleConf(
+        spill_to_host=True, spill_dir=str(tmp_path)), 8, device="cpu"))
+    try:
+        assert m.store is not None and m.store.list_shuffles() == []
+        with pytest.raises(RuntimeError, match="nothing published"):
+            m.checkpoint_shuffle(m.register_shuffle(2, 8, None))
+    finally:
+        bounded(m.stop)
 
 
 @pytest.mark.parametrize("spill_dir", [False, True])
-def test_spill_to_host_is_refused(tmp_path, spill_dir):
-    """The whole-shuffle checkpoint is not ported: the conf refuses
-    ``spill_to_host`` with or without a ``spill_dir``; the reference's
-    ``use_native_staging`` is no knob of the port at all."""
-    kw = dict(spill_dir=str(tmp_path)) if spill_dir else {}
-    with pytest.raises(NotImplementedError, match="spill_to_host"):
-        ShuffleConf(spill_to_host=True, **kw)
+def test_spill_to_host_checkpoints(tmp_path, spill_dir):
+    """``spill_to_host`` is accepted: with a ``spill_dir``,
+    ``ShuffleWriter.stop`` writes a whole checkpoint that ``contains``
+    finds; without one there is no store and nothing is written, as in
+    the reference. The reference's ``use_native_staging`` is no knob of
+    the port at all."""
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+
+    kw = dict(spill_dir=str(tmp_path / "ck")) if spill_dir else {}
+    m = ShuffleManager(MeshRuntime(ShuffleConf(spill_to_host=True, **kw), 8,
+                                   device="cpu"))
+    rows = np.random.default_rng(3).integers(0, 2**32, size=(8 * 16, 4),
+                                             dtype=np.uint32)
+    try:
+        h = m.register_shuffle(5, 8, hash_partitioner(8, 2))
+        bounded(lambda: m.get_writer(h).write(
+            m.runtime.shard_records(rows)).stop())
+        if spill_dir:
+            assert m.store.contains(5) and m.store.list_shuffles() == [5]
+            assert (tmp_path / "ck" / "shuffle_5" / "records.u32").is_file()
+        else:
+            assert m.store is None
+            assert not (tmp_path / "ck").exists()
+    finally:
+        bounded(m.stop)
     with pytest.raises(TypeError, match="use_native_staging"):
         ShuffleConf(use_native_staging=False, **kw)
 
