@@ -5,7 +5,8 @@ against its plain version.
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then:
+``nvcc`` per source, in parallel) and the host staging library from
+``sparkrdma_tpu_torch/native`` (``g++``, at the same time), then:
 
 1. kernel phases — each hand-written kernel at the shapes the main path
    gives it, compared bit-exact with its plain PyTorch version on the
@@ -134,10 +135,25 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               the books (hard injections = retries + recoveries); and, in a
               child process, reads whose ring launches really fail (a grid
               the entry refuses, an address the card has not mapped);
+10. the host staging library (``native/staging.cpp``, built with ``g++``
+    beside the kernels' ``nvcc`` runs; legs A-Q run on it, as the
+    defaults have it): one ``phase: native_staging`` line per part —
+    ``build`` (seconds, compiler, cores); ``codec`` (leg P's data through
+    the four codec calls on the native codec at the default threads and
+    at one, and on numpy: bytes equal, MB/s); ``spill`` (leg Q's 1.68 GB
+    through a ``SpillWriter`` on each path: files byte-identical, GB/s,
+    each file read on both paths); ``pinned`` (a pinned staging lease is
+    page-locked and a copy from it returns before it lands, beside leg
+    P's loads with and without overlap); ``on_off`` (H-small's,
+    Q-small's and a 2^16-record P-shaped size on the card with
+    ``use_native_staging`` / ``serde_native`` on and off: outputs, spill
+    files and checkpoints identical); ``serde_fault`` (one injected
+    ``serde.encode`` and ``serde.decode`` failure, recovered with the
+    same rows, books balanced);
    then the ring kernel at every send shape legs B-Q launched it at
    (recorded while each leg ran), each against its plain version and
    timed;
-10. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+11. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
@@ -212,6 +228,8 @@ LEGS_M_TO_P = ("M-small", "P", "N", "O", "M")
 Q_SEED, Q_SID = 0, 90
 Q_SMALL = 1 << 20
 LEGS_Q = ("Q", "Q-small")
+#: native_staging: the P-shaped size of its on/off and fault runs
+NS_SMALL = 1 << 16
 
 
 def fail(msg: str) -> None:
@@ -2626,6 +2644,40 @@ def leg_o() -> dict:
     return line
 
 
+def p_v1_data(rng, n: int):
+    """Leg P's v1 input: keys (random word, a permutation) and 0-92 B
+    payloads."""
+    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
+                     rng.permutation(n).astype(np.uint32)], axis=1)
+    lens = rng.integers(0, P_MAXB + 1, size=n)
+    ends = np.cumsum(lens)
+    blob = rng.bytes(int(ends[-1]))
+    return keys, [blob[e - ln:e]
+                  for e, ln in zip(ends.tolist(), lens.tolist())]
+
+
+def p_schema():
+    from sparkrdma_tpu_torch.api.serde import RowSchema
+
+    return RowSchema([("u", "uint32"), ("i", "int64"), ("f", "float64"),
+                      ("b", ("bytes", P_BYTES))])
+
+
+def p_cols_data(rng, n: int):
+    """Leg P's columnar input under :func:`p_schema`."""
+    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
+                     rng.permutation(n).astype(np.uint32)], axis=1)
+    lens = rng.integers(0, P_BYTES + 1, size=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    cols = {"u": rng.integers(0, 2**32, size=n, dtype=np.uint32),
+            "i": rng.integers(-2**62, 2**62, size=n),
+            "f": rng.standard_normal(n),
+            "b": (offsets, rng.integers(0, 256, size=int(offsets[-1]),
+                                        dtype=np.uint8))}
+    return keys, cols
+
+
 def leg_p() -> dict:
     """The serde round trip. v1: 4,194,304 records with 0-92 B payloads
     (W = 2 + 24) through ``from_host_payloads`` (overlap on and off),
@@ -2638,20 +2690,13 @@ def leg_p() -> dict:
     over host seconds."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.dataset import Dataset
-    from sparkrdma_tpu_torch.api.serde import (RowSchema, codec_totals,
+    from sparkrdma_tpu_torch.api.serde import (codec_totals,
                                                encode_bytes_rows,
                                                encode_cols)
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
 
     rng = np.random.default_rng(31)
-    n = P_V1
-    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
-                     rng.permutation(n).astype(np.uint32)], axis=1)
-    lens = rng.integers(0, P_MAXB + 1, size=n)
-    ends = np.cumsum(lens)
-    blob = rng.bytes(int(ends[-1]))
-    pays = [blob[e - ln:e] for e, ln in zip(ends.tolist(), lens.tolist())]
-    del blob
+    keys, pays = p_v1_data(rng, P_V1)
     m = ShuffleManager(MeshRuntime(default_conf(val_words=24, fast_sort=True),
                                    num_partitions=PARTS, device="cuda"))
     kernels = zeroed_counters()
@@ -2689,19 +2734,8 @@ def leg_p() -> dict:
     m.stop()
     torch.cuda.empty_cache()
 
-    n = P_COLS
-    schema = RowSchema([("u", "uint32"), ("i", "int64"), ("f", "float64"),
-                        ("b", ("bytes", P_BYTES))])
-    keys = np.stack([rng.integers(0, 2**32, size=n, dtype=np.uint32),
-                     rng.permutation(n).astype(np.uint32)], axis=1)
-    lens = rng.integers(0, P_BYTES + 1, size=n)
-    offsets = np.zeros(n + 1, np.int64)
-    np.cumsum(lens, out=offsets[1:])
-    cols = {"u": rng.integers(0, 2**32, size=n, dtype=np.uint32),
-            "i": rng.integers(-2**62, 2**62, size=n),
-            "f": rng.standard_normal(n),
-            "b": (offsets, rng.integers(0, 256, size=int(offsets[-1]),
-                                        dtype=np.uint8))}
+    schema = p_schema()
+    keys, cols = p_cols_data(rng, P_COLS)
     m = terasort_manager("cuda")
     ds = codec("cols_load_overlap", lambda: Dataset.from_host_columns(
         m, keys, cols, schema))
@@ -3400,6 +3434,395 @@ def leg_q_small() -> dict:
     return line
 
 
+# --- native staging: the C++ host library against the numpy path -------
+
+
+def native_build_line(build_s: float) -> dict:
+    """The host staging library's build: seconds, compiler, cores."""
+    from sparkrdma_tpu_torch import _build
+
+    cxx = os.environ.get("CXX") or "g++"
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    line = {"phase": "native_staging", "part": "build",
+            "build_s": _build.native_build_seconds.get("", build_s),
+            "built_here": "" in _build.native_build_seconds,
+            "library": os.path.relpath(_build.native_lib_path()),
+            "compiler": version, "cpu_count": os.cpu_count()}
+    report(line)
+    return line
+
+
+#: the three codecs of the native_staging phase: native with the default
+#: threads, native on one thread, numpy
+CODEC_VARIANTS = (("native", {"native": True}),
+                  ("native_1_thread", {"native": True, "threads": 1}),
+                  ("numpy", {"native": False}))
+
+
+def native_codec_line() -> dict:
+    """The four codec calls alone at leg P's own data (4,194,304 v1
+    records, 16,777,216 columnar rows): each on the three codecs, bytes
+    equal across them, MB/s of encoded bytes over host seconds."""
+    from sparkrdma_tpu_torch.api.serde import (decode_bytes_rows,
+                                               decode_cols,
+                                               encode_bytes_rows,
+                                               encode_cols)
+
+    rng = np.random.default_rng(31)
+    keys, pays = p_v1_data(rng, P_V1)
+    secs, mb, checks = {}, {}, {}
+    rows = {}
+    for tag, kw in CODEC_VARIANTS:
+        rows[tag], secs["encode_bytes_rows", tag] = timed(
+            lambda: encode_bytes_rows(keys, pays, P_MAXB, **kw))
+    checks["encode_bytes_rows_equal"] = all(
+        np.array_equal(rows[t], rows["numpy"]) for t in rows)
+    want = rows["numpy"]
+    mb["encode_bytes_rows"] = mb["decode_bytes_rows"] = want.nbytes / 1e6
+    del rows
+    for tag, kw in CODEC_VARIANTS:
+        (k, p), secs["decode_bytes_rows", tag] = timed(
+            lambda: decode_bytes_rows(want, 2, **kw))
+        checks[f"decode_bytes_rows_{tag}_equal"] = bool(
+            np.array_equal(k, keys)) and p == pays
+        del k, p
+    del keys, pays, want
+    schema = p_schema()
+    keys, cols = p_cols_data(rng, P_COLS)
+    rows = {}
+    for tag, kw in CODEC_VARIANTS:
+        rows[tag], secs["encode_cols", tag] = timed(
+            lambda: encode_cols(keys, cols, schema, **kw))
+    checks["encode_cols_equal"] = all(
+        np.array_equal(rows[t], rows["numpy"]) for t in rows)
+    want = rows["numpy"]
+    mb["encode_cols"] = mb["decode_cols"] = want.nbytes / 1e6
+    del rows
+    offsets, heap = cols["b"]
+    for tag, kw in CODEC_VARIANTS:
+        (k, c), secs["decode_cols", tag] = timed(
+            lambda: decode_cols(want, 2, schema, **kw))
+        b = c["b"]
+        checks[f"decode_cols_{tag}_equal"] = bool(
+            np.array_equal(k, keys) and np.array_equal(c["u"], cols["u"])
+            and np.array_equal(c["i"], cols["i"])
+            and np.array_equal(np.ascontiguousarray(c["f"]).view(np.uint64),
+                               cols["f"].view(np.uint64))
+            and np.array_equal(b.offsets, offsets)
+            and np.array_equal(b.heap, heap))
+        del k, c, b
+    line = {"phase": "native_staging", "part": "codec",
+            "v1_records": P_V1, "cols_records": P_COLS,
+            "threads_auto": min(8, os.cpu_count() or 1),
+            "seconds": {f"{op}/{tag}": v for (op, tag), v in secs.items()},
+            "mbps": {f"{op}/{tag}": mb[op] / v
+                     for (op, tag), v in secs.items()},
+            "checks": checks}
+    report(line)
+    return line
+
+
+def native_spill_line() -> dict:
+    """Leg Q's records (16,777,216 × 100 B, 1.68 GB) through a
+    ``SpillWriter`` on each path into two files (byte-identical), and
+    each file read back by ``read_array`` on both paths."""
+    from sparkrdma_tpu_torch.hbm.host_staging import SpillWriter, read_array
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    w = KEY_WORDS + VAL_WORDS
+    recs = random_records(RECORDS, w, Q_SEED, "cuda").cpu().numpy().view(
+        np.uint32)
+    secs, checks = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ns_") as tmp:
+        paths = {}
+        for tag, native in (("native", True), ("numpy", False)):
+            paths[tag] = os.path.join(tmp, f"{tag}.u32")
+            sw = SpillWriter(depth=4, use_native=native)
+
+            def spill():
+                sw.submit(paths[tag], recs)
+                return sw.drain()
+
+            errors, secs["write", tag] = timed(spill)
+            sw.close()
+            checks[f"write_{tag}_no_errors"] = errors == 0
+        a, b = (np.fromfile(paths[t], np.uint8) for t in ("native",
+                                                           "numpy"))
+        checks["files_byte_identical"] = bool(np.array_equal(a, b))
+        file_bytes = int(a.size)
+        del a, b
+        for tag in ("native", "numpy"):
+            for reader, native in (("native", True), ("numpy", False)):
+                got, secs["read", f"{tag}_file/{reader}"] = timed(
+                    lambda: read_array(paths[tag], np.uint32, recs.shape,
+                                       use_native=native))
+                checks[f"read_{tag}_file_{reader}_equal"] = bool(
+                    np.array_equal(got, recs))
+                del got
+    line = {"phase": "native_staging", "part": "spill",
+            "records_bytes": int(recs.nbytes), "file_bytes": file_bytes,
+            "seconds": {f"{op}/{tag}": v for (op, tag), v in secs.items()},
+            "gbps": {f"{op}/{tag}": recs.nbytes / v / 1e9
+                     for (op, tag), v in secs.items()},
+            "checks": checks}
+    report(line)
+    return line
+
+
+def native_pinned_line(leg_p_line) -> dict:
+    """A lease of the pinned staging pool is page-locked, and a copy
+    from it to the card returns before the bytes have landed; leg P's
+    loads with and without overlap beside it."""
+    from sparkrdma_tpu_torch.api.pipeline import staging_pool
+
+    pool = staging_pool(True)
+    nbytes = 1 << 28
+    lease = pool.get(nbytes)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    src = lease.tensor[:nbytes]
+    src.fill_(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.copy_(src, non_blocking=True)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    landed = bool((dev[::4096] == 7).all())
+    checks = {"lease_is_pinned": bool(lease.tensor.is_pinned()),
+              "pool_is_native": pool.stats()["native"] == 1,
+              "copy_returns_before_landing": enqueue_s < 0.5 * total_s,
+              "copy_landed": landed}
+    lease.release()
+    del dev, src
+    secs = leg_p_line["seconds"] if leg_p_line else {}
+    line = {"phase": "native_staging", "part": "pinned",
+            "lease_bytes": nbytes, "copy_enqueue_ms": enqueue_s * 1e3,
+            "copy_total_ms": total_s * 1e3,
+            "copy_gbps": nbytes / total_s / 1e9,
+            "pool": pool.stats(),
+            "leg_p_load_overlap_s": secs.get("load_overlap"),
+            "leg_p_load_no_overlap_s": secs.get("load_no_overlap"),
+            "leg_p_cols_load_overlap_s": secs.get("cols_load_overlap"),
+            "leg_p_cols_load_no_overlap_s": secs.get("cols_load_no_overlap"),
+            "checks": checks}
+    report(line)
+    return line
+
+
+#: the reference's numpy path: both knobs off
+STAGING_OFF = dict(use_native_staging=False, serde_native=False)
+
+
+def _dir_bytes(root: str) -> dict:
+    """Every file under ``root``: relative path -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def on_off_h_small(tmp: str) -> dict:
+    """H-small's dataset through the tiered TeraSort (checkpointed) and
+    the streaming spill mode, knobs on and off."""
+    from sparkrdma_tpu_torch.hbm.input_stream import ArrayChunkSource
+    from sparkrdma_tpu_torch.workloads.streaming import (
+        run_streaming_terasort, run_tiered_terasort)
+
+    w, chunk = KEY_WORDS + VAL_WORDS, H_SMALL_CHUNK
+    cols = np.random.default_rng(15).integers(
+        0, 2**32, size=(w, H_CHUNKS * chunk), dtype=np.uint32)
+    got = {}
+    for tag, kw in (("on", {}), ("off", STAGING_OFF)):
+        root = os.path.join(tmp, "h_" + tag)
+        m = ooc_manager(root, chunk, **kw)
+        res = run_tiered_terasort(m, cols, chunk, checkpoint=True,
+                                  shuffle_id_base=800)
+        runs = os.path.join(root, "runs")
+        os.makedirs(runs)
+        spilled = run_streaming_terasort(
+            m, ArrayChunkSource(cols, chunk), spill_dir=runs, verify=True,
+            shuffle_id_base=900)
+        got[tag] = (res.rows, res.runs, spilled.verified,
+                    _dir_bytes(os.path.join(root, "spill")),
+                    _dir_bytes(runs), res.store_stats)
+        m.stop()
+    on, off = got["on"], got["off"]
+    return {"h_small_rows_equal": bool(np.array_equal(on[0], off[0]))
+            and same_runs(on[1], off[1]),
+            "h_small_spill_runs_verified": on[2] is True and off[2] is True,
+            "h_small_checkpoint_files_identical": bool(on[3])
+            and on[3] == off[3],
+            "h_small_spill_files_identical": bool(on[4]) and on[4] == off[4],
+            "h_small_spilled_to_disk": on[5][0] > 0 and off[5][0] > 0}
+
+
+def on_off_q_small(tmp: str) -> dict:
+    """Q-small's records: ``stop()``'s checkpoint, a read, and a read
+    resumed from the checkpoint, knobs on and off."""
+    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
+    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
+                                                   make_sampler)
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    w = KEY_WORDS + VAL_WORDS
+    got = {}
+    for tag, kw in (("on", {}), ("off", STAGING_OFF)):
+        root = os.path.join(tmp, "q_" + tag)
+        m = terasort_manager("cuda", fast_sort=True,
+                             geometry_classes="pow2", spill_to_host=True,
+                             spill_dir=root, **kw)
+        recs = random_records(Q_SMALL, w, Q_SEED, "cuda")
+        spl = compute_splitters(make_sampler(PARTS, KEY_WORDS, 256, Q_SEED)(
+            recs), PARTS)
+        h = m.register_shuffle(Q_SID, PARTS, range_partitioner(spl,
+                                                               KEY_WORDS))
+        m.get_writer(h).write(recs).stop()
+        reader = m.get_reader(h, key_ordering=True)
+        out, totals = reader.read()
+        out, totals = out.clone(), totals.clone()
+        m._writers.clear()
+        out2, totals2 = reader.read()
+        got[tag] = (out, totals, bool(torch.equal(out2, out)
+                                      and torch.equal(totals2, totals)),
+                    _dir_bytes(root))
+        del out2, totals2, reader
+        m.stop()
+    on, off = got["on"], got["off"]
+    return {"q_small_reads_equal": bool(torch.equal(on[0], off[0])
+                                        and torch.equal(on[1], off[1])),
+            "q_small_resumed_reads_equal": on[2] and off[2],
+            "q_small_checkpoints_identical": bool(on[3])
+            and on[3] == off[3]}
+
+
+def p_small_round_trip(kw: dict, n: int = NS_SMALL, planes=None):
+    """Leg P's round trips at ``n`` records on the card: v1 load, sort,
+    unload; columnar load, unload. Returns what each gave; each
+    manager's fault plane is appended to ``planes``."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    rng = np.random.default_rng(37)
+    keys, pays = p_v1_data(rng, n)
+    m = ShuffleManager(MeshRuntime(default_conf(
+        val_words=24, fast_sort=True, serde_chunk_records=n // 4, **kw),
+        num_partitions=PARTS, device="cuda"))
+    if planes is not None:
+        planes.append(m.faults)
+    ds = Dataset.from_host_payloads(m, keys, pays, P_MAXB)
+    v1_records = ds.records.clone()
+    k, p = ds.sort_by_key().to_host_payloads()
+    m.stop()
+    schema = p_schema()
+    ckeys, cols = p_cols_data(rng, n)
+    m = terasort_manager("cuda", serde_chunk_records=n // 4, **kw)
+    if planes is not None:
+        planes.append(m.faults)
+    cds = Dataset.from_host_columns(m, ckeys, cols, schema)
+    cols_records = cds.records.clone()
+    ck, cc = cds.to_host_columns()
+    cc = {name: (np.array(v) if name != "b" else
+                 (v.offsets.copy(), v.heap.copy())) for name, v in cc.items()}
+    m.stop()
+    order = np.lexsort((keys[:, 1], keys[:, 0]))
+    ok = bool(np.array_equal(k, keys[order])) and \
+        list(p) == [pays[i] for i in order.tolist()]
+    return (v1_records, k, list(p), cols_records, ck, cc), ok
+
+
+def same_outputs(a, b) -> bool:
+    """Tensors, arrays, lists, and tuples or dicts of them, equal."""
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return bool(np.array_equal(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_outputs(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_outputs(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def on_off_p_small() -> dict:
+    on, on_ok = p_small_round_trip({})
+    off, off_ok = p_small_round_trip(STAGING_OFF)
+    return {"p_small_round_trips_correct": on_ok and off_ok,
+            "p_small_on_equals_off": same_outputs(on, off)}
+
+
+def native_on_off_line() -> dict:
+    """On the card, ``use_native_staging`` and ``serde_native`` on (the
+    defaults) against both off: outputs, spill files and checkpoints at
+    H-small's, Q-small's and a 2^16-record P-shaped size."""
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_onoff_") as tmp:
+        checks.update(on_off_h_small(tmp))
+        checks.update(on_off_q_small(tmp))
+    checks.update(on_off_p_small())
+    line = {"phase": "native_staging", "part": "on_off",
+            "h_small_records": H_CHUNKS * H_SMALL_CHUNK,
+            "q_small_records": Q_SMALL, "p_small_records": NS_SMALL,
+            "off": STAGING_OFF, "checks": checks}
+    report(line)
+    return line
+
+
+def native_fault_line() -> dict:
+    """One ``serde.encode`` and one ``serde.decode`` failure injected on
+    the native codec (``fault_spec``) in each manager of a 2^16-record
+    P-shaped round trip on the card: the rows equal a run without
+    faults, and the books balance (hard injections = recoveries, each
+    the ``serde_native`` one)."""
+    from sparkrdma_tpu_torch import faults
+
+    spec = "serde.encode:fail@attempt<1;serde.decode:fail@attempt<1"
+    want, _ = p_small_round_trip({})
+    planes = []
+    faults.reset_accounting()
+    got, ok = p_small_round_trip({"fault_spec": spec}, planes=planes)
+    books = {"injected": [p.injected_counts() for p in planes],
+             "recoveries": faults.recovery_counts()}
+    faults.reset_accounting()
+    injected = sum(p.injected_total() for p in planes)
+    checks = {
+        "rows_equal_without_faults": ok and same_outputs(got, want),
+        "injected_once_each": len(planes) == 2 and all(
+            i == {"serde.encode": {"fail": 1}, "serde.decode": {"fail": 1}}
+            for i in books["injected"]),
+        "books_balance": injected == sum(books["recoveries"].values())
+        and books["recoveries"] == {"serde_native": injected}}
+    line = {"phase": "native_staging", "part": "serde_fault",
+            "spec": spec, "books": books, "checks": checks}
+    report(line)
+    return line
+
+
+def native_staging_phase(build_s: float, legs: dict) -> list:
+    """The ``native_staging`` lines: build, codec, spill, pinned leases,
+    off against on, serde fault."""
+    lines = [native_build_line(build_s), native_codec_line()]
+    gc.collect()
+    lines.append(native_spill_line())
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines += [native_pinned_line(legs.get("P")), native_on_off_line(),
+              native_fault_line()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = [f"{ln['part']}: {k}" for ln in lines
+           for k, v in ln.get("checks", {}).items() if not v]
+    if bad:
+        fail("native_staging: " + ", ".join(bad))
+    return lines
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
 DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
@@ -3407,9 +3830,10 @@ DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
 
 def main(argv=None) -> int:
     """``--legs M,P,Q`` runs only those of legs M-Q (M-small and Q-small
-    included) and prints the ring shapes they launched, without the
-    kernel phases or the table check: a quick run while a leg is brought
-    up. ``--launch-failure-child`` is leg Q-small's child process."""
+    included, and ``native_staging`` for that phase) and prints the ring
+    shapes they launched, without the kernel phases or the table check:
+    a quick run while a leg is brought up. ``--launch-failure-child`` is
+    leg Q-small's child process."""
     args = sys.argv[1:] if argv is None else argv
     only = args[1].split(",") if args[:1] == ["--legs"] else None
     t_smoke = time.perf_counter()
@@ -3430,12 +3854,19 @@ def main(argv=None) -> int:
     if args[:1] == ["--launch-failure-child"]:
         return launch_failure_child()
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from sparkrdma_tpu_torch import _build
 
+    # the host staging library's g++ beside the kernels' nvcc runs
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    report({"build_s": time.perf_counter() - t0,
-            "libraries": sorted(libs)})
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        native = ex.submit(_build.build_native)
+        libs = _build.build_all()
+        native.result()
+    build_s = time.perf_counter() - t0
+    report({"build_s": build_s,
+            "libraries": sorted(libs) + ["libsparkstaging"]})
 
     if only is not None:
         ring_host_phase()
@@ -3447,6 +3878,8 @@ def main(argv=None) -> int:
         for name, fn in DURABILITY_LEGS:
             if name in only:
                 run_leg(legs, shapes, name, fn)
+        if "native_staging" in only:
+            native_staging_phase(build_s, legs)
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -3473,6 +3906,9 @@ def main(argv=None) -> int:
     no_unseen_retries("A-P")
     for name, fn in DURABILITY_LEGS:
         run_leg(legs, shapes, name, fn)
+    t0 = time.perf_counter()
+    native_staging_phase(build_s, legs)
+    report({"leg_s": "native_staging", "seconds": time.perf_counter() - t0})
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:

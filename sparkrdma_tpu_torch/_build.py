@@ -11,6 +11,11 @@ point returns a ``cudaError_t`` that :func:`check` turns into a
 the reader's retry loop retries. A build that fails (no ``nvcc``, a
 compile error) raises a plain ``RuntimeError``, which it does not.
 
+The host staging library (``native/staging.cpp``: the pool, the file
+IO, the spill spooler and the serde codecs) builds the same way with
+``g++`` (or ``$CXX``) into ``build/native/<hash>/``: :func:`build_native`.
+A build that cannot run or fails raises ``RuntimeError`` naming why.
+
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -23,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -45,6 +51,22 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+NATIVE_SRC = Path(__file__).resolve().parent / "native" / "staging.cpp"
+#: where :func:`build_native` publishes; read at each call
+NATIVE_ROOT = Path(__file__).resolve().parent.parent / "build" / "native"
+#: the JAX package's ``native/Makefile`` flags
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
+             "-pthread"]
+#: sanitizer flavors: compile and link flags beside ``CXX_FLAGS``
+FLAVOR_FLAGS = {
+    "": [],
+    "tsan": ["-g", "-fno-omit-frame-pointer", "-fsanitize=thread"],
+    "asan": ["-g", "-fno-omit-frame-pointer",
+             "-fsanitize=address,undefined"],
+}
+#: seconds each native build of this process took, by flavor
+native_build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -116,6 +138,61 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def _cxx() -> str:
+    name = os.environ.get("CXX") or "g++"
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError(
+            f"C++ compiler {name!r} not found: the native staging library "
+            f"({NATIVE_SRC.name}) cannot be built — install g++ or point "
+            "$CXX at one, or turn use_native_staging and serde_native off")
+    return found
+
+
+def native_lib_path(flavor: str = "") -> Path:
+    """Where the library of ``flavor`` ('' plain, 'tsan', 'asan') lives:
+    ``NATIVE_ROOT/<hash of source and flags>/``."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(NATIVE_SRC.read_bytes())
+    name = f"libsparkstaging-{flavor}.so" if flavor else \
+        "libsparkstaging.so"
+    return Path(NATIVE_ROOT) / h.hexdigest()[:16] / name
+
+
+def build_native(flavor: str = "") -> Path:
+    """Build the host staging library of ``flavor`` unless it is built
+    already; returns its path. Concurrent callers each compile into a
+    temporary file and publish with one ``os.replace``, so nobody loads
+    a half-written library."""
+    if flavor not in FLAVOR_FLAGS:
+        raise ValueError(f"unknown native flavor {flavor!r} (expected one "
+                         f"of {sorted(FLAVOR_FLAGS)})")
+    lib = native_lib_path(flavor)
+    if lib.is_file():
+        return lib
+    cxx = _cxx()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    extra = FLAVOR_FLAGS[flavor]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([cxx, *CXX_FLAGS, *extra, str(NATIVE_SRC),
+                               "-o", tmp], capture_output=True, text=True,
+                              timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cxx} could not build {NATIVE_SRC.name}: "
+                           f"{e}") from e
+    if proc.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cxx} failed on {NATIVE_SRC.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    native_build_seconds[flavor] = time.perf_counter() - t0
+    return lib
+
+
 class KernelLaunchError(RuntimeError):
     """A kernel's C entry point returned a nonzero ``cudaError_t``."""
 
@@ -141,4 +218,5 @@ def stream_ptr(index: int) -> int:
 
 
 __all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT",
-           "KernelLaunchError"]
+           "KernelLaunchError", "build_native", "native_lib_path",
+           "NATIVE_ROOT"]

@@ -7,7 +7,10 @@ the runtime moves rows to the card. Back to back, the load rate is
 
 - **encode side**: a producer thread encodes chunk *k+1* into a lease of
   the process-wide :func:`staging_pool` while chunk *k* is copied to the
-  device. On a CUDA runtime the leases are page-locked and the copy is
+  device. The codec is the native one unless ``conf.serde_native`` is
+  off (``serde_threads`` threads per call), and the pool is the C pool
+  unless ``conf.use_native_staging`` is off. On a CUDA runtime the
+  leases are page-locked and the copy is
   ``non_blocking`` on a side stream, with a CUDA event recorded after
   it; a lease goes back to the pool only once its event has completed,
   so the producer never writes into bytes still in flight. A hand-off
@@ -53,18 +56,26 @@ _NULL = np.uint32(0xFFFFFFFF)
 #: chunk k+2 being encoded
 _QUEUE_DEPTH = 2
 
-_pools: Dict[bool, HostBufferPool] = {}     # guarded-by: _pools_lock
+_pools: Dict[Tuple[bool, bool], HostBufferPool] = {}  # guarded-by: _pools_lock
 _pools_lock = threading.Lock()
 
 
-def staging_pool(pinned: bool) -> HostBufferPool:
+def staging_pool(pinned: bool, native: bool = True) -> HostBufferPool:
     """The process-wide chunk staging pool: page-locked (for copies to a
-    card) or ordinary host memory. Leases recycle across calls."""
+    card) or ordinary host memory, from the C pool (``native``) or numpy.
+    Leases recycle across calls."""
     with _pools_lock:
-        pool = _pools.get(pinned)
+        pool = _pools.get((pinned, native))
         if pool is None:
-            pool = _pools[pinned] = HostBufferPool(pinned=pinned)
+            pool = _pools[pinned, native] = HostBufferPool(
+                pinned=pinned, use_native=native)
         return pool
+
+
+def _codec_args(conf) -> dict:
+    """The conf's codec choice, as the codecs' keyword arguments."""
+    return {"native": conf.serde_native,
+            "threads": conf.serde_threads or None}
 
 
 def _chunk_rows(conf, mesh: int, chunk_records: Optional[int]) -> int:
@@ -86,10 +97,10 @@ class _Loader:
     """Copies encoded chunks to the runtime's device and keeps each
     lease until its copy has landed."""
 
-    def __init__(self, runtime):
+    def __init__(self, runtime, native: bool):
         self.rt = runtime
         self.cuda = runtime.device.type == "cuda"
-        self.pool = staging_pool(pinned=self.cuda)
+        self.pool = staging_pool(pinned=self.cuda, native=native)
         self.stream = (torch.cuda.Stream(device=runtime.device)
                        if self.cuda else None)
         self.chunks: List[torch.Tensor] = []    # columnar [W, c] each
@@ -166,7 +177,7 @@ def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
     per = n // mesh
     cc = chunk // mesh
     bounds = [(lo, min(per, lo + cc)) for lo in range(0, per, cc)]
-    loader = _Loader(rt)
+    loader = _Loader(rt, manager.conf.use_native_staging)
 
     def encode_chunk(lo: int, hi: int):
         buf, out = loader.lease((hi - lo) * mesh, w)
@@ -247,6 +258,7 @@ def encode_rows_to_device(manager, keys: np.ndarray, payloads: Sequence,
     mesh = manager.runtime.num_partitions
     per = n // mesh
     w = keys.shape[1] + payload_words(max_payload_bytes)
+    codec = _codec_args(manager.conf)
 
     def encode_into(lo, hi, out):
         ranges = _ranges(per, lo, hi, mesh)
@@ -254,11 +266,12 @@ def encode_rows_to_device(manager, keys: np.ndarray, payloads: Sequence,
         cp: list = []
         for a, b in ranges:
             cp.extend(payloads[a:b])
-        encode_bytes_rows(ck, cp, max_payload_bytes, out=out)
+        encode_bytes_rows(ck, cp, max_payload_bytes, out=out, **codec)
 
     return _pipelined(
         manager, n, w, chunk_records, overlap, encode_into,
-        lambda: encode_bytes_rows(keys, payloads, max_payload_bytes))
+        lambda: encode_bytes_rows(keys, payloads, max_payload_bytes,
+                                  **codec))
 
 
 def encode_cols_to_device(manager, keys: np.ndarray, columns,
@@ -281,6 +294,7 @@ def encode_cols_to_device(manager, keys: np.ndarray, columns,
         canon[schema.var_name] = BytesColumn(offsets, heap)
     mesh = manager.runtime.num_partitions
     per = n // mesh
+    codec = _codec_args(manager.conf)
 
     def encode_into(lo, hi, out):
         ranges = _ranges(per, lo, hi, mesh)
@@ -297,11 +311,12 @@ def encode_cols_to_device(manager, keys: np.ndarray, columns,
                 coff, np.concatenate(parts) if int(coff[-1])
                 else np.zeros(0, np.uint8))
         ck = np.concatenate([keys[a:b] for a, b in ranges])
-        encode_cols(ck, cols, schema, out=out)
+        encode_cols(ck, cols, schema, out=out, **codec)
 
     return _pipelined(
         manager, n, keys.shape[1] + schema.payload_words, chunk_records,
-        overlap, encode_into, lambda: encode_cols(keys, canon, schema))
+        overlap, encode_into,
+        lambda: encode_cols(keys, canon, schema, **codec))
 
 
 def _unload(manager, records: torch.Tensor, totals, overlap: bool,
@@ -349,8 +364,9 @@ def decode_rows_from_device(manager, records: torch.Tensor, totals, *,
     reserved all-ones filler rows dropped (as ``Dataset.to_host_rows``
     drops them), partitions in order."""
     kw = manager.conf.key_words
+    codec = _codec_args(manager.conf)
     parts = _unload(manager, records, totals, overlap,
-                    lambda rows: decode_bytes_rows(rows, kw))
+                    lambda rows: decode_bytes_rows(rows, kw, **codec))
     if not parts:
         return np.empty((0, kw), np.uint32), []
     payloads: List[bytes] = []
@@ -387,8 +403,9 @@ def decode_cols_from_device(manager, records: torch.Tensor, totals,
     column})``, fixed columns as numpy views over each partition's
     fetched window."""
     kw = manager.conf.key_words
+    codec = _codec_args(manager.conf)
     parts = _unload(manager, records, totals, overlap,
-                    lambda rows: decode_cols(rows, kw, schema))
+                    lambda rows: decode_cols(rows, kw, schema, **codec))
     if not parts:
         cols = {fname: np.zeros(0, _FIXED_KINDS[fkind][1])
                 for fname, fkind, _ in schema.fixed}

@@ -1,4 +1,4 @@
-"""Host row codecs — the numpy path of ``sparkrdma_tpu.api.serde``.
+"""Host row codecs — the port's copy of ``sparkrdma_tpu.api.serde``.
 
 The exchange moves fixed-width uint32 word records, so variable-length
 byte payloads need an encoding on the host. Two formats, both
@@ -18,26 +18,62 @@ bit-identical to the reference's rows:
   :class:`BytesColumn` (offsets + heap) for the bytes column. A schema
   whose only column is a bytes column gives the v1 rows bit for bit.
 
-Every call adds its encoded bytes, nanoseconds and one call to the
-process-wide registry (``serde.*`` for v1, ``serde.columnar.*`` for v2);
-:func:`codec_totals` sums them as the reference does.
+Each codec has two implementations with the same rows, chosen by
+``native`` (``ShuffleConf.serde_native``, on by default as in the
+reference):
 
-Not ported: the native C++ codec (``native/staging.cpp``, ROADMAP A.7)
-and with it the ``serde_native`` / ``serde_threads`` knobs, and the
-reference's degradation rungs (native to numpy, columnar to v1): a
-failure here raises.
+- **native**: ``sr_encode_rows`` / ``sr_decode_plan`` /
+  ``sr_decode_rows`` and ``sr_encode_cols`` / ``sr_decode_cols`` of the
+  port's C++ staging library (``native/staging.cpp``), rows sharded over
+  ``threads`` std::threads (0 or None: ``min(8, os.cpu_count())``) with
+  the GIL released. The v1 encoder reads each payload straight out of
+  its CPython ``bytes`` object, at offsets checked once per process
+  against a live object (:func:`_layout_ok`); the v1 decoder writes a
+  pickle protocol-3 item stream that one ``pickle.loads`` turns into the
+  payloads. The library must load, the host must be little-endian and
+  the canary must pass, or the call raises ``RuntimeError``: the numpy
+  codec never takes over silently. The fault sites ``serde.encode`` and
+  ``serde.decode`` fire here, once per call: an injected failure is
+  overcome by running the native call again (the ``serde_native``
+  recovery; the reference degrades to numpy instead), a second one
+  raises;
+- **numpy**: vectorized numpy, no toolchain needed, explicit ``<u4``
+  views.
+
+Every call adds its encoded bytes, nanoseconds and one call to the
+process-wide registry (``serde.*`` for v1, ``serde.columnar.*`` for v2)
+and one ``{op}_native`` or ``{op}_fallback`` tick; :func:`codec_totals`
+sums them as the reference does.
+
+Not ported: the reference's degradation rungs (native to numpy, columnar
+to v1).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import sys
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from sparkrdma_tpu_torch import faults
+from sparkrdma_tpu_torch.hbm.host_staging import (codec_available,
+                                                  load_native)
 from sparkrdma_tpu_torch.obs.metrics import global_registry
+
+# CPython bytes-object layout the native encoder reads: ob_size at
+# PyVarObject offset 16 (refcount and type pointer on 64-bit), the bytes
+# at __basicsize__ - 1 (basicsize counts the trailing NUL). Checked by
+# _layout_ok() against a live object before the first native call.
+_SIZE_OFF = 16
+_DATA_OFF = bytes.__basicsize__ - 1
+_PICKLE_HEAD = b"\x80\x03("   # PROTO 3, MARK
+_PICKLE_TAIL = b"l."          # LIST, STOP
+
+_layout_checked: Optional[bool] = None
 
 
 def payload_words(max_payload_bytes: int) -> int:
@@ -45,6 +81,70 @@ def payload_words(max_payload_bytes: int) -> int:
     if max_payload_bytes < 0:
         raise ValueError("max_payload_bytes must be >= 0")
     return 1 + (max_payload_bytes + 3) // 4
+
+
+def _layout_ok() -> bool:
+    """Canary: read a known bytes object through the offsets the native
+    encoder uses; a CPython laid out otherwise fails. Cached."""
+    global _layout_checked
+    if _layout_checked is None:
+        import ctypes
+        try:
+            if ctypes.sizeof(ctypes.c_void_p) != 8:
+                raise OverflowError("32-bit pointers")
+            probe = b"sparkrdma codec layout probe"
+            holder = np.empty(1, dtype=object)
+            holder[0] = probe
+            op = ctypes.cast(holder.ctypes.data,
+                             ctypes.POINTER(ctypes.c_void_p))[0]
+            tp = ctypes.cast(op + 8, ctypes.POINTER(ctypes.c_void_p))[0]
+            sz = ctypes.cast(op + _SIZE_OFF,
+                             ctypes.POINTER(ctypes.c_int64))[0]
+            data = ctypes.string_at(op + _DATA_OFF, len(probe))
+            _layout_checked = (tp == id(bytes) and sz == len(probe)
+                               and data == probe)
+        except Exception:
+            _layout_checked = False
+    return _layout_checked
+
+
+def _codec_lib():
+    """The staging library, for a native codec call; ``RuntimeError``
+    naming why when the native codec cannot run."""
+    lib = load_native()
+    if not lib.sr_codec_abi():
+        raise RuntimeError(
+            "native serde codec refused: big-endian host (its host-order "
+            "words are not the <u4 wire format) — set serde_native=False")
+    if not _layout_ok():
+        raise RuntimeError(
+            "native serde codec refused: this CPython's bytes layout "
+            "failed the canary — set serde_native=False")
+    return lib
+
+
+def native_codec_available() -> bool:
+    """True when a native codec call can run here."""
+    return codec_available() and _layout_ok()
+
+
+def _auto_threads(threads: Optional[int]) -> int:
+    """Threads of one native call: ``threads``, or for None/0 the
+    reference's ``min(8, os.cpu_count())``."""
+    if threads:
+        return int(threads)
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def _fire_codec(site: str) -> None:
+    """The ``serde.encode`` / ``serde.decode`` site of a native call: an
+    injected failure is overcome by running the call again (the
+    ``serde_native`` recovery), a second one raises."""
+    if faults.fire(site) == "fail":
+        if faults.fire(site) == "fail":
+            raise RuntimeError(f"injected fault ({site}): the native codec "
+                               "call failed twice — giving up")
+        faults.note_recovery("serde_native")
 
 
 def _coerce_payloads(payloads: Sequence) -> List[bytes]:
@@ -73,11 +173,14 @@ def _coerce_payloads(payloads: Sequence) -> List[bytes]:
     return out
 
 
-def _count(family: str, op: str, nbytes: int, ns: int) -> None:
+def _count(family: str, op: str, nbytes: int, ns: int,
+           native: bool) -> None:
     reg = global_registry()
     reg.counter(f"{family}.{op}_bytes").inc(nbytes)
     reg.counter(f"{family}.{op}_ns").inc(ns)
     reg.counter(f"{family}.{op}_calls").inc()
+    reg.counter(f"{family}.{op}_native" if native
+                else f"{family}.{op}_fallback").inc()
 
 
 def codec_totals() -> dict:
@@ -131,10 +234,12 @@ def _out_rows(out, n: int, w: int) -> np.ndarray:
 
 
 def encode_bytes_rows(keys: np.ndarray, payloads: Sequence,
-                      max_payload_bytes: int, *,
+                      max_payload_bytes: int, *, native: bool = True,
+                      threads: Optional[int] = None,
                       out: np.ndarray = None) -> np.ndarray:
     """``(key words, bytes payload)`` pairs -> v1 rows ``uint32[N,
-    key_words + payload_words(max_payload_bytes)]``. ``out`` lets the
+    key_words + payload_words(max_payload_bytes)]``. ``native`` /
+    ``threads`` choose the codec (module docstring); ``out`` lets the
     pipelined load encode into a staging lease (C-contiguous uint32 of
     the output shape)."""
     t0 = time.perf_counter_ns()
@@ -144,41 +249,111 @@ def encode_bytes_rows(keys: np.ndarray, payloads: Sequence,
         raise ValueError(f"{n} keys but {len(payloads)} payloads")
     slot_words = payload_words(max_payload_bytes) - 1
     out = _out_rows(out, n, kw + 1 + slot_words)
-    if set(map(type, payloads)) - {bytes}:
-        payloads = _coerce_payloads(payloads)
-    lens = np.fromiter(map(len, payloads), dtype=np.int64, count=n)
-    if n and int(lens.max()) > max_payload_bytes:
-        raise _oversize_error(lens, max_payload_bytes)
-    out[:, :kw] = keys
-    out[:, kw] = lens.astype(np.uint32)
-    if slot_words and n:
-        # one join of zero-padded payloads is the slot layout, row-major
-        slot_bytes = slot_words * 4
-        buf = np.frombuffer(
-            b"".join(p.ljust(slot_bytes, b"\0") for p in payloads),
-            dtype=np.uint8)
-        out[:, kw + 1:] = buf.view("<u4").reshape(n, slot_words)
-    _count("serde", "encode", out.nbytes, time.perf_counter_ns() - t0)
+    use_native = bool(native) and n > 0
+    if use_native:
+        lib = _codec_lib()
+        _fire_codec("serde.encode")
+        # a numpy object array's storage is a PyObject* vector: the C
+        # threads read each bytes object's size and bytes in place
+        objs = np.empty(n, dtype=object)
+        coerced = False
+        try:
+            objs[:] = payloads
+        except ValueError:
+            # e.g. equal-length uint8 arrays, which numpy would broadcast
+            payloads = _coerce_payloads(payloads)
+            coerced = True
+            objs[:] = payloads
+
+        def call() -> int:
+            return int(lib.sr_encode_rows(
+                objs.ctypes.data, id(bytes), _SIZE_OFF, _DATA_OFF,
+                keys.ctypes.data, n, kw, slot_words, max_payload_bytes,
+                out.ctypes.data, _auto_threads(threads)))
+
+        rc = call()
+        if rc < 0 and not coerced:
+            # a row that is not bytes (or too long): coerce, which raises
+            # the precise error for rows that are not bytes-like, and
+            # run once more
+            payloads = _coerce_payloads(payloads)
+            objs[:] = payloads
+            rc = call()
+        if rc < 0:
+            lens = np.fromiter(map(len, payloads), np.int64, count=n)
+            if int(lens.max()) > max_payload_bytes:
+                raise _oversize_error(lens, max_payload_bytes)
+            raise RuntimeError(f"native encoder rejected row {-rc - 1} "
+                               "after coercion — codec inconsistency")
+    else:
+        if set(map(type, payloads)) - {bytes}:
+            payloads = _coerce_payloads(payloads)
+        lens = np.fromiter(map(len, payloads), dtype=np.int64, count=n)
+        if n and int(lens.max()) > max_payload_bytes:
+            raise _oversize_error(lens, max_payload_bytes)
+        out[:, :kw] = keys
+        out[:, kw] = lens.astype(np.uint32)
+        if slot_words and n:
+            # one join of zero-padded payloads is the slot layout
+            slot_bytes = slot_words * 4
+            buf = np.frombuffer(
+                b"".join(p.ljust(slot_bytes, b"\0") for p in payloads),
+                dtype=np.uint8)
+            out[:, kw + 1:] = buf.view("<u4").reshape(n, slot_words)
+    _count("serde", "encode", out.nbytes, time.perf_counter_ns() - t0,
+           use_native)
     return out
 
 
-def decode_bytes_rows(rows: np.ndarray, key_words: int
+def decode_bytes_rows(rows: np.ndarray, key_words: int, *,
+                      native: bool = True, threads: Optional[int] = None
                       ) -> Tuple[np.ndarray, List[bytes]]:
     """Inverse of :func:`encode_bytes_rows`: ``(keys, payloads)``. A
-    length word past the slot raises (the smallest such row)."""
+    length word past the slot raises (the smallest such row), on either
+    codec."""
     t0 = time.perf_counter_ns()
     rows = np.asarray(rows, dtype=np.uint32)
     n, w = rows.shape
-    max_bytes = (w - key_words - 1) * 4
-    lens = rows[:, key_words]
-    if n and int(lens.max()) > max_bytes:
-        raise _corrupt_error(lens, max_bytes)
-    keys = rows[:, :key_words]
-    whole = np.ascontiguousarray(
-        rows[:, key_words + 1:].astype("<u4")).view(np.uint8).tobytes()
-    payloads = [whole[i * max_bytes: i * max_bytes + ln]
-                for i, ln in enumerate(lens.tolist())]
-    _count("serde", "decode", rows.nbytes, time.perf_counter_ns() - t0)
+    slot_words = w - key_words - 1
+    max_bytes = slot_words * 4
+    use_native = bool(native) and n > 0 and slot_words > 0
+    if use_native:
+        import pickle
+
+        lib = _codec_lib()
+        _fire_codec("serde.decode")
+        crows = np.ascontiguousarray(rows)
+        keys = np.empty((n, key_words), dtype=np.uint32)
+        # one serial pass checks every length word and places each row's
+        # pickle item in the stream
+        soff = np.empty(n, dtype=np.int64)
+        total = int(lib.sr_decode_plan(crows.ctypes.data, n, key_words,
+                                       slot_words, len(_PICKLE_HEAD),
+                                       soff.ctypes.data))
+        if total < 0:
+            raise _corrupt_error(crows[:, key_words], max_bytes)
+        buf = np.empty(len(_PICKLE_HEAD) + total + len(_PICKLE_TAIL),
+                       dtype=np.uint8)
+        buf[:len(_PICKLE_HEAD)] = np.frombuffer(_PICKLE_HEAD, np.uint8)
+        buf[len(_PICKLE_HEAD) + total:] = np.frombuffer(_PICKLE_TAIL,
+                                                        np.uint8)
+        rc = int(lib.sr_decode_rows(
+            crows.ctypes.data, n, key_words, slot_words, keys.ctypes.data,
+            soff.ctypes.data, buf.ctypes.data, _auto_threads(threads)))
+        if rc < 0:    # the plan checked every length word already
+            raise _corrupt_error(crows[:, key_words], max_bytes)
+        payloads = pickle.loads(memoryview(buf))
+    else:
+        lens = rows[:, key_words]
+        if n and int(lens.max()) > max_bytes:
+            raise _corrupt_error(lens, max_bytes)
+        keys = rows[:, :key_words]
+        whole = np.ascontiguousarray(
+            rows[:, key_words + 1:].astype("<u4")).view(np.uint8).tobytes()
+        payloads = [whole[i * max_bytes: i * max_bytes + ln]
+                    for i, ln in enumerate(lens.tolist())]
+    _count("serde", "decode", rows.nbytes, time.perf_counter_ns() - t0,
+           use_native)
     return keys, payloads
 
 
@@ -414,17 +589,20 @@ def _check_names(schema: RowSchema, columns) -> None:
 
 
 def encode_cols(keys: np.ndarray, columns, schema: RowSchema, *,
+                native: bool = True, threads: Optional[int] = None,
                 out: np.ndarray = None) -> np.ndarray:
     """Named columns -> rows ``uint32[N, key_words +
     schema.payload_words]``. ``columns`` maps every schema column to its
     values: fixed columns any array castable to their dtype, the bytes
     column a list of bytes, a :class:`BytesColumn` or ``(offsets,
-    heap)``. ``out`` as in :func:`encode_bytes_rows`."""
+    heap)``. ``native`` / ``threads`` / ``out`` as in
+    :func:`encode_bytes_rows`."""
     t0 = time.perf_counter_ns()
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     n, kw = keys.shape
     _check_names(schema, columns)
-    out = _out_rows(out, n, kw + schema.payload_words)
+    w = kw + schema.payload_words
+    out = _out_rows(out, n, w)
     fixed = [(fkind, foff, _coerce_fixed(fname, fkind, columns[fname], n))
              for fname, fkind, foff in schema.fixed]
     offsets = heap = None
@@ -433,39 +611,61 @@ def encode_cols(keys: np.ndarray, columns, schema: RowSchema, *,
         lens = np.diff(offsets)
         if n and int(lens.max()) > schema.var_max_bytes:
             raise _oversize_error(lens, schema.var_max_bytes)
-    out[:, :kw] = keys
-    for fkind, foff, arr in fixed:
-        if fkind == "uint32":
-            out[:, kw + foff] = arr
-        else:
-            # word values, low then high, on any host order
-            bits = arr.view(np.uint64)
-            out[:, kw + foff] = (bits & 0xFFFFFFFF).astype(np.uint32)
-            out[:, kw + foff + 1] = (bits >> 32).astype(np.uint32)
-    if schema.var_name is not None:
-        lw = kw + schema.var_len_word
-        lens = np.diff(offsets)
-        out[:, lw] = lens.astype(np.uint32)
-        if schema.var_slot_words and n:
-            slot_bytes = schema.var_slot_words * 4
-            slot = np.zeros((n, slot_bytes), dtype=np.uint8)
-            mask = np.arange(slot_bytes)[None, :] < lens[:, None]
-            # a boolean-mask assignment runs in row-major order: the
-            # heap's row-concatenated order
-            slot[mask] = heap[int(offsets[0]):int(offsets[-1])]
-            out[:, lw + 1:lw + 1 + schema.var_slot_words] = \
-                slot.view("<u4")
+    use_native = bool(native) and n > 0
+    if use_native:
+        lib = _codec_lib()
+        _fire_codec("serde.encode")
+        srcs = np.array([a.ctypes.data for _, _, a in fixed], np.uint64)
+        widths = np.array([_FIXED_KINDS[k][0] for k, _, _ in fixed],
+                          np.int64)
+        doffs = np.array([o for _, o, _ in fixed], np.int64)
+        rc = int(lib.sr_encode_cols(
+            keys.ctypes.data, n, kw, w, len(fixed), srcs.ctypes.data,
+            widths.ctypes.data, doffs.ctypes.data, schema.var_len_word,
+            schema.var_slot_words, schema.var_max_bytes,
+            offsets.ctypes.data if offsets is not None else None,
+            heap.ctypes.data if heap is not None else None,
+            out.ctypes.data, _auto_threads(threads)))
+        if rc < 0:    # lengths were checked above
+            raise RuntimeError(f"native columnar encoder rejected row "
+                               f"{-rc - 1} after validation — codec "
+                               "inconsistency")
+    else:
+        out[:, :kw] = keys
+        for fkind, foff, arr in fixed:
+            if fkind == "uint32":
+                out[:, kw + foff] = arr
+            else:
+                # word values, low then high, on any host order
+                bits = arr.view(np.uint64)
+                out[:, kw + foff] = (bits & 0xFFFFFFFF).astype(np.uint32)
+                out[:, kw + foff + 1] = (bits >> 32).astype(np.uint32)
+        if schema.var_name is not None:
+            lw = kw + schema.var_len_word
+            lens = np.diff(offsets)
+            out[:, lw] = lens.astype(np.uint32)
+            if schema.var_slot_words and n:
+                slot_bytes = schema.var_slot_words * 4
+                slot = np.zeros((n, slot_bytes), dtype=np.uint8)
+                mask = np.arange(slot_bytes)[None, :] < lens[:, None]
+                # a boolean-mask assignment runs in row-major order: the
+                # heap's row-concatenated order
+                slot[mask] = heap[int(offsets[0]):int(offsets[-1])]
+                out[:, lw + 1:lw + 1 + schema.var_slot_words] = \
+                    slot.view("<u4")
     _count("serde.columnar", "encode", out.nbytes,
-           time.perf_counter_ns() - t0)
+           time.perf_counter_ns() - t0, use_native)
     return out
 
 
-def decode_cols(rows: np.ndarray, key_words: int, schema: RowSchema
+def decode_cols(rows: np.ndarray, key_words: int, schema: RowSchema, *,
+                native: bool = True, threads: Optional[int] = None
                 ) -> Tuple[np.ndarray, dict]:
     """Inverse of :func:`encode_cols`: ``(keys, {name: column})``. Fixed
     columns are numpy views over ``rows`` (on a little-endian host; else
     computed copies), which keep ``rows`` alive; the bytes column is a
-    :class:`BytesColumn`. A length word past the slot raises."""
+    :class:`BytesColumn`, gathered by ``sr_decode_cols`` (``native``) or
+    a numpy mask. A length word past the slot raises."""
     t0 = time.perf_counter_ns()
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     n, w = rows.shape
@@ -487,6 +687,7 @@ def decode_cols(rows: np.ndarray, key_words: int, schema: RowSchema
             bits = (rows[:, c].astype(np.uint64)
                     | rows[:, c + 1].astype(np.uint64) << 32)
             cols[fname] = bits.view(_FIXED_KINDS[fkind][1])
+    use_native = False      # fixed columns alone are views: no codec call
     if schema.var_name is not None:
         lw = key_words + schema.var_len_word
         slot_words = schema.var_slot_words
@@ -497,7 +698,17 @@ def decode_cols(rows: np.ndarray, key_words: int, schema: RowSchema
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(lens, out=offsets[1:])
         heap = np.empty(int(offsets[-1]), dtype=np.uint8)
-        if heap.size:
+        use_native = bool(native) and heap.size > 0
+        if use_native:
+            lib = _codec_lib()
+            _fire_codec("serde.decode")
+            rc = int(lib.sr_decode_cols(
+                rows.ctypes.data, n, key_words, w, 0, None, None, None,
+                schema.var_len_word, slot_words, offsets.ctypes.data,
+                heap.ctypes.data, _auto_threads(threads)))
+            if rc < 0:    # the lengths were checked above
+                raise _corrupt_error(lens, max_bytes)
+        elif heap.size:
             blob = np.ascontiguousarray(
                 rows[:, lw + 1:lw + 1 + slot_words].astype(
                     "<u4")).view(np.uint8).reshape(n, max_bytes)
@@ -505,7 +716,7 @@ def decode_cols(rows: np.ndarray, key_words: int, schema: RowSchema
             heap[:] = blob[mask]
         cols[schema.var_name] = BytesColumn(offsets, heap)
     _count("serde.columnar", "decode", rows.nbytes,
-           time.perf_counter_ns() - t0)
+           time.perf_counter_ns() - t0, use_native)
     return keys, cols
 
 
@@ -522,5 +733,6 @@ def rows_content_digest(rows: np.ndarray) -> str:
 
 
 __all__ = ["encode_bytes_rows", "decode_bytes_rows", "payload_words",
-           "codec_totals", "RowSchema", "BytesColumn", "encode_cols",
-           "decode_cols", "rows_content_digest"]
+           "native_codec_available", "codec_totals", "RowSchema",
+           "BytesColumn", "encode_cols", "decode_cols",
+           "rows_content_digest"]

@@ -399,7 +399,8 @@ class ShuffleManager:
         self.runtime.pool.metrics = self.metrics
         #: checkpoints under ``conf.spill_dir`` (None without it)
         self.store = (MapOutputStore(
-            self.conf.spill_dir, compression=self.conf.compression,
+            self.conf.spill_dir, use_native=self.conf.use_native_staging,
+            compression=self.conf.compression,
             compression_level=self.conf.compression_level)
             if self.conf.spill_dir else None)
         #: the tiered out-of-core store: the pool as its HBM tier, host

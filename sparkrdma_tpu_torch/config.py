@@ -132,6 +132,15 @@ class ShuffleConf:
     #: encodes chunk k+1 while chunk k is copied to the device. 0 loads
     #: in one shot
     serde_chunk_records: int = 1 << 20
+    #: run the row codecs in the C++ library (``native/staging.cpp``,
+    #: built with g++ at first use; its threads run with the GIL
+    #: released). True needs the library: a failed build, a big-endian
+    #: host or an unknown CPython bytes layout raises ``RuntimeError``.
+    #: False is the numpy codec. Rows are bit-identical either way: the
+    #: knob only trades speed
+    serde_native: bool = True
+    #: threads of one native codec call; 0: ``min(8, os.cpu_count())``
+    serde_threads: int = 0
     #: schema-declared byte payloads take the columnar (v2) codec; False
     #: pins them to the v1 padded-slot codec. Rows are bit-identical
     #: either way (``from_host_columns`` / ``to_host_columns`` always
@@ -143,11 +152,15 @@ class ShuffleConf:
     #: map output whole (``ShuffleManager.checkpoint_shuffle``), so that a
     #: read whose map output is lost, or a restarted manager, resumes it
     #: without running the map stage again; without ``spill_dir`` there
-    #: is no store and nothing is written, as in the reference. (The
-    #: reference's ``use_native_staging`` is left out: the port has no
-    #: copy of ``native/staging.cpp``.)
+    #: is no store and nothing is written, as in the reference
     spill_to_host: bool = False
     spill_dir: str = ""               # checkpoint root (empty = no store)
+    #: host pools, spill writes, checkpoints and file reads go through
+    #: the C++ staging library (``native/staging.cpp``: an aligned pool,
+    #: ``sr_write_file`` / ``sr_read_file``, a C spooler thread). True
+    #: needs the library and raises ``RuntimeError`` if it cannot be
+    #: built; False is the numpy path. Files are byte-identical either way
+    use_native_staging: bool = True
     #: codec for spill runs and checkpoints: "" (off), "zlib" or "lzma";
     #: files self-describe, so readers need not know it
     compression: str = ""
@@ -237,6 +250,8 @@ class ShuffleConf:
         if self.plan_broadcast_records < 0:
             raise ValueError("plan_broadcast_records must be >= 0 (0 = "
                              "never broadcast)")
+        if self.serde_threads < 0:
+            raise ValueError("serde_threads must be >= 0 (0 = auto)")
         if self.serde_chunk_records < 0:
             raise ValueError("serde_chunk_records must be >= 0 (0 = no "
                              "chunking)")

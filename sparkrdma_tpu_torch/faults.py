@@ -15,15 +15,20 @@ site                        where it fires
                             .submit``
 ``spill.read``              ``host_staging.read_array``, before the CRC check
 ``checkpoint.read``         ``MapOutputStore`` records and shard reads
-``serde.encode``            nothing yet: the reference fires it on its
-                            native codec branch only (queue A item 7)
-``serde.decode``            nothing yet, as ``serde.encode``
+``serde.encode``            ``api/serde.py``: the native branches of
+                            ``encode_bytes_rows`` and ``encode_cols``, once
+                            per call (never on the numpy codec)
+``serde.decode``            the native branches of ``decode_bytes_rows``
+                            and ``decode_cols``, as ``serde.encode``
 ``rpc.send``                nothing yet: the service (queue A item 10)
 ``rpc.recv``                nothing yet, as ``rpc.send``
 ==========================  =================================================
 
-A spec naming the four idle sites parses as in the reference; nothing
-fires them.
+A spec naming the two idle sites parses as in the reference; nothing
+fires them. An injected failure at a ``serde.*`` site is overcome by
+running the native call again (the ``serde_native`` recovery, where the
+reference falls back to numpy for the rest of the process); a second
+one raises ``RuntimeError``.
 
 ``ShuffleConf.fault_spec`` is a ``;``-joined list of
 ``site:action[@predicate]`` rules::
@@ -40,7 +45,8 @@ fires them.
   falls below it, the same hits in every run; none fires on every hit.
 
 Injections are tallied on the plane; recoveries (a re-read after a CRC
-mismatch, a re-write after a failed spill) in this module's books. Both
+mismatch, a re-write after a failed spill, a native codec call run
+again) in this module's books. Both
 go to the process-wide registry (``obs/metrics.py``) as ``faults.<site>``
 and ``recover.<name>`` counters. The port has no degradation rung, so
 every hard injection (``fail`` or ``corrupt``) is either retried by the

@@ -7,7 +7,8 @@ a time:
 
 - :class:`ArrayChunkSource` slices one host array;
 - :class:`FileChunkSource` reads per-chunk spill files, reading the next
-  file on a background thread while the current chunk is consumed;
+  file on a background thread while the current chunk is consumed
+  (``sr_read_file`` with ``use_native``, as ``host_staging.read_array``);
 - :class:`StoreChunkSource` gets chunks out of a
   :class:`~sparkrdma_tpu_torch.hbm.tiered_store.TieredStore`, queueing
   promotions of the next ``lookahead`` keys first;
@@ -18,10 +19,12 @@ a time:
 On a CUDA runtime a copy from pageable memory would hold the host until
 it finished, so the streamer first copies each chunk into a page-locked
 lease of its own :class:`~sparkrdma_tpu_torch.hbm.host_staging
-.HostBufferPool`, then issues the copy to the card on a side stream and
-records an event. The consuming stream waits on that event before the
-chunk is used, and the lease goes back to the pool only once the event
-has completed, so a later chunk never overwrites a copy in flight.
+.HostBufferPool` (the C pool with ``use_native``, its leases registered
+with ``cudaHostRegister``), then starts the copy to the card on a side
+stream and records an event. The consuming stream waits on that event
+before the chunk is used, and the lease goes back to the pool only once
+the event has completed, so a later chunk never overwrites a copy in
+flight.
 """
 
 from __future__ import annotations
@@ -59,9 +62,10 @@ class FileChunkSource:
     sample reads chunk 0, then the stream reads it again)."""
 
     def __init__(self, paths: Sequence[str], record_words: int,
-                 chunk_records: int):
+                 chunk_records: int, use_native: bool = True):
         self._paths = list(paths)
         self._shape = (record_words, chunk_records)
+        self._native = use_native
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._next: Optional[Tuple[int, concurrent.futures.Future]] = None
         self._last: Optional[Tuple[int, np.ndarray]] = None
@@ -70,7 +74,8 @@ class FileChunkSource:
         return len(self._paths)
 
     def _read(self, j: int) -> np.ndarray:
-        return read_array(self._paths[j], np.uint32, self._shape)
+        return read_array(self._paths[j], np.uint32, self._shape,
+                          use_native=self._native)
 
     def chunk(self, j: int) -> np.ndarray:
         if self._last is not None and self._last[0] == j:
@@ -114,14 +119,16 @@ class InputStreamer:
     """Double-buffered host -> device chunk feed: iterating yields each
     chunk on the device, the copies of the next ``prefetch`` chunks
     already in flight. On a CUDA runtime ``host_pool`` is the page-locked
-    staging pool (None on the CPU)."""
+    staging pool (None on the CPU), the C pool with ``use_native``."""
 
-    def __init__(self, runtime, source, prefetch: int = 1):
+    def __init__(self, runtime, source, prefetch: int = 1,
+                 use_native: bool = True):
         self._rt = runtime
         self._src = source
         self._prefetch = max(0, prefetch)
         self._cuda = runtime.device.type == "cuda"
-        self.host_pool = HostBufferPool(pinned=True) if self._cuda else None
+        self.host_pool = (HostBufferPool(pinned=True, use_native=use_native)
+                          if self._cuda else None)
 
     def __len__(self) -> int:
         return len(self._src)

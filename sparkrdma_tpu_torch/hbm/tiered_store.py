@@ -7,7 +7,9 @@ Counterpart of ``sparkrdma_tpu.hbm.tiered_store``:
   ``acquire_device``/``release_device``, and each acquisition pokes the
   writer, so eviction overlaps the exchange;
 - **host tier** — segments staged in :class:`~sparkrdma_tpu_torch.hbm
-  .host_staging.HostBufferPool` leases (pageable host memory), bounded by
+  .host_staging.HostBufferPool` leases (pageable host memory; the C pool
+  unless ``ShuffleConf.use_native_staging`` is off, which also picks the
+  native or numpy file writes and reads), bounded by
   ``ShuffleConf.spill_tier_host_bytes``;
 - **disk tier** — CRC32-trailed segment files under ``spill_tier_dir``
   (else ``spill_dir``), in the reference's byte layout.
@@ -100,9 +102,10 @@ class TieredStore:
         self._watermark = conf.spill_tier_host_bytes
         self._prefetch_depth = conf.spill_tier_prefetch
         self._reread_attempts = conf.spill_tier_reread_attempts
+        self._use_native = conf.use_native_staging
         # pageable: segments reach the card through a copy made by
         # ``get`` (the input streamer stages it in its own page-locked pool)
-        self.host_pool = HostBufferPool()
+        self.host_pool = HostBufferPool(use_native=self._use_native)
         self._segments: Dict[str, _Segment] = {}    # guarded-by: _lock
         self._lock = threading.Lock()
         self._tick = 0                       # guarded-by: _lock
@@ -333,7 +336,8 @@ class TieredStore:
         last: Optional[OSError] = None
         for attempt in range(self._reread_attempts):
             try:
-                data = read_array(seg.path, seg.dtype, seg.shape)
+                data = read_array(seg.path, seg.dtype, seg.shape,
+                                  use_native=self._use_native)
             except OSError as e:
                 last = e
                 if attempt < self._reread_attempts - 1:
@@ -426,6 +430,7 @@ class TieredStore:
         try:
             path = self._segment_path(seg.key)
             write_array(path, seg.lease.view(seg.dtype, seg.shape),
+                        use_native=self._use_native,
                         codec=self._spill_codec, level=self._spill_level,
                         pool=self.host_pool)
         except OSError:

@@ -25,7 +25,11 @@ disk explicitly:
   .TieredStore` (``ShuffleManager.resume_segments``).
 
 Every file and manifest is laid out as the reference lays it out, byte
-for byte, so either package resumes the other's checkpoints. Data reads
+for byte, so either package resumes the other's checkpoints. Writes go
+through a :class:`~sparkrdma_tpu_torch.hbm.host_staging.SpillWriter` and
+reads through ``read_array``: the C spooler and ``sr_read_file`` with
+``use_native`` (``ShuffleConf.use_native_staging``), numpy without; the
+bytes are the same. Data reads
 go through :func:`_checked_read` (the ``checkpoint.read`` fault site and
 two bounded re-reads). What is persisted is the map side's input to the
 exchange, not its output: the fetch runs again, as in Spark.
@@ -98,10 +102,11 @@ def _plan_meta(plan: ShufflePlan) -> dict:
 class MapOutputStore:
     """Directory-backed store: one subdirectory per shuffle id."""
 
-    def __init__(self, root: str, compression: str = "",
-                 compression_level: int = 1):
+    def __init__(self, root: str, use_native: bool = True,
+                 compression: str = "", compression_level: int = 1):
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
+        self.use_native = use_native
         self.compression = compression
         self.compression_level = compression_level
 
@@ -109,7 +114,8 @@ class MapOutputStore:
         return self.root / f"shuffle_{shuffle_id}"
 
     def _spool(self) -> SpillWriter:
-        return SpillWriter(depth=_SPOOL_DEPTH, codec=self.compression,
+        return SpillWriter(depth=_SPOOL_DEPTH, use_native=self.use_native,
+                           codec=self.compression,
                            level=self.compression_level)
 
     # --- whole checkpoints ---------------------------------------------
@@ -242,14 +248,14 @@ class MapOutputStore:
 
     def read_shard(self, shuffle_id: int, coord: int, shape) -> np.ndarray:
         p = str(self._dir(shuffle_id) / f"shard_{coord}.u32")
-        return _checked_read(p, lambda: read_array(p, np.uint32,
-                                                   tuple(shape)))
+        return _checked_read(p, lambda: read_array(
+            p, np.uint32, tuple(shape), use_native=self.use_native))
 
     def read_records(self, shuffle_id: int, meta: dict) -> np.ndarray:
         """The records of a whole checkpoint whose metadata is loaded."""
         p = str(self._dir(shuffle_id) / _RECORDS)
         return _checked_read(p, lambda: read_array(
-            p, np.uint32, tuple(meta["shape"])))
+            p, np.uint32, tuple(meta["shape"]), use_native=self.use_native))
 
     def load(self, shuffle_id: int) -> Tuple[np.ndarray, ShufflePlan, int]:
         """``(records, plan, num_parts)`` of a whole checkpoint; KeyError

@@ -102,14 +102,15 @@ def run_streaming_terasort(
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words
-    streamer = InputStreamer(rt, source)
+    native = manager.conf.use_native_staging
+    streamer = InputStreamer(rt, source, use_native=native)
     n_chunks = len(streamer)
     if n_chunks == 0:
         raise ValueError("empty chunk source")
     part = _splitter_partitioner(source.chunk(0), mesh, kw,
                                  samples_per_device)
 
-    spiller = SpillWriter(codec=manager.conf.compression,
+    spiller = SpillWriter(use_native=native, codec=manager.conf.compression,
                           level=manager.conf.compression_level) \
         if spill_dir else None
     run_paths = []
@@ -160,7 +161,7 @@ def run_streaming_terasort(
 
     verified = None
     if verify and spill_dir:
-        verified = _verify_runs(source, run_paths, mesh, kw, w)
+        verified = _verify_runs(source, run_paths, mesh, kw, w, native)
     return StreamingSortResult(
         chunks=n_chunks, records=records, record_bytes=4 * (w or 0),
         stream_s=stream_s, verified=verified,
@@ -294,7 +295,8 @@ def run_tiered_terasort(
                                  samples_per_device)
 
     streamer = InputStreamer(rt, StoreChunkSource(
-        store, keys, lookahead=manager.conf.spill_tier_prefetch))
+        store, keys, lookahead=manager.conf.spill_tier_prefetch),
+        use_native=manager.conf.use_native_staging)
     device_rows: list = [[] for _ in range(mesh)]
     records = 0
     verified = None
@@ -342,7 +344,8 @@ def run_tiered_terasort(
         verified=verified)
 
 
-def _verify_runs(source, run_paths, mesh, kw, w) -> bool:
+def _verify_runs(source, run_paths, mesh, kw, w,
+                 native: bool = True) -> bool:
     """Host-side external-merge proof (test scale): each run is sorted,
     partition key ranges ascend, and the runs hold the input multiset."""
     all_rows = []
@@ -352,7 +355,7 @@ def _verify_runs(source, run_paths, mesh, kw, w) -> bool:
         for path, k in run_paths:
             if f"dev{d}.bin" not in os.path.basename(path):
                 continue
-            rows = read_array(path, np.uint32, (k, w))
+            rows = read_array(path, np.uint32, (k, w), use_native=native)
             keys = rows[:, 0].astype(np.uint64)
             for i in range(1, kw):
                 keys = (keys << np.uint64(32)) | rows[:, i]

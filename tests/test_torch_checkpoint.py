@@ -10,6 +10,10 @@
   and plan;
 - an incomplete or torn sharded checkpoint is refused by both.
 
+Every case runs on the port's native staging path and on its numpy path
+(the ``use_native`` fixture: ``MapOutputStore(use_native=...)`` and
+``ShuffleConf.use_native_staging``).
+
 Every comparison is exact (integer data, tolerance 0). Rows are made
 from a seed with numpy; the reference runs on the forced 8-device CPU
 mesh and is imported inside fixtures.
@@ -30,6 +34,12 @@ from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
 
 D = 8
 CODECS = ["", "zlib", "lzma"]
+
+
+@pytest.fixture(params=[True, False], ids=["native", "numpy"])
+def use_native(request):
+    """The port's staging path under test: the C++ library or numpy."""
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +85,9 @@ def _files(d):
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("split", [1, 2])
-def test_save_byte_identical(tmp_path, ref, codec, split):
-    mine = MapOutputStore(str(tmp_path / "port"), compression=codec)
+def test_save_byte_identical(tmp_path, ref, codec, split, use_native):
+    mine = MapOutputStore(str(tmp_path / "port"), use_native=use_native,
+                          compression=codec)
     theirs = ref[0](str(tmp_path / "ref"), use_native=False,
                     compression=codec)
     plan, ref_plan = _plans(ref, 1, split)
@@ -96,9 +107,11 @@ def test_save_byte_identical(tmp_path, ref, codec, split):
 
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("procs", [(0, 1), (0, 2), (1, 2)])
-def test_save_shards_byte_identical(tmp_path, ref, codec, procs):
+def test_save_shards_byte_identical(tmp_path, ref, codec, procs,
+                                    use_native):
     p, n = procs
-    mine = MapOutputStore(str(tmp_path / "port"), compression=codec)
+    mine = MapOutputStore(str(tmp_path / "port"), use_native=use_native,
+                          compression=codec)
     theirs = ref[0](str(tmp_path / "ref"), use_native=False,
                     compression=codec)
     plan, ref_plan = _plans(ref, 3)
@@ -124,9 +137,9 @@ def _ref_manager(ref, **kw):
     return RefMgr(RefRuntime(conf), conf)
 
 
-def _port_manager(**kw):
-    return ShuffleManager(MeshRuntime(ShuffleConf(slot_records=64, **kw), D,
-                                      device="cpu"))
+def _port_manager(use_native=True, **kw):
+    conf = ShuffleConf(slot_records=64, use_native_staging=use_native, **kw)
+    return ShuffleManager(MeshRuntime(conf, D, device="cpu"))
 
 
 def _ref_read(m, h):
@@ -140,7 +153,8 @@ def _port_read(m, h):
 
 
 @pytest.mark.parametrize("codec", ["", "zlib"])
-def test_port_resumes_reference_checkpoint(tmp_path, ref, codec):
+def test_port_resumes_reference_checkpoint(tmp_path, ref, codec,
+                                           use_native):
     root = str(tmp_path / "ck")
     rm = _ref_manager(ref, spill_to_host=True, spill_dir=root,
                       compression=codec)
@@ -152,7 +166,7 @@ def test_port_resumes_reference_checkpoint(tmp_path, ref, codec):
     finally:
         rm._writers.clear()
         rm.runtime.stop()
-    pm = _port_manager(spill_dir=root)
+    pm = _port_manager(use_native, spill_dir=root)
     try:
         ph = pm.register_shuffle(3, D, modulo_partitioner(D, key_word=1))
         w = pm.resume_shuffle(ph)
@@ -165,7 +179,8 @@ def test_port_resumes_reference_checkpoint(tmp_path, ref, codec):
         pm.stop()
 
 
-def test_port_resumes_reference_sharded_checkpoint(tmp_path, ref):
+def test_port_resumes_reference_sharded_checkpoint(tmp_path, ref,
+                                                   use_native):
     rm = _ref_manager(ref)
     x = _rows(6)
     try:
@@ -183,7 +198,7 @@ def test_port_resumes_reference_sharded_checkpoint(tmp_path, ref):
                               writer.plan, D, recs.shape, p, 2)
     finally:
         rm.stop()
-    pm = _port_manager(spill_dir=str(tmp_path / "sharded"))
+    pm = _port_manager(use_native, spill_dir=str(tmp_path / "sharded"))
     try:
         assert pm.store.contains(30)
         ph = pm.register_shuffle(30, D, modulo_partitioner(D, key_word=1))
@@ -196,9 +211,10 @@ def test_port_resumes_reference_sharded_checkpoint(tmp_path, ref):
 
 
 @pytest.mark.parametrize("codec", ["", "zlib"])
-def test_reference_loads_port_checkpoint(tmp_path, ref, codec):
+def test_reference_loads_port_checkpoint(tmp_path, ref, codec, use_native):
     root = str(tmp_path / "ck")
-    pm = _port_manager(spill_to_host=True, spill_dir=root, compression=codec)
+    pm = _port_manager(use_native, spill_to_host=True, spill_dir=root,
+                       compression=codec)
     x = _rows(7)
     try:
         h = pm.register_shuffle(4, D, modulo_partitioner(D, key_word=1))
@@ -225,8 +241,8 @@ def test_reference_loads_port_checkpoint(tmp_path, ref, codec):
         rm.stop()
 
 
-def test_port_load_round_trip(tmp_path, ref):
-    mine = MapOutputStore(str(tmp_path))
+def test_port_load_round_trip(tmp_path, ref, use_native):
+    mine = MapOutputStore(str(tmp_path), use_native=use_native)
     plan, _ = _plans(ref, 8, 2)
     recs = _records(9)
     mine.save(2, recs, plan, D)
@@ -242,12 +258,14 @@ def test_port_load_round_trip(tmp_path, ref):
 
 
 @pytest.mark.parametrize("how", ["incomplete", "torn", "truncated"])
-def test_broken_sharded_checkpoint_refused_by_both(tmp_path, ref, how):
+def test_broken_sharded_checkpoint_refused_by_both(tmp_path, ref, how,
+                                                   use_native):
     """A marker missing (incomplete), a marker of another save (torn),
     or a meta.json cut short: both stores read it as absent."""
     plan, ref_plan = _plans(ref, 10)
     shard = _records(11, (4, 8))
-    for name, store, p in (("port", MapOutputStore, plan),
+    for name, store, p in (("port", lambda r: MapOutputStore(
+                                r, use_native=use_native), plan),
                            ("ref", lambda r: ref[0](r, use_native=False),
                             ref_plan)):
         s = store(str(tmp_path / name))
@@ -262,13 +280,13 @@ def test_broken_sharded_checkpoint_refused_by_both(tmp_path, ref, how):
             (d / "proc0.json").write_text(json.dumps(marker))
         elif how == "truncated":
             (d / "meta.json").write_text((d / "meta.json").read_text()[:20])
-    for s in (MapOutputStore(str(tmp_path / "port")),
+    for s in (MapOutputStore(str(tmp_path / "port"), use_native=use_native),
               ref[0](str(tmp_path / "ref"), use_native=False)):
         assert not s.contains(31)
         if how != "truncated":
             with pytest.raises(KeyError, match=how):
                 s.load_meta(31)
-    m = _port_manager(spill_dir=str(tmp_path / "port"))
+    m = _port_manager(use_native, spill_dir=str(tmp_path / "port"))
     try:
         h = m.register_shuffle(31, D, modulo_partitioner(D, key_word=1))
         with pytest.raises(RuntimeError, match="no published map output"):
@@ -277,12 +295,12 @@ def test_broken_sharded_checkpoint_refused_by_both(tmp_path, ref, how):
         m.stop()
 
 
-def test_corrupt_port_checkpoint_refused_by_both(tmp_path, ref):
+def test_corrupt_port_checkpoint_refused_by_both(tmp_path, ref, use_native):
     """A flipped data byte in a port checkpoint: the reference's load
     fails its CRC check, and the port's resume raises
     ``UnrecoverableShuffleError``."""
     root = tmp_path / "ck"
-    pm = _port_manager(spill_to_host=True, spill_dir=str(root))
+    pm = _port_manager(use_native, spill_to_host=True, spill_dir=str(root))
     try:
         h = pm.register_shuffle(8, D, modulo_partitioner(D, key_word=1))
         pm.get_writer(h).write(pm.runtime.shard_records(_rows(12))).stop()
@@ -300,23 +318,23 @@ def test_corrupt_port_checkpoint_refused_by_both(tmp_path, ref):
         pm.stop()
 
 
-def test_resume_refuses_other_geometry(tmp_path, ref):
+def test_resume_refuses_other_geometry(tmp_path, ref, use_native):
     root = str(tmp_path / "ck")
-    pm = _port_manager(spill_to_host=True, spill_dir=root)
+    pm = _port_manager(use_native, spill_to_host=True, spill_dir=root)
     try:
         h = pm.register_shuffle(6, D, modulo_partitioner(D, key_word=1))
         pm.get_writer(h).write(pm.runtime.shard_records(_rows(13))).stop()
     finally:
         pm.stop()
-    pm = _port_manager(spill_dir=root)
+    pm = _port_manager(use_native, spill_dir=root)
     try:
         with pytest.raises(ValueError, match="num_parts"):
             pm.resume_shuffle(pm.register_shuffle(
                 6, 2 * D, modulo_partitioner(2 * D, key_word=1)))
     finally:
         pm.stop()
-    small = ShuffleManager(MeshRuntime(ShuffleConf(spill_dir=root), 4,
-                                       device="cpu"))
+    small = ShuffleManager(MeshRuntime(ShuffleConf(
+        spill_dir=root, use_native_staging=use_native), 4, device="cpu"))
     try:
         with pytest.raises(ValueError, match="8-device mesh"):
             small.resume_shuffle(small.register_shuffle(

@@ -465,8 +465,8 @@ def test_spill_to_host_checkpoints(tmp_path, spill_dir):
     """``spill_to_host`` is accepted: with a ``spill_dir``,
     ``ShuffleWriter.stop`` writes a whole checkpoint that ``contains``
     finds; without one there is no store and nothing is written, as in
-    the reference. The reference's ``use_native_staging`` is no knob of
-    the port at all."""
+    the reference. The store takes ``use_native_staging``, on by default
+    as in the reference; False is the numpy path."""
     from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
 
     kw = dict(spill_dir=str(tmp_path / "ck")) if spill_dir else {}
@@ -479,6 +479,7 @@ def test_spill_to_host_checkpoints(tmp_path, spill_dir):
         bounded(lambda: m.get_writer(h).write(
             m.runtime.shard_records(rows)).stop())
         if spill_dir:
+            assert m.store.use_native
             assert m.store.contains(5) and m.store.list_shuffles() == [5]
             assert (tmp_path / "ck" / "shuffle_5" / "records.u32").is_file()
         else:
@@ -486,8 +487,8 @@ def test_spill_to_host_checkpoints(tmp_path, spill_dir):
             assert not (tmp_path / "ck").exists()
     finally:
         bounded(m.stop)
-    with pytest.raises(TypeError, match="use_native_staging"):
-        ShuffleConf(use_native_staging=False, **kw)
+    assert ShuffleConf(**kw).use_native_staging
+    assert not ShuffleConf(use_native_staging=False, **kw).use_native_staging
 
 
 def test_exchange_acquires_through_the_store(tmp_path, monkeypatch):
