@@ -55,8 +55,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    ``max_rounds_in_flight`` 2, ``queue_depth`` 8, the pack sort mode,
    the slot pool; only the transport and the record width set):
      F        TeraSort at 16,777,216 × 100-byte records through the
-              streaming regime, device-verified, beside leg B's GB/s, with
-              a profile of one read; then the ring kernel at the chunk
+              streaming regime, device-verified, beside leg B's GB/s
+              (its profile is taken in the ``obs`` phase); then the ring
+              kernel at the chunk
               shape leg F's plan gives and at a capacity that is not a
               multiple of 4;
      F-small  2^20 records on the card and on the CPU, bit-identical and
@@ -75,8 +76,7 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               card (conservation, order within each partition, ascending
               partition boundaries); the same dataset through
               ``run_streaming_terasort``'s fold (no store), its sums
-              checked against numpy; a profile of 4 chunks of the fold;
-              then the ring kernel at the shape leg H's chunk plan gives
+              checked against numpy; then the ring kernel at the shape leg H's chunk plan gives
               it, against its plain version;
      H-small  16 chunks of 65,536 records on the card and on the CPU:
               each chunk's per-partition reads bit-identical card against
@@ -110,7 +110,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      O        the star suite at scale 64 (287,996,928 fact rows), with
               ``queries_per_hour`` and the four rewrite counters;
      M        q64 at SF100 (287,997,024 ``store_sales`` rows);
-   each checked against numpy;
+   each checked against numpy (K's ``sort_by_key``, H's fold and M's
+   and N's queries are not profiled: their repeated runs cost the smoke
+   more time than their profiles told);
 8. a check that legs A-P retried and recovered nothing unseen: no
    ``faults.*`` or ``recover.*`` counter moved and the reader logged no
    "fetch failed ... retrying" warning (a real failure there would
@@ -150,11 +152,35 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
     files and checkpoints identical); ``serde_fault`` (one injected
     ``serde.encode`` and ``serde.decode`` failure, recovered with the
     same rows, books balanced);
+11. the data path's records (``phase: obs``): leg F's and leg B's cells
+    with a manager whose journal is on (``metrics_sink``,
+    ``collect_shuffle_read_stats``, ``watchdog_timeout_s=30``) and one
+    whose journal is off, over the same records: a warm-up each, then 3
+    reads each in turns (the journal's inside ``job("terasort")``, a
+    stage a read), GB/s on and off; each span held against the plan
+    (records, rounds, ``per_peer_records``, ``dispatches``, the chunk
+    and queue-block events or the fused exchange's round pairs,
+    ``phase_s`` against the wall, ``bottleneck``, the job's trace id
+    and stage) and one job line; F's sync warnings with the journal on
+    and off (``set_sync_debug_mode("warn")``); one read of each cell
+    under ``profiling.trace``, whose Chrome trace must hold the ring
+    (and B's merge-stage) kernel and the read's
+    ``shuffle:exchange#s<span_id>`` range (the cell's ``profile`` line
+    and ``profiles/torch_leg{F,B}.txt``); the watchdog on a real CUDA
+    event wait (a ~2 s ``torch.cuda._sleep``, a 0.2 s timeout: the stall
+    line lands before ``synchronize()`` returns); M-small's queries with
+    the journal on, card against CPU (the same plan lines and jobs); the
+    reference's ``shuffle_report.py --json`` and ``shuffle_trace.py`` on
+    the phase's journals, as subprocesses;
    then the ring kernel at every send shape legs B-Q launched it at
    (recorded while each leg ran), each against its plain version and
    timed;
-11. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+12. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
+
+Every phase, leg, profile and leg-seconds line carries ``wall_s``: the
+seconds since the previous such line, so they partition the smoke's
+time; a leg's own timed run is its ``run_wall_s``.
 
 Exits non-zero, without a result, if there is no CUDA device, if the
 port is not beside it, or if any phase fails.
@@ -315,7 +341,18 @@ def rand_words(shape, seed: int) -> torch.Tensor:
     return random_records(n, 1, seed, "cuda").reshape(shape)
 
 
+#: the clock of the last phase or leg line, for the next one's wall_s
+_LAST_LINE_AT = [time.perf_counter()]
+
+
 def report(line: dict) -> None:
+    """Print one result line. A phase, leg, profile or leg-seconds line
+    gets ``wall_s``: the seconds since the previous such line (or the
+    start), so the lines' ``wall_s`` partition the smoke's time."""
+    if {"phase", "leg", "profile", "leg_s"} & set(line):
+        now = time.perf_counter()
+        line["wall_s"] = now - _LAST_LINE_AT[0]
+        _LAST_LINE_AT[0] = now
     print(json.dumps(line), flush=True)
 
 
@@ -851,7 +888,7 @@ def leg_d():
             "partitions": PARTS, "transport": "pallas_ring",
             "ring_fused": True, "aggregator": "sum", "map_side_combine": "on",
             "gbps": RECORDS * rows.shape[1] * 4 / read_s / 1e9,
-            "read_s": read_s, "wall_s": wall, "capacity": plan.capacity,
+            "read_s": read_s, "run_wall_s": wall, "capacity": plan.capacity,
             "rounds": plan.num_rounds, "out_capacity": plan.out_capacity,
             "unique_keys": int(totals.sum()),
             "combine_wire_reduction_ratio":
@@ -988,7 +1025,7 @@ def leg_e():
             "partitions": PARTS, "iterations": res.iterations,
             "per_iter_s": res.per_iter_s,
             "edges_per_s": res.num_edges / res.per_iter_s,
-            "graph_gen_s": gen_s, "wall_s": time.perf_counter() - t0,
+            "graph_gen_s": gen_s, "run_wall_s": time.perf_counter() - t0,
             "combine_on": "combine_in_records" in res.wire,
             "wire_last_iteration": res.wire, "capacity": plan.capacity,
             "rounds": plan.num_rounds, "out_capacity": plan.out_capacity,
@@ -1045,7 +1082,7 @@ def leg(name: str, partitions: int, records: int, transport: str,
             "transport": transport, "ring_fused": fused,
             "record_bytes": res.record_bytes,
             "gbps": res.gbps, "read_s": res.sort_exchange_s,
-            "wall_s": wall, "capacity": plan.capacity,
+            "run_wall_s": wall, "capacity": plan.capacity,
             "rounds": plan.num_rounds, "out_capacity": plan.out_capacity,
             "verified": res.verified,
             "check": "device" if full else "host+device",
@@ -1058,7 +1095,6 @@ def leg(name: str, partitions: int, records: int, transport: str,
 
 def profile(label: str, read, path: str) -> dict:
     """Device time by kernel of one ``read()`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     read()
@@ -1067,9 +1103,28 @@ def profile(label: str, read, path: str) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         read()
         torch.cuda.synchronize()
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+    return profile_table(label, prof, read_ms, path)
+
+
+def kernel_rows(prof) -> list:
+    """``(device us, name, count)`` of every kernel a profile holds,
+    largest first: the device rows without the ``record_function`` /
+    NVTX ranges the port names its reads with (``shuffle:exchange#s<id>``),
+    whose device time is their kernels' again."""
+    from torch.autograd import DeviceType
+
+    return sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and not ev.key.startswith("shuffle:")), reverse=True)
+
+
+def profile_table(label: str, prof, read_ms: float, path: str) -> dict:
+    """The ``profile`` line of a profiled read (its device time by kernel
+    against ``read_ms``, a read's time unprofiled) and its table in
+    ``path``."""
+    rows = kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     os.makedirs("profiles", exist_ok=True)
     with open(path, "w") as f:
@@ -1082,27 +1137,6 @@ def profile(label: str, read, path: str) -> dict:
             "merge_kernels": [[k[:60], us / 1e3, c] for us, k, c in rows
                               if "merge_s" in k]}
     report(line)
-    return line
-
-
-def profile_read(label: str, conf, path: str) -> dict:
-    """Device time by kernel for one key-ordered TeraSort read of
-    ``RECORDS`` 100-byte records over ``PARTS`` stacked partitions."""
-    from sparkrdma_tpu_torch import MeshRuntime
-    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
-    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
-    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
-                                                   make_sampler)
-    from sparkrdma_tpu_torch.workloads.terasort import random_records
-
-    m = ShuffleManager(MeshRuntime(conf, num_partitions=PARTS))
-    recs = random_records(RECORDS, KEY_WORDS + VAL_WORDS, 7, "cuda")
-    spl = compute_splitters(make_sampler(PARTS, KEY_WORDS, 256, 7)(
-        recs), PARTS)
-    h = m.register_shuffle(9, PARTS, range_partitioner(spl))
-    m.get_writer(h).write(recs).stop()
-    line = profile(label, m.get_reader(h, key_ordering=True).read, path)
-    m.stop()
     return line
 
 
@@ -1165,7 +1199,7 @@ def leg_f(leg_b_gbps: float) -> dict:
             "fused_same_plan_gbps": res_fused.gbps,
             "fused_same_plan_read_s": res_fused.sort_exchange_s,
             "fused_same_plan_verified": res_fused.verified,
-            "wall_s": wall,
+            "run_wall_s": wall,
             "capacity": plan.capacity, "rounds": plan.num_rounds,
             "split_factor": plan.split_factor,
             "out_capacity": plan.out_capacity,
@@ -1341,7 +1375,7 @@ def leg_g() -> dict:
             "partitions": PARTS, "aggregator": "sum",
             "conf": "defaults + map_side_combine on",
             "gbps": RECORDS * rows.shape[1] * 4 / read_s / 1e9,
-            "read_s": read_s, "wall_s": wall, "capacity": plan.capacity,
+            "read_s": read_s, "run_wall_s": wall, "capacity": plan.capacity,
             "rounds": plan.num_rounds, "split_factor": plan.split_factor,
             "out_capacity": plan.out_capacity, "chunks": moved // f_in,
             "rounds_moved": moved, "rounds_with_data": with_data,
@@ -1435,8 +1469,7 @@ def fold_expect(cols: np.ndarray) -> np.ndarray:
 def leg_h() -> dict:
     """``bench.py``'s out-of-core leg on one card: ``run_tiered_terasort``
     (``collect=False``) over 16 chunks, with a 4-chunk run before it for
-    peak device memory; the streaming fold over the same dataset; a
-    profile of 4 chunks of the fold."""
+    peak device memory; the streaming fold over the same dataset."""
     from sparkrdma_tpu_torch.hbm.input_stream import ArrayChunkSource
     from sparkrdma_tpu_torch.workloads.streaming import (
         run_streaming_terasort, run_tiered_terasort)
@@ -1479,9 +1512,6 @@ def leg_h() -> dict:
         m = ooc_manager(tmp, chunk)
         fold = run_streaming_terasort(m, ArrayChunkSource(cols, chunk))
         fold_ok = bool(np.array_equal(fold.fold_sums, fold_expect(cols)))
-        prof = profile("leg H fold, 4 chunks", lambda: run_streaming_terasort(
-            m, ArrayChunkSource(cols[:, :4 * chunk], chunk)),
-            "profiles/torch_legH.txt")
         m.stop()
     torch.cuda.empty_cache()
     peak4, peak16 = runs[4]["peak_gb"], runs[H_CHUNKS]["peak_gb"]
@@ -1511,8 +1541,7 @@ def leg_h() -> dict:
             "fold_sums_equal_numpy": fold_ok,
             "device_verified": checked.verified,
             "device_verified_gbps": checked.gbps,
-            "fold_idle_share_4_chunks": prof["idle_share"],
-            "gen_s": gen_s, "wall_s": time.perf_counter() - t0,
+            "gen_s": gen_s, "run_wall_s": time.perf_counter() - t0,
             "launches": runs[H_CHUNKS]["launches"],
             "check": "every chunk's read on the card (a third run); fold "
                      "sums vs numpy; spill > 0; peak(16) within 10 % of "
@@ -1925,7 +1954,7 @@ def leg_i() -> dict:
             "total_gb": res.total_bytes / 1e9, "num_parts": I_NUM_PARTS,
             "partitions": PARTS, "transport": "pallas_ring",
             "gbps": res.gbps, "exchange_s": res.exchange_s,
-            "plan_s": res.plan_s, "wall_s": wall,
+            "plan_s": res.plan_s, "run_wall_s": wall,
             "dispatches": m._exchange.last_dispatches,
             "stream_chunks": m.metrics.counter(
                 "exchange.stream_chunks").value,
@@ -2149,7 +2178,7 @@ def leg_k() -> dict:
     """The Dataset verbs on 16,777,216 × 100-byte records at the default
     geometry, keys Zipf(1.1) folded into 2^22 ids: each verb timed (card
     idle before and after) and held against numpy on the host, the sort
-    checked on the card; then a profile of one ``sort_by_key``."""
+    checked on the card."""
     from sparkrdma_tpu_torch.api.dataset import Dataset
     from sparkrdma_tpu_torch.workloads.terasort import (_sums,
                                                         device_verify_sort)
@@ -2248,8 +2277,6 @@ def leg_k() -> dict:
     report(line)
     if not all(checks.values()):
         fail("leg K: " + ", ".join(k for k, v in checks.items() if not v))
-    line["profile"] = profile("leg K sort_by_key", ds.sort_by_key,
-                              "profiles/torch_legK.txt")
     m.stop()
     return line
 
@@ -2383,7 +2410,7 @@ def leg_l() -> dict:
             "transport": "pallas_ring", "slot_records": SLOT_B,
             "per_iter_s": res.per_iter_s, "total_s": res.total_s,
             "ratings_per_s": res.num_ratings * 2 / res.per_iter_s,
-            "rmse": res.rmse, "wall_s": wall, "gen_s": gen_s,
+            "rmse": res.rmse, "run_wall_s": wall, "gen_s": gen_s,
             "wire_users": res.wire.get("users"),
             "wire_items": res.wire.get("items"),
             "wire_reduction_users": wire_reduction(res.wire["users"]),
@@ -2482,31 +2509,6 @@ def plan_counters(m) -> dict:
             if k.startswith("plan.")}
 
 
-def profile_once(label: str, fn, path: str) -> dict:
-    """Device busy time of one ``fn()`` under torch.profiler, against its
-    wall time under the profiler: the idle share of the card."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(fn)
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    os.makedirs("profiles", exist_ok=True)
-    with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=40))
-    line = {"profile": label, "wall_ms_profiled": wall * 1e3,
-            "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
-            "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:8]]}
-    report(line)
-    return line
-
-
 def leg_m() -> dict:
     """q64 through the planner at TPC-DS SF100's counts: 287,997,024
     ``store_sales`` rows (16 B, 4.6 GB), 204,000 items, 400 stores (402
@@ -2514,8 +2516,7 @@ def leg_m() -> dict:
     broadcasts, the item side takes the shuffle join). The tables of
     ``run_q64_shape`` load into ``Dataset``s and its plan runs through
     ``PlanExecutor.run`` (launches, counters, peak memory, the numpy
-    check), then again with a fresh executor (the query alone, timed)
-    and once more under the profiler."""
+    check), then again with a fresh executor (the query alone, timed)."""
     from sparkrdma_tpu_torch.plan import PlanExecutor
     from sparkrdma_tpu_torch.workloads import tpcds
 
@@ -2538,8 +2539,6 @@ def leg_m() -> dict:
         checks.append(groups == want)
         query_s.append(s)
         del out
-    prof = profile_once("leg M q64 query", lambda: PlanExecutor(m).run(q),
-                        "profiles/torch_legM.txt")
     line = {"leg": "M", "workload": "q64 (run_q64_shape's tables and "
                                     "plan; BASELINE.md config 3)",
             "fact_rows": fact.shape[0], "record_bytes": 16,
@@ -2550,7 +2549,7 @@ def leg_m() -> dict:
             "query_s": query_s,
             "fact_gbps": [fact.nbytes / s / 1e9 for s in query_s],
             "plan_counters": counters, "max_memory_gb": peak_gb,
-            "idle_share": prof["idle_share"], "verified": checks,
+            "verified": checks,
             "check": "host: numpy grouped sums per category",
             "launches": launches}
     report(line)
@@ -2567,7 +2566,7 @@ def leg_n() -> dict:
     """q95 at TPC-DS SF100's counts: 72,001,232 ``web_sales`` rows and
     7,197,664 ``web_returns`` rows (each cut to a multiple of 8), 15
     warehouses, 6,000,000 orders (the port's choice: ~12 lines an
-    order); checked against numpy, then once more under the profiler."""
+    order); checked against numpy."""
     from sparkrdma_tpu_torch.workloads import tpcds
 
     m = planner_manager(2)
@@ -2579,19 +2578,16 @@ def leg_n() -> dict:
     res, wall = timed(lambda: tpcds.run_q95_shape(m, **kw))
     launches = {k: v.launches for k, v in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_once("leg N q95", lambda: tpcds.run_q95_shape(
-        m, verify=False, **kw), "profiles/torch_legN.txt")
     nbytes = (N_SALES + N_RETURNS) * 16
     line = {"leg": "N", "workload": "run_q95_shape (BASELINE.md config 3)",
             "sales_rows": N_SALES, "return_rows": N_RETURNS,
             "n_orders": N_ORDERS, "n_warehouses": N_WAREHOUSES,
             "partitions": PARTS, "transport": "pallas_ring",
             "qualifying": res.qualifying, "net_sum": res.net_sum,
-            "exchange_s": res.shuffle_s, "wall_s": wall,
+            "exchange_s": res.shuffle_s, "run_wall_s": wall,
             "gbps": nbytes / res.shuffle_s / 1e9,
             "wall_gbps": nbytes / wall / 1e9,
-            "max_memory_gb": peak_gb, "idle_share": prof["idle_share"],
-            "verified": res.verified,
+            "max_memory_gb": peak_gb, "verified": res.verified,
             "check": "host: numpy count exact, float32 net at rtol 1e-6",
             "launches": launches}
     report(line)
@@ -3823,6 +3819,356 @@ def native_staging_phase(build_s: float, legs: dict) -> list:
     return lines
 
 
+# --- the obs phase: the journal, timeline, watchdog, job traces and
+# profiler ranges on the card ------------------------------------------
+
+#: the obs phase's cells: leg F's (the reference's default geometry, the
+#: streaming regime) and leg B's (fused ring, fast_sort); reads per arm
+OBS_READS = 3
+OBS_CELLS = {
+    "F": dict(),
+    "B": dict(slot_records=SLOT_B, fast_sort=True, fast_sort_run=RUN,
+              pack_sort_min_payload=0, wide_sort_min_payload=0),
+}
+#: the ``__global__`` names of the kernels the profiler trace must hold
+OBS_KERNELS = ("ring_exchange_kernel", "merge_stage_kernel")
+
+
+def sync_warnings(read) -> dict:
+    """The synchronizing CUDA operations ``read()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: a count by
+    the source line that made each."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            read()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def obs_span_checks(spans, plan, job_line, conf, recorded: int):
+    """The journal's spans of one cell's recorded reads against the plan
+    and the conf: ``(checks, summary)``."""
+    from sparkrdma_tpu_torch.obs.critical_path import VERDICTS
+
+    per_source = [int(c) for c in plan.counts.sum(axis=1)]
+    chunks = -(-plan.num_rounds // conf.max_rounds_in_flight)
+    streaming = plan.num_rounds > conf.max_rounds_in_flight
+    job_spans = [s for s in spans if s.job == "terasort"]
+
+    def count(s, name, ph):
+        return sum(e["name"] == name and e["ph"] == ph for e in s.events)
+
+    def phase_ok(s):
+        # each phase is rounded to the microsecond, as the reference
+        # rounds it: the sum is within half a microsecond a phase
+        wall = s.plan_s + s.exchange_s + s.sort_s
+        return abs(sum(s.phase_s.values()) - wall) <= \
+            0.5e-6 * len(s.phase_s) + 1e-9
+
+    checks = {
+        "one_span_per_recorded_read": len(spans) == recorded,
+        "records": all(s.records == plan.total_records for s in spans),
+        "rounds": all(s.rounds == plan.num_rounds for s in spans),
+        "per_peer_records": all(s.per_peer_records == per_source
+                                and sum(s.per_peer_records) == s.records
+                                for s in spans),
+        "dispatches": all(s.dispatches == (2 + 2 * chunks if streaming
+                                           else 1) for s in spans),
+        "phase_s_partitions_wall": all(phase_ok(s) for s in spans),
+        "bottleneck_set": all(s.bottleneck in VERDICTS for s in spans),
+        "trace_id_and_stage": [(s.trace_id, s.stage, s.stage_attempt)
+                               for s in job_spans]
+        == [(job_line["trace_id"], "sort", i) for i in range(OBS_READS)],
+        "one_job_line": job_line["stage_count"] == OBS_READS
+        and job_line["spans"] == OBS_READS,
+    }
+    # every recorded read has its own span, so each span holds one read
+    if streaming:
+        blocks = max(chunks - conf.queue_depth, 0)
+        checks["chunk_dispatch_events"] = all(
+            count(s, "chunk:dispatch", "i") == chunks for s in spans)
+        checks["queue_block_events"] = all(
+            count(s, "queue:block", "B") == count(s, "queue:block", "E")
+            == blocks for s in spans)
+    else:
+        checks["one_exchange_fused"] = all(
+            count(s, "exchange:fused", "B") == 1 for s in spans)
+        checks["ring_round_pairs"] = all(
+            count(s, "ring:round", "B") == count(s, "ring:round", "E")
+            == plan.num_rounds for s in spans)
+    s = job_spans[-1]
+    summary = {"dispatches": s.dispatches, "rounds": s.rounds,
+               "chunk_dispatch": count(s, "chunk:dispatch", "i"),
+               "queue_block": count(s, "queue:block", "B"),
+               "exchange_fused": count(s, "exchange:fused", "B"),
+               "ring_round_pairs": count(s, "ring:round", "B"),
+               "events": len(s.events), "plan_s": s.plan_s,
+               "exchange_s": s.exchange_s, "phase_s": s.phase_s,
+               "bottleneck": s.bottleneck}
+    return checks, summary
+
+
+def obs_cell(name: str, root: str) -> dict:
+    """One cell of the obs phase: a manager with the journal on and one
+    with it off over the same records; a warm-up read each, then
+    ``OBS_READS`` reads each in turns (on inside ``job("terasort")``, one
+    stage a read); the spans held against the plan; leg F's cell also
+    counts the sync warnings of one read on each, leg B's traces one read
+    under ``profiling.trace``."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
+    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
+                                                   make_sampler)
+    from sparkrdma_tpu_torch.obs.journal import read_entries, read_journal
+    from sparkrdma_tpu_torch.utils import profiling
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    sink = os.path.join(root, f"journal-{name}.jsonl")
+    kw = OBS_CELLS[name]
+    recs = random_records(RECORDS, KEY_WORDS + VAL_WORDS, 11, "cuda")
+    part = range_partitioner(compute_splitters(make_sampler(
+        PARTS, KEY_WORDS, 256, 11)(recs), PARTS))
+    ms, readers = {}, {}
+    # the journal-off manager first: the journal-on one's timeline is
+    # then the process-wide one
+    for arm, extra in (("off", {}), ("on", dict(
+            metrics_sink=sink, collect_shuffle_read_stats=True,
+            watchdog_timeout_s=30.0))):
+        m = ShuffleManager(MeshRuntime(default_conf(
+            val_words=VAL_WORDS, **kw, **extra), num_partitions=PARTS,
+            device="cuda"))
+        h = m.register_shuffle(1, PARTS, part)
+        plan = m.get_writer(h).write(recs).stop()
+        readers[arm] = m.get_reader(h, key_ordering=True)
+        readers[arm].read()                    # warm-up (a recorded read)
+        ms[arm] = m
+    gbps = {"on": [], "off": []}
+
+    def timed_read(arm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        readers[arm].read()                    # ends in its device sync
+        gbps[arm].append(RECORDS * (KEY_WORDS + VAL_WORDS) * 4
+                         / (time.perf_counter() - t0) / 1e9)
+
+    with ms["on"].job("terasort") as job:
+        for i in range(OBS_READS):
+            with job.stage("sort", attempt=i):
+                timed_read("on")
+            timed_read("off")
+    extra = {}
+    recorded = 1 + OBS_READS + 1          # warm-up, the job's, profiled
+    if name == "F":
+        # three rounds, the arms' order swapped each round: the first
+        # read under the debug mode syncs once more (a first-call
+        # effect), whichever arm makes it; rounds 2 and 3 are steady
+        rounds = [{arm: sync_warnings(readers[arm].read) for arm in order}
+                  for order in (("on", "off"), ("off", "on"),
+                                ("on", "off"))]
+        extra["sync_warnings"] = [{arm: sum(v.values())
+                                   for arm, v in r.items()} for r in rounds]
+        extra["sync_sites"] = rounds
+        recorded += 3
+    # one more read under profiling.trace: the Chrome trace must hold the
+    # kernels and the read's span range; it also stands in for the
+    # leg's own profile (the `profile: leg X read` line)
+    tdir = os.path.join(root, f"trace-{name}")
+    with profiling.trace(tdir) as prof:
+        readers["on"].read()
+    with open(os.path.join(tdir, profiling.TRACE_FILE)) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    span_id = read_journal(sink)[-1].span_id
+    kernels = OBS_KERNELS if ms["on"].conf.fast_sort else OBS_KERNELS[:1]
+    extra["trace"] = {
+        "kernels": {k: sum(k in n for n in names) for k in kernels},
+        "span_range": f"shuffle:exchange#s{span_id}",
+        "span_range_found": f"shuffle:exchange#s{span_id}" in names}
+    read_ms = 1e3 * RECORDS * (KEY_WORDS + VAL_WORDS) * 4 / 1e9 / \
+        statistics.median(gbps["on"])
+    extra["profile"] = profile_table(
+        f"leg {name} read", prof, read_ms, f"profiles/torch_leg{name}.txt")
+    watchdog = ms["on"].watchdog
+    conf = ms["on"].conf
+    for m in ms.values():
+        m.stop()
+    del readers, ms, recs
+    torch.cuda.empty_cache()
+    spans = read_journal(sink)
+    (job_line,) = [e for e in read_entries(sink) if e.get("kind") == "job"]
+    checks, summary = obs_span_checks(spans, plan, job_line, conf,
+                                      recorded)
+    if name == "F":
+        checks["sync_warnings_equal"] = all(
+            r["on"] == r["off"] for r in extra["sync_sites"][1:])
+    t = extra["trace"]
+    checks["trace_kernels"] = all(t["kernels"].values())
+    checks["trace_span_range"] = t["span_range_found"]
+    checks["no_stall"] = watchdog.stall_count == 0
+    on, off = statistics.median(gbps["on"]), statistics.median(gbps["off"])
+    line = {"phase": "obs", "cell": name, "records": RECORDS,
+            "record_bytes": (KEY_WORDS + VAL_WORDS) * 4,
+            "rounds": plan.num_rounds, "split_factor": plan.split_factor,
+            "gbps_on": gbps["on"], "gbps_off": gbps["off"],
+            "gbps_on_median": on, "gbps_off_median": off,
+            "on_over_off": on / off, "spans": len(spans),
+            "span": summary, "job": {k: job_line[k] for k in (
+                "wall_s", "stage_idle_s", "stage_count", "spans",
+                "dominant_stage", "bottleneck")},
+            **extra, "checks": checks}
+    report(line)
+    return line
+
+
+def obs_watchdog_line(root: str) -> dict:
+    """The watchdog on a real wait: a 0.2 s watchdog armed around
+    ``Event.synchronize()`` on an event recorded after a ~2 s
+    ``torch.cuda._sleep``; the stall line must land while the wait is
+    still blocked."""
+    from sparkrdma_tpu_torch.obs.journal import ExchangeJournal, read_entries
+    from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+    from sparkrdma_tpu_torch.obs.watchdog import StallWatchdog
+
+    # the card's sleep cycles per millisecond, from a short sleep
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 20_000_000 / start.elapsed_time(end)
+    sink = os.path.join(root, "journal-watchdog.jsonl")
+    reg = MetricsRegistry()
+    wd = StallWatchdog(0.2, journal=ExchangeJournal(sink, metrics=reg),
+                       metrics=reg)
+    wd.set_context(shuffle_id=-1)
+    ev = torch.cuda.Event()
+    torch.cuda._sleep(int(cycles_per_ms * 2000))
+    ev.record()
+    t0 = time.perf_counter()
+    with wd.armed("event_wait", phase="obs"):
+        ev.synchronize()
+    returned = time.time()
+    wait_s = time.perf_counter() - t0
+    stalls = [e for e in read_entries(sink) if e.get("kind") == "stall"]
+    checks = {"one_stall": len(stalls) == 1 and wd.stall_count == 1,
+              "counter": reg.counter("watchdog.stalls").value == 1}
+    if stalls:
+        st = stalls[0]
+        checks["fired_during_wait"] = st["elapsed_s"] < wait_s
+        checks["line_before_return"] = st["ts"] < returned
+    line = {"phase": "obs", "part": "watchdog",
+            "timeout_s": wd.timeout_s, "wait_s": wait_s,
+            "cycles_per_ms": cycles_per_ms,
+            "stall_elapsed_s": stalls[0]["elapsed_s"] if stalls else None,
+            "stall_before_return_s": (returned - stalls[0]["ts"])
+            if stalls else None, "checks": checks}
+    report(line)
+    return line
+
+
+def obs_plan_lines(root: str) -> dict:
+    """M-small's three queries once with the journal on, on the card and
+    on the CPU: the same ``{"kind": "plan"}`` lines (every field but
+    times and ids) and the same jobs and stages."""
+    from sparkrdma_tpu_torch.obs.journal import read_entries
+    from sparkrdma_tpu_torch.workloads import tpcds
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        plans, jobs = [], []
+        for val_words in (2, 4):
+            sink = os.path.join(root, f"journal-plan-{device}-{val_words}"
+                                ".jsonl")
+            m = planner_manager(val_words, device=device, metrics_sink=sink)
+            if val_words == 2:
+                tpcds.run_q64_shape(m)
+                with m.job("q95"):
+                    tpcds.run_q95_shape(m)
+            else:
+                tpcds.run_star_suite(m, fact_rows_per_device=16)
+            m.stop()
+            for e in read_entries(sink):
+                if e.get("kind") == "plan":
+                    plans.append({k: v for k, v in e.items()
+                                  if k not in ("ts", "trace_id")})
+                elif e.get("kind") == "job":
+                    jobs.append([e["job"], [s["stage"]
+                                            for s in e["stages"]]])
+        got[device] = (plans, jobs)
+    checks = {"plan_lines_equal": got["cuda"][0] == got["cpu"][0],
+              "plan_lines_written": len(got["cuda"][0]) > 0,
+              "jobs_equal": got["cuda"][1] == got["cpu"][1]}
+    line = {"phase": "obs", "part": "plan_lines",
+            "plan_lines": len(got["cuda"][0]),
+            "rewrites": sorted({e["rewrite"] for e in got["cuda"][0]}),
+            "jobs": got["cuda"][1], "checks": checks}
+    report(line)
+    return line
+
+
+def obs_cli_line(root: str) -> dict:
+    """The reference's stdlib CLIs on the phase's journals, as
+    subprocesses: ``shuffle_report.py --json`` counts the spans written,
+    ``shuffle_trace.py``'s output loads as JSON."""
+    from sparkrdma_tpu_torch.obs.journal import read_journal
+
+    journals = sorted(os.path.join(root, f) for f in os.listdir(root)
+                      if f.startswith("journal-") and f.endswith(".jsonl"))
+    spans = sum(len(read_journal(j)) for j in journals)
+    here = os.path.dirname(os.path.abspath(__file__))
+    rep = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "shuffle_report.py"),
+         "--json", *journals], capture_output=True, text=True, timeout=300)
+    out = os.path.join(root, "trace.json")
+    tr = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "shuffle_trace.py"),
+         *journals, "-o", out], capture_output=True, text=True, timeout=300)
+    checks = {"report_rc": rep.returncode == 0,
+              "trace_rc": tr.returncode == 0}
+    reported = None
+    if rep.returncode == 0:
+        reported = json.loads(rep.stdout).get("spans")
+        checks["report_counts_spans"] = reported == spans
+    if tr.returncode == 0:
+        with open(out) as f:
+            checks["trace_loads"] = bool(json.load(f).get("traceEvents"))
+    line = {"phase": "obs", "part": "cli", "journals": len(journals),
+            "spans": spans, "report_spans": reported, "checks": checks}
+    if rep.returncode or tr.returncode:
+        line["stderr"] = (rep.stderr + tr.stderr)[-2000:]
+    report(line)
+    return line
+
+
+def obs_phase() -> list:
+    """The data path's records on the card: leg F's and leg B's cells
+    with the journal on and off, the watchdog on a real CUDA event wait,
+    the planner's lines card against CPU, the reference's CLIs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    lines = [obs_cell("F", root)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines.append(obs_cell("B", root))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines += [obs_watchdog_line(root), obs_plan_lines(root),
+              obs_cli_line(root)]
+    bad = [f"{ln.get('cell', ln.get('part'))}: {k}" for ln in lines
+           for k, v in ln["checks"].items() if not v]
+    if bad:
+        fail("obs: " + ", ".join(bad))
+    return lines
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
 DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
@@ -3830,7 +4176,8 @@ DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
 
 def main(argv=None) -> int:
     """``--legs M,P,Q`` runs only those of legs M-Q (M-small and Q-small
-    included, and ``native_staging`` for that phase) and prints the ring
+    included, and ``native_staging`` and ``obs`` for those phases) and
+    prints the ring
     shapes they launched, without the kernel phases or the table check:
     a quick run while a leg is brought up. ``--launch-failure-child`` is
     leg Q-small's child process."""
@@ -3880,6 +4227,8 @@ def main(argv=None) -> int:
                 run_leg(legs, shapes, name, fn)
         if "native_staging" in only:
             native_staging_phase(build_s, legs)
+        if "obs" in only:
+            obs_phase()
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -3909,6 +4258,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     native_staging_phase(build_s, legs)
     report({"leg_s": "native_staging", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    obs_phase()
+    report({"leg_s": "obs", "seconds": time.perf_counter() - t0})
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -4022,18 +4374,11 @@ def earlier_legs(legs: dict, shapes: dict):
                     ("merge_splits", "B"), ("merge_splits", "C")):
         if legs[name]["launches"][k] <= 0:
             fail(f"{k} was not launched on leg {name}")
-    profile_read("leg B read", default_conf(
-        slot_records=SLOT_B, val_words=VAL_WORDS, fast_sort=True,
-        fast_sort_run=RUN, pack_sort_min_payload=0,
-        wide_sort_min_payload=0), "profiles/torch_legB.txt")
-    torch.cuda.empty_cache()
 
     run_leg(legs, shapes, "D", leg_d)
     run_leg(legs, shapes, "D-small", leg_d_small)
     run_leg(legs, shapes, "E", leg_e)
     run_leg(legs, shapes, "F", lambda: leg_f(legs["B"]["gbps"]))
-    profile_read("leg F read", default_conf(val_words=VAL_WORDS),
-                 "profiles/torch_legF.txt")
     torch.cuda.empty_cache()
     ring_chunk = ring_chunk_phase(legs["F"])
     torch.cuda.empty_cache()

@@ -24,8 +24,11 @@ aggregator drops it, ``select`` projects by its columns (lazily, fused
 into the next exchange's ``keep_words``), and ``to_host_columns``
 decodes through it. Byte payloads and columns load and unload through
 the pipelined codec (``api/pipeline.py``). ``plan`` lifts a dataset into
-the query planner (``plan/``). The job-trace stage of every exchange
-waits for the observability stack (ROADMAP A.8).
+the query planner (``plan/``). Under :meth:`ShuffleManager.job` every
+exchange-backed verb opens a job-trace stage named after itself
+(``repartition``, ``sort_by_key``, ``reduce_by_key``, ``distinct``,
+``group_by_key``, ``cogroup``, ``join``), unless the caller has a stage
+open already (``obs/trace.py auto_stage``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from sparkrdma_tpu_torch.kernels.group import cogroup_tables, group_runs_cols
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned, sort_by_lead_cols
 from sparkrdma_tpu_torch.meta.map_output import DuplicateShuffleIdError
 from sparkrdma_tpu_torch.meta.sampling import compute_splitters, make_sampler
+from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.workloads.join import _local_join, _local_join_rows
 
 #: Dataset-layer shuffle ids live in their own range, clear of the ids a
@@ -417,8 +421,22 @@ class Dataset:
                   key_ordering: bool = False,
                   aggregator: Optional[str] = None,
                   float_payload: bool = False,
+                  op: str = "exchange",
                   combine_hint: Optional[Tuple[bool, float]] = None
                   ) -> "Dataset":
+        """:meth:`_exchange_traced` inside a job-trace stage named ``op``
+        (a no-op outside a job, or when the caller opened a stage)."""
+        with _trace.auto_stage(op):
+            return self._exchange_traced(partitioner, num_parts,
+                                         key_ordering, aggregator,
+                                         float_payload, combine_hint)
+
+    def _exchange_traced(self, partitioner: Callable, num_parts: int,
+                         key_ordering: bool = False,
+                         aggregator: Optional[str] = None,
+                         float_payload: bool = False,
+                         combine_hint: Optional[Tuple[bool, float]] = None
+                         ) -> "Dataset":
         """One exchange of this dataset through the SPI, the pending
         filter pushed into it; a recycled output is copied out of the
         pool's recycling before the shuffle is unregistered. A pending select
@@ -577,7 +595,7 @@ class Dataset:
         m = self.manager
         num_parts = num_parts or m.runtime.num_partitions
         part = hash_partitioner(num_parts, m.conf.key_words)
-        return self._exchange(part, num_parts)
+        return self._exchange(part, num_parts, op="repartition")
 
     def sort_by_key(self, samples_per_device: int = 256) -> "Dataset":
         """Globally sort by the key words (rdd.sortByKey): sample ->
@@ -592,7 +610,7 @@ class Dataset:
         samples = make_sampler(mesh, kw, samples_per_device)(records)
         part = range_partitioner(compute_splitters(samples, mesh), kw)
         return Dataset(m, records, schema=base.schema)._exchange(
-            part, mesh, key_ordering=True)
+            part, mesh, key_ordering=True, op="sort_by_key")
 
     def reduce_by_key(self, op: str = "sum", float_payload: bool = False,
                       combine_hint: Optional[Tuple[bool, float]] = None
@@ -606,6 +624,7 @@ class Dataset:
         part = hash_partitioner(num_parts, m.conf.key_words)
         return self._exchange(part, num_parts, aggregator=op,
                               float_payload=float_payload,
+                              op="reduce_by_key",
                               combine_hint=combine_hint)
 
     def distinct(self) -> "Dataset":
@@ -627,7 +646,7 @@ class Dataset:
             return h % num_parts
 
         full_row_hash.cache_key = ("fullhash", num_parts, w)
-        a = self._exchange(full_row_hash, num_parts)
+        a = self._exchange(full_row_hash, num_parts, op="distinct")
         outs, totals = [], []
         for r, t in zip(_parts(a.records, num_parts), a.totals.tolist()):
             out, nuniq = combine_by_key_cols(r, _valid_nonfiller(r, t, kw),
@@ -683,7 +702,7 @@ class Dataset:
         num_parts = m.runtime.num_partitions
         part = hash_partitioner(num_parts, m.conf.key_words)
         values, groups, n_groups, totals = self._grouped(
-            self._exchange(part, num_parts))
+            self._exchange(part, num_parts, op="group_by_key"))
         return GroupedData(m, values, groups, n_groups, totals)
 
     def cogroup(self, other: "Dataset") -> CoGroupedData:
@@ -699,9 +718,9 @@ class Dataset:
         mesh = m.runtime.num_partitions
         part = hash_partitioner(mesh, kw)
         values_a, groups_a, na, _ = self._grouped(
-            self._exchange(part, mesh))
+            self._exchange(part, mesh, op="cogroup"))
         values_b, groups_b, nb, _ = self._grouped(
-            other._exchange(part, mesh))
+            other._exchange(part, mesh, op="cogroup"))
         tables, n_union = [], []
         for ga, a_n, gb, b_n in zip(_parts(groups_a, mesh), na,
                                     _parts(groups_b, mesh), nb):
@@ -722,7 +741,8 @@ class Dataset:
         key_ix = m.conf.key_words - 1
         mesh = m.runtime.num_partitions
         part = _low_word_hash(mesh, key_ix)
-        return self._exchange(part, mesh), other._exchange(part, mesh), key_ix
+        return (self._exchange(part, mesh, op="join"),
+                other._exchange(part, mesh, op="join"), key_ix)
 
     def join_count(self, other: "Dataset") -> Tuple[int, float]:
         """Inner-join cardinality and sum of payload products against

@@ -27,8 +27,12 @@ shard_records`` layout bit for bit, with overlap on or off.
 :class:`HostPrefetcher` is the query planner's background encode of a
 deferred source (``plan/executor.py``).
 
-Not ported: the reference's timeline events (``serde:encode`` and the
-others) wait for the observability stack (ROADMAP A.8).
+A chunked load records ``serde:encode`` and ``serde:h2d`` begin/end
+pairs per chunk (``chunk``, ``rows``), an unload ``serde:d2h`` and
+``serde:decode`` pairs per partition window (``device``, ``rows``), on
+the active timeline (``obs/timeline.py``), as the reference does: the
+next journal span's events show where a load's or an unload's host
+time went.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from sparkrdma_tpu_torch.api.serde import (_FIXED_KINDS, BytesColumn,
                                            encode_bytes_rows, encode_cols,
                                            payload_words)
 from sparkrdma_tpu_torch.hbm.host_staging import HostBufferPool
+from sparkrdma_tpu_torch.obs.timeline import record_active
 
 #: the reserved all-ones filler key (``api/dataset.py``)
 _NULL = np.uint32(0xFFFFFFFF)
@@ -110,10 +115,18 @@ class _Loader:
         buf = self.pool.get(rows * w * 4)
         return buf, buf.view(np.uint32, (rows, w))
 
-    def put(self, buf, out: np.ndarray, wait: bool) -> None:
-        """Copy one chunk's rows ``out`` (in lease ``buf``) to the
+    def put(self, ci: int, buf, out: np.ndarray, wait: bool) -> None:
+        """Copy chunk ``ci``'s rows ``out`` (in lease ``buf``) to the
         device as columns; ``wait`` holds the host until it has landed
         (the overlap-off arm)."""
+        c, w = out.shape
+        record_active("serde:h2d", ph="B", chunk=ci, rows=c)
+        try:
+            self._put(buf, out, wait)
+        finally:
+            record_active("serde:h2d", ph="E", chunk=ci)
+
+    def _put(self, buf, out: np.ndarray, wait: bool) -> None:
         c, w = out.shape
         if not self.cuda:
             self.chunks.append(torch.from_numpy(
@@ -179,29 +192,32 @@ def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
     bounds = [(lo, min(per, lo + cc)) for lo in range(0, per, cc)]
     loader = _Loader(rt, manager.conf.use_native_staging)
 
-    def encode_chunk(lo: int, hi: int):
-        buf, out = loader.lease((hi - lo) * mesh, w)
+    def encode_chunk(ci: int, lo: int, hi: int):
+        c = (hi - lo) * mesh
+        buf, out = loader.lease(c, w)
         try:
+            record_active("serde:encode", ph="B", chunk=ci, rows=c)
             encode_into(lo, hi, out)
+            record_active("serde:encode", ph="E", chunk=ci)
         except BaseException:
             buf.release()
             raise
-        return buf, out
+        return (ci, buf, out)
 
     try:
         if not overlap:
-            for lo, hi in bounds:
-                loader.put(*encode_chunk(lo, hi), wait=True)
+            for ci, (lo, hi) in enumerate(bounds):
+                loader.put(*encode_chunk(ci, lo, hi), wait=True)
             return loader.finish(mesh)
         q: Queue = Queue(maxsize=_QUEUE_DEPTH)
         stop = threading.Event()
 
         def producer():
             try:
-                for lo, hi in bounds:
+                for ci, (lo, hi) in enumerate(bounds):
                     if stop.is_set():
                         return
-                    q.put(encode_chunk(lo, hi))
+                    q.put(encode_chunk(ci, lo, hi))
                 q.put(None)
             except BaseException as e:  # raised on the consumer side
                 q.put(e)
@@ -231,7 +247,7 @@ def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
                 except Empty:
                     continue
                 if isinstance(item, tuple):
-                    item[0].release()
+                    item[1].release()
             t.join()
         return loader.finish(mesh)
     finally:
@@ -333,18 +349,25 @@ def _unload(manager, records: torch.Tensor, totals, overlap: bool,
                      else totals).tolist()
 
     def fetch(d: int) -> np.ndarray:
+        record_active("serde:d2h", ph="B", device=d)
         win = records[:, d * cap:d * cap + int(tot[d])]
-        return win.T.contiguous().cpu().numpy().view(np.uint32)
+        rows = win.T.contiguous().cpu().numpy().view(np.uint32)
+        record_active("serde:d2h", ph="E", device=d)
+        return rows
 
-    def run(rows: np.ndarray):
+    def run(d: int, rows: np.ndarray):
         if rows.size:
             filler = (rows[:, :kw] == _NULL).all(axis=1)
             if filler.any():
                 rows = rows[~filler]
-        return decode(rows)
+        record_active("serde:decode", ph="B", device=d,
+                      rows=int(rows.shape[0]))
+        part = decode(rows)
+        record_active("serde:decode", ph="E", device=d)
+        return part
 
     if not overlap or mesh == 1:
-        return [run(fetch(d)) for d in range(mesh)]
+        return [run(d, fetch(d)) for d in range(mesh)]
     parts = []
     with ThreadPoolExecutor(max_workers=1,
                             thread_name_prefix="serde-d2h") as ex:
@@ -353,7 +376,7 @@ def _unload(manager, records: torch.Tensor, totals, overlap: bool,
             rows = nxt.result()
             if d + 1 < mesh:
                 nxt = ex.submit(fetch, d + 1)
-            parts.append(run(rows))
+            parts.append(run(d, rows))
     return parts
 
 

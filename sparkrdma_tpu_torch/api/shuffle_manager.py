@@ -56,9 +56,20 @@ then a stage retry from map output that survived):
 - The manager installs its fault plane (``faults.FaultPlane(conf
   .fault_spec)``) process-wide and puts the earlier one back in ``stop``.
 
-The observability stack (the journal span that would carry the retry
-count, the timeline, the watchdog) and the tenant scoping of the plane
-wait for later slices.
+Observability (``obs/``), as in the reference: with ``conf.metrics_sink``
+set, each ``read(record_stats=True)`` call writes one journal span (one
+per call, not per attempt: its ``retry_count`` and ``backoff_ms`` carry
+the retries), built after the read's closing device sync from host data
+only, enriched with the critical-path attribution, stamped with the job
+trace in force (:meth:`ShuffleManager.job`) and sampled by
+``conf.journal_sample``. The span's ``events`` are the manager's
+timeline since the last span (the writer's ``plan`` included); the
+exchange runs inside a ``shuffle:exchange#s<span_id>`` profiler range
+(``utils/profiling.py``). ``conf.collect_shuffle_read_stats`` keeps an
+``ExchangeRecord`` per read in ``manager.stats``, printed by ``stop``;
+``conf.watchdog_timeout_s`` arms the stall watchdog around the streaming
+wait. The tenant scoping of the plane and the timeline waits for the
+service.
 """
 
 from __future__ import annotations
@@ -83,9 +94,19 @@ from sparkrdma_tpu_torch.kernels.aggregate import OPS
 from sparkrdma_tpu_torch.kernels.sort import sort_by_lead_cols
 from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
 from sparkrdma_tpu_torch.meta.map_output import MapOutputRegistry
+from sparkrdma_tpu_torch.obs import critical_path
+from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.obs.journal import (ExchangeJournal, ExchangeSpan,
+                                             next_span_id)
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.obs.timeline import EventTimeline, set_active
+from sparkrdma_tpu_torch.obs.watchdog import (StallWatchdog,
+                                              install_state_dump)
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
-from sparkrdma_tpu_torch.utils.stats import barrier
+from sparkrdma_tpu_torch.utils.profiling import annotate, annotate_span
+from sparkrdma_tpu_torch.utils.stats import (ExchangeRecord,
+                                             ShuffleReadStats, Timer,
+                                             barrier)
 
 log = logging.getLogger("sparkrdma_tpu_torch.api")
 
@@ -96,6 +117,14 @@ _SENTINEL = 0xFFFFFFFF      # rank of a dropped segment (sorts last)
 #: failure as PyTorch reports it (``torch.AcceleratorError``), and a
 #: kernel entry point's refusal
 _DEVICE_ERRORS = (torch.AcceleratorError, KernelLaunchError)
+
+
+def span_latency_ms(span: ExchangeSpan) -> float:
+    """The latency a read costs its caller: exchange + sort wall-clock
+    (plan time is shared by the reads of a shuffle). The number the
+    ``slow:<ms>`` sampling rule tests (the reference's
+    ``obs.rollup.span_latency_ms``)."""
+    return (span.exchange_s + span.sort_s) * 1e3
 
 
 @dataclasses.dataclass
@@ -153,10 +182,12 @@ class ShuffleWriter:
         if not success or self._records is None:
             self._records = None
             return None
-        self._plan = self._m._exchange.plan(
-            self._records, self._h.partitioner, self._h.num_parts)
+        with Timer() as t, annotate("shuffle:plan", self._m.runtime.device):
+            self._plan = self._m._exchange.plan(
+                self._records, self._h.partitioner, self._h.num_parts)
         self._m._registry.publish_map_output(self._h.shuffle_id,
                                              self._plan.counts)
+        self._m._plan_seconds[self._h.shuffle_id] = t.elapsed
         if self._m.store is not None and self._m.conf.spill_to_host:
             self._m.checkpoint_shuffle(self._h, writer=self)
         return self._plan
@@ -238,21 +269,34 @@ class ShuffleReader:
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's retry loop: bounded by ``max_retry_attempts``
         and ``retry_deadline_s``, with ``faults.backoff_ms`` sleeps that
-        never run past the deadline."""
-        conf = self._m.conf
+        never run past the deadline; then the read's stats record and
+        journal span."""
+        m = self._m
+        conf = m.conf
         sid = self._h.shuffle_id
+        # one span per read() call, not per attempt; its id names the
+        # profiler range, jitters the backoff and tags stall lines
+        journal_on = m.journal.enabled and record_stats
+        span_id = next_span_id() if journal_on else 0
+        m.watchdog.set_context(span_id=span_id, shuffle_id=sid)
         attempt = 0
         deadline = (time.monotonic() + conf.retry_deadline_s
                     if conf.retry_deadline_s > 0 else None)
+        backoffs: List[float] = []   # per-attempt sleeps, ms (span field)
         while True:
             attempt += 1
             try:
-                try:
-                    return self._attempt(writer, record_stats)
-                except _DEVICE_ERRORS as e:
-                    raise FetchFailedError(
-                        sid, f"backend failure during exchange: {e}",
-                        attempt) from e
+                # the timer covers this attempt only, through its closing
+                # sync: exec_s leaves out failed attempts and reloads
+                with Timer() as t:
+                    try:
+                        out, totals, post_s = self._attempt(
+                            writer, record_stats, span_id)
+                    except _DEVICE_ERRORS as e:
+                        raise FetchFailedError(
+                            sid, f"backend failure during exchange: {e}",
+                            attempt) from e
+                break
             except FetchFailedError as e:
                 if attempt >= conf.max_retry_attempts:
                     raise FetchFailedError(
@@ -265,45 +309,126 @@ class ShuffleReader:
                 log.warning("shuffle %d fetch failed (attempt %d/%d): %s; "
                             "retrying", sid, attempt,
                             conf.max_retry_attempts, e)
-                delay_ms = faults.backoff_ms(attempt, conf.retry_backoff_ms)
+                m.timeline.event("retry", attempt=attempt, shuffle=sid)
+                delay_ms = faults.backoff_ms(attempt, conf.retry_backoff_ms,
+                                             span_id)
                 if delay_ms > 0:
                     if deadline is not None:
                         delay_ms = min(delay_ms, max(
                             (deadline - time.monotonic()) * 1e3, 0.0))
+                    backoffs.append(round(delay_ms, 3))
+                    m.timeline.event("retry:backoff", attempt=attempt,
+                                     ms=round(delay_ms, 3))
                     time.sleep(delay_ms / 1e3)
-                writer = self._m._recover_writer(self._h)
+                writer = m._recover_writer(self._h)
+        if record_stats:
+            self._record(writer.plan, out, t.elapsed, post_s, span_id,
+                         attempt, backoffs)
+        return out, totals
 
-    def _attempt(self, writer: ShuffleWriter, record_stats: bool
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _attempt(self, writer: ShuffleWriter, record_stats: bool,
+                 span_id: int) -> Tuple[torch.Tensor, torch.Tensor, float]:
         """One attempt: the exchange, a ranged read's filter and tail,
-        and the closing sync."""
+        and the closing sync. Returns ``(out, totals, post_s)``:
+        ``post_s`` is the host time of a ranged read's separate filter
+        and tail (0.0 when the tail is fused into the exchange)."""
         m = self._m
+        dev = m.runtime.device
         full = self._full_range
         fuse_agg = (self.aggregator or "") if full else ""
-        out, totals, _ = m._exchange.exchange(
-            writer.records, self._h.partitioner, writer.plan,
-            self._h.num_parts, shuffle_id=self._h.shuffle_id,
-            sort_key_words=(m.conf.key_words
-                            if self.key_ordering and full else 0),
-            aggregator=fuse_agg,
-            float_payload=self.float_payload if fuse_agg else False,
-            row_filter=self.row_filter, keep_words=self.keep_words,
-            combine_hint=self.combine_hint if fuse_agg else None)
+        post_s = 0.0
+        with annotate_span("shuffle:exchange", span_id, dev):
+            out, totals, _ = m._exchange.exchange(
+                writer.records, self._h.partitioner, writer.plan,
+                self._h.num_parts, shuffle_id=self._h.shuffle_id,
+                sort_key_words=(m.conf.key_words
+                                if self.key_ordering and full else 0),
+                aggregator=fuse_agg,
+                float_payload=self.float_payload if fuse_agg else False,
+                row_filter=self.row_filter, keep_words=self.keep_words,
+                combine_hint=self.combine_hint if fuse_agg else None)
         if not full:
-            args = (out, writer.plan, self._h.num_parts,
-                    self.start_partition, self.end_partition)
-            if writer.plan.split_factor > 1:
-                out, totals = m._filtered_split(*args)
-            else:
-                out, totals = m._filtered(*args)
-            if self.aggregator or self.key_ordering:
-                out, totals = m._ranged_tail(
-                    out, totals, writer.plan,
-                    m.conf.key_words if self.key_ordering else 0,
-                    self.aggregator or "", self.float_payload)
+            with Timer() as ts, annotate_span("shuffle:filter+agg+sort",
+                                              span_id, dev):
+                args = (out, writer.plan, self._h.num_parts,
+                        self.start_partition, self.end_partition)
+                if writer.plan.split_factor > 1:
+                    out, totals = m._filtered_split(*args)
+                else:
+                    out, totals = m._filtered(*args)
+                if self.aggregator or self.key_ordering:
+                    out, totals = m._ranged_tail(
+                        out, totals, writer.plan,
+                        m.conf.key_words if self.key_ordering else 0,
+                        self.aggregator or "", self.float_payload)
+            post_s = ts.elapsed
         if record_stats:
             barrier(out)
-        return out, totals
+        return out, totals, post_s
+
+    def _record(self, plan: ShufflePlan, out: torch.Tensor, elapsed: float,
+                post_s: float, span_id: int, attempt: int,
+                backoffs: List[float]) -> None:
+        """The read's ``ExchangeRecord``, then (journal on) its span, in
+        the reference's order: trace coordinates, critical-path
+        attribution, the job's stage profile, sampling, then the line.
+        Every field is host data (the plan's numpy counts, ints the
+        exchange and the stores keep): nothing here waits for the card."""
+        from sparkrdma_tpu_torch.api.serde import codec_totals
+        from sparkrdma_tpu_torch.hbm.host_staging import spill_count
+        from sparkrdma_tpu_torch.hbm.tiered_store import store_totals
+
+        m = self._m
+        ex = m._exchange
+        sid = self._h.shuffle_id
+        per_source = plan.counts.sum(axis=1)
+        plan_s = m._plan_seconds.get(sid, 0.0)
+        m.stats.add(ExchangeRecord(
+            shuffle_id=sid, plan_s=plan_s, exec_s=elapsed,
+            total_records=plan.total_records,
+            record_bytes=out.shape[0] * 4, num_rounds=plan.num_rounds,
+            per_source_records=per_source))
+        if not span_id:
+            return
+        serde = codec_totals()
+        st_totals = store_totals()
+        pool = m.runtime.pool
+        span = ExchangeSpan(
+            span_id=span_id, shuffle_id=sid, transport=ex.transport(),
+            rounds=plan.num_rounds, dispatches=ex.last_dispatches,
+            records=plan.total_records, record_bytes=out.shape[0] * 4,
+            plan_s=plan_s,
+            # the attempt's time through the closing sync, less a ranged
+            # read's separate tail, which is reported as sort_s
+            exchange_s=max(elapsed - post_s, 0.0), sort_s=post_s,
+            per_peer_records=[int(c) for c in per_source],
+            pool_high_water=pool.outstanding_high_water,
+            spill_count=spill_count(), retry_count=attempt - 1,
+            backoff_ms=backoffs, degraded=[],
+            store_spill_bytes=st_totals[0], store_fetch_bytes=st_totals[1],
+            store_prefetch_hits=st_totals[2],
+            store_sync_fetches=st_totals[3],
+            process_index=m.runtime.process_index,
+            host_count=m.runtime.process_count,
+            # drain restarts the timeline's clock: the next span's events
+            # are relative to this one (a sampled-away span drains too)
+            events=m.timeline.drain(),
+            **serde, **ex.wire_stats())
+        tctx = _trace.current_trace()
+        if tctx is not None:
+            span.trace_id = tctx.trace_id
+            span.job = tctx.job
+            span.stage = tctx.stage
+            span.stage_attempt = tctx.stage_attempt
+        critical_path.enrich(span, metrics=m.metrics)
+        _trace.observe_active_span(span)
+        weight = m.sampler.keep_weight(span_id,
+                                       span_latency_ms(span) / 1e3)
+        if weight > 0:
+            span.sample_weight = weight
+            m.journal.emit(span)
+        else:
+            m.metrics.counter("journal.sampled_out").inc()
 
     def _raw_read(self) -> Tuple[torch.Tensor, torch.Tensor, ShufflePlan]:
         """A full-range, unsorted read: the raw (local partition, source)
@@ -390,6 +515,26 @@ class ShuffleManager:
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
         self.metrics = MetricsRegistry(enabled=True)
+        # the exchange journal: one span per recorded read; a literal
+        # {process} in the sink names the host's own file
+        sink = self.conf.metrics_sink
+        if "{process}" in sink:
+            sink = sink.replace("{process}", str(self.runtime.process_index))
+        self.journal = ExchangeJournal(sink, metrics=self.metrics,
+                                       max_bytes=self.conf.journal_max_bytes)
+        #: which reads get a full span (the rest feed the metrics only)
+        self.sampler = self.conf.sampling_policy()
+        # the per-span event timeline, process-wide so module-level sites
+        # (staging, the tiered store, the fault plane) reach it; events
+        # accumulate over plan and read and drain into the span
+        self.timeline = EventTimeline(enabled=self.journal.enabled)
+        self._prev_timeline = set_active(self.timeline)
+        self.watchdog = StallWatchdog(self.conf.watchdog_timeout_s,
+                                      journal=self.journal,
+                                      metrics=self.metrics,
+                                      timeline=self.timeline)
+        if self.watchdog.enabled:
+            install_state_dump()   # SIGUSR1 dump of armed waits
         # the fault plane, process-wide: module-level sites (staging,
         # the checkpoint store) reach it without a handle
         self.faults = faults.FaultPlane(self.conf.fault_spec)
@@ -397,6 +542,11 @@ class ShuffleManager:
             self.faults if self.faults.enabled else None)
         # the node owns the pool, the exchange draws from it
         self.runtime.pool.metrics = self.metrics
+        self.runtime.pool.timeline = self.timeline
+        #: ``ExchangeRecord`` per recorded read
+        #: (``conf.collect_shuffle_read_stats``)
+        self.stats = ShuffleReadStats(self.conf.collect_shuffle_read_stats,
+                                      registry=self.metrics)
         #: checkpoints under ``conf.spill_dir`` (None without it)
         self.store = (MapOutputStore(
             self.conf.spill_dir, use_native=self.conf.use_native_staging,
@@ -406,14 +556,19 @@ class ShuffleManager:
         #: the tiered out-of-core store: the pool as its HBM tier, host
         #: leases, disk segments
         self.tiered = TieredStore(self.conf, pool=self.runtime.pool)
-        self._exchange = ShuffleExchange(self.runtime, self.conf,
-                                         metrics=self.metrics,
-                                         pool=self.runtime.pool,
-                                         store=self.tiered)
+        self._exchange = ShuffleExchange(
+            self.runtime, self.conf, metrics=self.metrics,
+            pool=self.runtime.pool, store=self.tiered, stats=self.stats,
+            timeline=self.timeline, watchdog=self.watchdog,
+            journal=self.journal,
+            identity=(self.runtime.process_index,
+                      self.runtime.process_count))
         ids = tuple(self.runtime.manager_id(i)
                     for i in range(self.runtime.num_partitions))
         self._registry = MapOutputRegistry(ids, metrics=self.metrics)
         self._writers: Dict[int, ShuffleWriter] = {}
+        #: host seconds of each shuffle's plan (the span's ``plan_s``)
+        self._plan_seconds: Dict[int, float] = {}
 
     def register_shuffle(self, shuffle_id: int, num_parts: int,
                          partitioner: Callable) -> ShuffleHandle:
@@ -445,12 +600,28 @@ class ShuffleManager:
                              key_ordering, aggregator, float_payload,
                              row_filter, keep_words, combine_hint)
 
+    def job(self, name: str) -> "_trace.JobTrace":
+        """A job trace over the exchanges that follow::
+
+            with manager.job("tpcds_q64") as job:
+                with job.stage("item_join"):
+                    ...register / write / read...
+
+        Every span written inside is stamped with the trace coordinates
+        (journal schema v12); at exit one ``{"kind": "job"}`` line lands
+        in the journal, with each stage's critical-path profile, the
+        ``stage:idle`` time and the job's verdict
+        (:mod:`sparkrdma_tpu_torch.obs.trace`)."""
+        return _trace.JobTrace(name, journal=self.journal,
+                               process_index=self.runtime.process_index)
+
     def unregister_shuffle(self, shuffle_id: int) -> None:
         """Forget the shuffle and return its recycled output buffers to
         the pool: its reads' outputs must be consumed by now. Its tiered
         store segments and its checkpoint go too."""
         self._registry.unregister(shuffle_id)
         self._writers.pop(shuffle_id, None)
+        self._plan_seconds.pop(shuffle_id, None)
         self._exchange.release_shuffle(shuffle_id)
         self.tiered.delete_shuffle(shuffle_id)
         if self.store is not None:
@@ -637,14 +808,23 @@ class ShuffleManager:
         return res, new_totals
 
     def stop(self) -> None:
-        """Release the pooled buffers and close the store; checkpoints
+        """Release the pooled buffers, close the store and the journal
+        (printing the read stats' per-source table first); checkpoints
         stay for a restarted manager to resume."""
         if faults.active_plane() is self.faults:
             faults.set_active_plane(self._prev_plane)
+        if self.stats.enabled and self.stats.records:
+            self.stats.print_histogram()
         self._exchange.release_all()
         self._writers.clear()
+        self.journal.close()
         self.tiered.close()
         self.runtime.stop()
+        # the process-wide timeline goes back to the earlier manager's
+        # only if it is still this one's (as the fault plane does)
+        current = set_active(self._prev_timeline)
+        if current is not self.timeline:
+            set_active(current)      # a later manager's: it stays
 
     def __enter__(self) -> "ShuffleManager":
         return self

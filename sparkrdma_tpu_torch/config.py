@@ -6,7 +6,8 @@ path with its map-side combine gate, the streaming regime with its
 out-of-core path: host staging, the tiered store and segment
 checkpoints; the query planner's rewrite gates and the host codec's
 chunking; the whole-shuffle checkpoint, the reader's retry loop and
-the fault plane), under the reference's names and with its defaults, so a
+the fault plane; the observability knobs of the journal, the read
+stats and the stall watchdog), under the reference's names and with its defaults, so a
 configuration written for one package means the same thing to the
 other. Transports
 that are not ported (the hierarchical one) are refused; the reference's
@@ -90,6 +91,33 @@ class ShuffleConf:
     wide_sort_min_payload: int = 20
     wide_sort_ride_words: int = 10
     pack_sort_min_payload: int = 20
+
+    # --- observability (obs/) ---
+    #: keep an ``ExchangeRecord`` per recorded read in the manager's
+    #: ``stats`` (printed as a per-source table on ``stop``) and feed the
+    #: ``shuffle.*`` counters and the ``shuffle.exec_s`` histogram
+    collect_shuffle_read_stats: bool = False
+    #: exchange-journal sink: a filesystem path that receives one JSON
+    #: line per recorded read (``obs/journal.py``; the reference's
+    #: schema, read by ``scripts/shuffle_report.py`` and
+    #: ``scripts/shuffle_trace.py``), plus ``stall``, ``job`` and
+    #: ``plan`` lines. Empty: journal off, and the timeline with it. A
+    #: literal ``{process}`` in the path expands to the runtime's process
+    #: index
+    metrics_sink: str = ""
+    #: stall watchdog (``obs/watchdog.py``): a streaming exchange's wait
+    #: for a chunk that exceeds this many seconds logs and journals a
+    #: ``stall`` line with the in-flight state while the wait goes on.
+    #: 0 disables. Size it well above a healthy chunk's wall-clock
+    watchdog_timeout_s: float = 0.0
+    #: span sampling (``obs/journal.py SamplingPolicy``): "all", "1/N"
+    #: (a deterministic 1-in-N by span id, kept spans weighted N),
+    #: "slow:<ms>" (every read at least that slow), or "1/N+slow:<ms>".
+    #: Sampled-away reads still feed the metrics
+    journal_sample: str = "all"
+    #: rotate the live journal file past this many bytes (``<sink>.1``,
+    #: ``.2``, …); 0 never rotates
+    journal_max_bytes: int = 0
 
     # --- map-side combine (pre-exchange reduction) ---
     #: map-side combine policy for aggregator shuffles: "auto" (a sampled
@@ -270,6 +298,12 @@ class ShuffleConf:
             raise ValueError("retry_backoff_ms must be >= 0 (0 disables)")
         if self.retry_deadline_s < 0:
             raise ValueError("retry_deadline_s must be >= 0 (0 disables)")
+        if self.watchdog_timeout_s < 0:
+            raise ValueError("watchdog_timeout_s must be >= 0 (0 disables)")
+        if self.journal_max_bytes < 0:
+            raise ValueError("journal_max_bytes must be >= 0 (0 = no "
+                             "rotation)")
+        self.sampling_policy()  # validate journal_sample eagerly
         self.fault_rules()               # validate fault_spec eagerly
         _parse_prealloc(self.prealloc)  # validate eagerly
 
@@ -280,6 +314,12 @@ class ShuffleConf:
 
     def prealloc_classes(self) -> Dict[int, int]:
         return _parse_prealloc(self.prealloc)
+
+    def sampling_policy(self):
+        """Parsed ``journal_sample`` (``obs.journal.SamplingPolicy``)."""
+        from sparkrdma_tpu_torch.obs.journal import SamplingPolicy
+
+        return SamplingPolicy.parse(self.journal_sample)
 
     def fault_rules(self):
         """Parsed ``fault_spec`` (``faults.FaultRule`` list)."""

@@ -61,8 +61,21 @@ the top of each chunk. Each raises ``FetchFailedError`` (counted as
 abandoned midway gives its pooled buffers back before the error
 propagates. Left out of the reference: the degradation ladder
 (transport fallback, the combine-off retry) — the port never falls back
-from a kernel or a pass to something else — and the stall watchdog and
-the timeline spans of the streaming loop.
+from a kernel or a pass to something else.
+
+Observability (``obs/``), under the reference's event names: the
+exchange records ``plan``, ``combine:gate``, ``exchange:fused`` (with
+one structural ``ring:round`` pair per round of a fused ring launch),
+``stream:prep``, each chunk's ``chunk`` / ``chunk:dispatch`` /
+``chunk:fold`` and ``queue:block``, the ``chunks.outstanding`` track,
+``stream:tail`` and ``fault:injected`` on its ``timeline`` (the null
+timeline unless a manager passes its own). Every mark is a host clock
+read around asynchronous launches, and every extra a host int, so
+recording never waits for the card. The streaming loop's wait for the
+oldest chunk's CUDA event runs under ``watchdog.armed`` (with the
+``block_hook`` test hook inside the armed region). :meth:`ShuffleExchange
+.shuffle` (plan and exchange in one call) feeds ``stats`` and, given a
+journal, writes a span for callers that bypass the manager.
 """
 
 from __future__ import annotations
@@ -70,6 +83,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -95,6 +109,9 @@ from sparkrdma_tpu_torch.kernels.sort import (lexsort_cols,
                                               sort_by_lead_cols)
 from sparkrdma_tpu_torch.kernels.wide_sort import sort_wide_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.obs.stats import ExchangeRecord, ShuffleReadStats
+from sparkrdma_tpu_torch.obs.timeline import NULL_TIMELINE, EventTimeline
+from sparkrdma_tpu_torch.obs.watchdog import StallWatchdog
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 
 
@@ -146,12 +163,35 @@ class ShuffleExchange:
     def __init__(self, runtime: MeshRuntime,
                  conf: Optional[ShuffleConf] = None,
                  metrics: Optional[MetricsRegistry] = None, pool=None,
-                 store=None):
+                 store=None, stats: Optional[ShuffleReadStats] = None,
+                 timeline: Optional[EventTimeline] = None,
+                 watchdog: Optional[StallWatchdog] = None, journal=None,
+                 identity: Tuple[int, int] = (0, 1)):
         self.runtime = runtime
         self.conf = conf or runtime.conf
         self.mesh_size = runtime.num_partitions
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
+        # the in-span timeline and the stall watchdog default to no-ops,
+        # so the instrumentation sites stay unconditional
+        self.timeline = timeline if timeline is not None else NULL_TIMELINE
+        self.watchdog = watchdog if watchdog is not None \
+            else StallWatchdog(self.conf.watchdog_timeout_s)
+        #: a test's hook, called with the chunk index INSIDE the armed
+        #: watchdog region before each streaming queue wait: simulates a
+        #: wedged wait without wedging the card
+        self.block_hook: Optional[Callable[[int], None]] = None
+        #: read stats of :meth:`shuffle` (a manager passes its own)
+        self.stats = stats if stats is not None else ShuffleReadStats(
+            enabled=self.conf.collect_shuffle_read_stats,
+            registry=self.metrics)
+        #: the journal :meth:`shuffle` writes its spans to (None: none),
+        #: and the ``(process_index, host_count)`` stamped into them
+        self.journal = journal
+        self.sampler = self.conf.sampling_policy()
+        self.identity = identity
+        #: host seconds of the last :meth:`plan`
+        self.last_plan_s = 0.0
         #: the tiered store (``hbm/tiered_store.py``): when given, buffers
         #: are acquired and released through it, so that each acquisition
         #: pokes its writer; its HBM tier is the pool, which a store-only
@@ -229,10 +269,12 @@ class ShuffleExchange:
         if self.fault_hook is not None:
             if self.fault_hook():
                 self.metrics.counter("exchange.faults").inc()
+                self.timeline.event("fault:injected", shuffle=shuffle_id)
                 raise FetchFailedError(shuffle_id, "injected fault (hook)")
         elif self.conf.fault_injection_rate > 0.0:
             if self._fault_rng.random() < self.conf.fault_injection_rate:
                 self.metrics.counter("exchange.faults").inc()
+                self.timeline.event("fault:injected", shuffle=shuffle_id)
                 raise FetchFailedError(shuffle_id, "injected fault (rate)")
 
     # ------------------------------------------------------------------
@@ -242,6 +284,8 @@ class ShuffleExchange:
              num_parts: Optional[int] = None,
              capacity: Optional[int] = None) -> ShufflePlan:
         """Global counts matrix, slot capacity, rounds, output capacity."""
+        t0 = time.perf_counter()
+        self.timeline.begin("plan")
         num_parts = num_parts or self.mesh_size
         if num_parts % self.mesh_size:
             raise ValueError(f"num_parts {num_parts} not a multiple of "
@@ -280,6 +324,11 @@ class ShuffleExchange:
         owned = counts.sum(axis=0)
         per_device_in = [int(owned[d::self.mesh_size].sum())
                          for d in range(self.mesh_size)]
+        self.last_plan_s = time.perf_counter() - t0
+        self.metrics.counter("exchange.plans").inc()
+        self.metrics.histogram("exchange.plan_s").observe(self.last_plan_s)
+        self.timeline.end("plan", rounds=num_rounds, capacity=cap,
+                          split=split)
         return ShufflePlan(counts=counts, num_rounds=num_rounds,
                            out_capacity=classer(max(1, max(per_device_in))),
                            capacity=cap, split_factor=split)
@@ -546,6 +595,7 @@ class ShuffleExchange:
         m = self.metrics
         m.counter("exchange.exchanges").inc()
         m.counter("exchange.rounds").inc(plan.num_rounds)
+        m.counter("exchange.records").inc(plan.total_records)
         if row_filter is not None:
             m.counter("pushdown.filters").inc()
         if keep_words is not None:
@@ -553,7 +603,11 @@ class ShuffleExchange:
         if combine_hint is not None and aggregator:
             use_combine, dup_ratio = bool(combine_hint[0]), combine_hint[1]
         else:
+            # the gate's sampling is host work on the exchange's critical
+            # path: timed, so the attribution charges it to "combine"
+            self.timeline.begin("combine:gate")
             use_combine, dup_ratio = self.plan_combine(records, aggregator)
+            self.timeline.end("combine:gate")
         if aggregator:
             m.counter("combine.gate_on" if use_combine
                       else "combine.gate_off").inc()
@@ -578,11 +632,24 @@ class ShuffleExchange:
                     plan.out_capacity, w, sort_key_words, aggregator,
                     float_payload, tight, use_combine, fkey, keep_words,
                     getattr(partitioner, "cache_key", id(partitioner)))
-            out, totals, incoming = self._run(
-                records, partitioner, plan_parts, plan.capacity,
-                plan.num_rounds, plan.out_capacity, sort_key_words, tight,
-                aggregator, float_payload, use_combine, row_filter,
-                keep_words, okey)
+            tl = self.timeline
+            tl.begin("exchange:fused", rounds=plan.num_rounds)
+            if self._ring_fused_active():
+                # structural marks: the rounds run inside one kernel, so
+                # these record the launch's round structure, not its time
+                for r in range(plan.num_rounds):
+                    tl.begin("ring:round", round=r)
+                    tl.end("ring:round", round=r)
+            try:
+                out, totals, incoming = self._run(
+                    records, partitioner, plan_parts, plan.capacity,
+                    plan.num_rounds, plan.out_capacity, sort_key_words,
+                    tight, aggregator, float_payload, use_combine,
+                    row_filter, keep_words, okey)
+            finally:
+                # closed on a failed attempt too: the span's timeline
+                # stays balanced across retries
+                tl.end("exchange:fused")
             self.last_dispatches = 1
             m.counter("exchange.dispatches").inc()
         self._note_wire(records, incoming, use_combine,
@@ -763,7 +830,9 @@ class ShuffleExchange:
         unfused = (self.transport() == "pallas_ring"
                    and not self.conf.ring_fused)
 
+        tl = self.timeline
         # --- prep -------------------------------------------------------
+        tl.begin("stream:prep", chunks=n_chunks, rounds=plan.num_rounds)
         srs, cnts, offs = [], [], []
         for s in range(mesh):
             sr, c, o = self._map_side(
@@ -793,6 +862,7 @@ class ShuffleExchange:
         col = torch.arange(cap, device=dev)
         dump = mesh * oc + col
         dispatches = 1
+        tl.end("stream:prep")
 
         acc = self._get_buf((w_eff, mesh * oc + cap), dev)
         send = recv = None
@@ -813,12 +883,27 @@ class ShuffleExchange:
                         shuffle_id, f"injected fault (fault_spec: "
                         f"exchange.stream_round, chunk {j})")
                 if len(in_flight) >= self.conf.queue_depth:
-                    # the recvQueueDepth throttle: wait for the oldest
+                    # the recvQueueDepth throttle: wait for the oldest.
+                    # THE blocking wait of the regime, so it is armed: a
+                    # wedged chunk journals a stall instead of hanging
+                    # silently (Event.synchronize releases the GIL, so
+                    # the watchdog's timer runs meanwhile)
                     m.counter("exchange.queue_blocks").inc()
-                    done = in_flight.popleft()
-                    if done is not None:
-                        done.synchronize()
+                    tl.begin("queue:block", chunk=j)
+                    with self.watchdog.armed(
+                            "queue:block", shuffle=shuffle_id, chunk=j,
+                            queue=len(in_flight),
+                            pool_high_water=(
+                                self.pool.outstanding_high_water
+                                if self.pool is not None else 0)):
+                        if self.block_hook is not None:
+                            self.block_hook(j)
+                        done = in_flight.popleft()
+                        if done is not None:
+                            done.synchronize()
+                    tl.end("queue:block", chunk=j)
                 m.counter("exchange.stream_chunks").inc()
+                tl.begin("chunk", chunk=j)
                 rounds = slice(j * f_in, (j + 1) * f_in)
                 # chunk: send[s, f, d, q, :, c] = source s's column c of
                 # round j*F+f of partition q*mesh+d, or the zero column
@@ -841,6 +926,12 @@ class ShuffleExchange:
                     view = recv.copy_(send.transpose(0, 2))
                 self._put_buf(send)
                 send = None
+                tl.event("chunk:dispatch", chunk=j, rounds=f_in)
+                if self._ring_fused_active():
+                    # structural marks, as in the fused regime
+                    for jr in range(f_in):
+                        tl.begin("ring:round", round=j * f_in + jr)
+                        tl.end("ring:round", round=j * f_in + jr)
                 # fold: column c of (d, f, s, q) lands at its stream offset
                 ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
                 st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
@@ -854,6 +945,9 @@ class ShuffleExchange:
                     done = torch.cuda.Event()
                     done.record(torch.cuda.current_stream(dev))
                 in_flight.append(done)
+                tl.event("chunk:fold", chunk=j)
+                tl.end("chunk", chunk=j)
+                tl.counter("chunks.outstanding", len(in_flight))
             del src
 
             # --- tail ---------------------------------------------------
@@ -869,6 +963,7 @@ class ShuffleExchange:
                     aggregator, float_payload)
                 out[rows, d * oc:(d + 1) * oc] = part
                 new_totals.append(total)
+            tl.event("stream:tail")
         except BaseException:
             # an abandoned exchange gives its buffers back (docstring)
             for buf in (send, recv, acc):
@@ -881,6 +976,83 @@ class ShuffleExchange:
         m.counter("exchange.dispatches").inc(dispatches)
         return (out, torch.tensor(new_totals, dtype=torch.int32, device=dev),
                 incoming)
+
+    # ------------------------------------------------------------------
+    # plan + exchange in one call (callers without a manager)
+    # ------------------------------------------------------------------
+    def shuffle(self, records: torch.Tensor, partitioner: Callable,
+                num_parts: Optional[int] = None,
+                capacity: Optional[int] = None, shuffle_id: int = -1
+                ) -> Tuple[torch.Tensor, torch.Tensor, ShufflePlan]:
+        """:meth:`plan` and :meth:`exchange` in one call; returns ``(out,
+        totals, plan)``.
+
+        With ``conf.collect_shuffle_read_stats`` each call adds an
+        :class:`~sparkrdma_tpu_torch.obs.stats.ExchangeRecord` to
+        ``self.stats``, and with an enabled ``journal`` it writes a
+        (sampled) span: the stats and journal path of exchanges driven
+        without a ShuffleManager. Either one times the exchange through
+        a closing device sync; with neither, nothing waits."""
+        from sparkrdma_tpu_torch.utils.stats import Timer, barrier
+
+        plan = self.plan(records, partitioner, num_parts, capacity)
+        journal_on = self.journal is not None and self.journal.enabled
+        if not (self.stats.enabled or journal_on):
+            out, totals, _ = self.exchange(records, partitioner, plan,
+                                           num_parts, shuffle_id=shuffle_id)
+            return out, totals, plan
+        with Timer() as t:
+            out, totals, _ = self.exchange(records, partitioner, plan,
+                                           num_parts, shuffle_id=shuffle_id)
+            barrier(out, totals)
+        per_source = plan.counts.sum(axis=1)
+        if self.stats.enabled:
+            self.stats.add(ExchangeRecord(
+                shuffle_id=shuffle_id, plan_s=self.last_plan_s,
+                exec_s=t.elapsed, total_records=plan.total_records,
+                record_bytes=records.shape[0] * 4,
+                num_rounds=plan.num_rounds,
+                per_source_records=per_source))
+        if journal_on:
+            from sparkrdma_tpu_torch.hbm.tiered_store import store_totals
+            from sparkrdma_tpu_torch.obs import critical_path
+            from sparkrdma_tpu_torch.obs import trace as _trace
+            from sparkrdma_tpu_torch.obs.journal import (ExchangeSpan,
+                                                         next_span_id)
+
+            span_id = next_span_id()
+            st_spill, st_fetch, st_hits, st_sync = store_totals()
+            span = ExchangeSpan(
+                span_id=span_id, shuffle_id=shuffle_id,
+                transport=self.transport(), rounds=plan.num_rounds,
+                dispatches=self.last_dispatches,
+                records=plan.total_records,
+                record_bytes=records.shape[0] * 4,
+                plan_s=self.last_plan_s, exchange_s=t.elapsed, sort_s=0.0,
+                per_peer_records=[int(c) for c in per_source],
+                pool_high_water=(self.pool.outstanding_high_water
+                                 if self.pool is not None else 0),
+                process_index=self.identity[0],
+                host_count=self.identity[1],
+                events=self.timeline.drain(),
+                store_spill_bytes=st_spill, store_fetch_bytes=st_fetch,
+                store_prefetch_hits=st_hits, store_sync_fetches=st_sync,
+                **self.wire_stats())
+            tctx = _trace.current_trace()
+            if tctx is not None:
+                span.trace_id = tctx.trace_id
+                span.job = tctx.job
+                span.stage = tctx.stage
+                span.stage_attempt = tctx.stage_attempt
+            critical_path.enrich(span, metrics=self.metrics)
+            _trace.observe_active_span(span)
+            weight = self.sampler.keep_weight(span_id, t.elapsed)
+            if weight > 0:
+                span.sample_weight = weight
+                self.journal.emit(span)
+            else:
+                self.metrics.counter("journal.sampled_out").inc()
+        return out, totals, plan
 
 
 __all__ = ["ShuffleExchange", "ShufflePlan", "split_partitioner"]

@@ -51,6 +51,10 @@ go to the process-wide registry (``obs/metrics.py``) as ``faults.<site>``
 and ``recover.<name>`` counters. The port has no degradation rung, so
 every hard injection (``fail`` or ``corrupt``) is either retried by the
 reader or recovered in place: injections == retries + recoveries.
+Each injection also records ``fault:injected`` (``site``, ``action``,
+``hit``) and each recovery ``fault:recovered`` (``path``) on the active
+timeline (``obs/timeline.py``); with no degradation rung, no
+``fault:degraded`` event fires.
 
 ``ShuffleManager`` installs its plane process-wide, so module-level
 sites (host staging, the checkpoint store) reach it without a handle.
@@ -68,6 +72,7 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 from sparkrdma_tpu_torch.obs.metrics import global_registry
+from sparkrdma_tpu_torch.obs.timeline import record_active
 
 #: every legal site name, as in the reference
 SITES: Tuple[str, ...] = (
@@ -222,6 +227,8 @@ class FaultPlane:
         if fired is None:
             return None
         global_registry().counter(f"faults.{site}").inc()
+        record_active("fault:injected", site=site, action=fired.action,
+                      hit=hit)
         if fired.action == "delay":
             time.sleep(fired.delay_ms / 1e3)
             return None
@@ -322,6 +329,7 @@ def note_recovery(name: str) -> None:
     with _acct_lock:
         _recoveries[name] = _recoveries.get(name, 0) + 1
     global_registry().counter(f"recover.{name}").inc()
+    record_active("fault:recovered", path=name)
 
 
 def recovery_total() -> int:

@@ -43,7 +43,8 @@ its CRC is taken) and ``spill.read`` in ``read_array`` (``fail`` raises
 ``OSError``; ``corrupt`` flips a bit of the payload before the CRC
 check).
 
-Not ported: the timeline events.
+Each spill also records a ``staging:spill`` event (``bytes``) on the
+active timeline, so a spill in the middle of a read shows in its span.
 """
 
 from __future__ import annotations
@@ -60,13 +61,16 @@ import numpy as np
 
 from sparkrdma_tpu_torch import _build, faults
 from sparkrdma_tpu_torch.obs.metrics import global_registry
+from sparkrdma_tpu_torch.obs.timeline import record_active
 
 
 def _count_spill(nbytes: int) -> None:
-    """One host-staging spill, in the process-wide registry."""
+    """One host-staging spill, in the process-wide registry and on the
+    active timeline."""
     reg = global_registry()
     reg.counter("staging.spills").inc()
     reg.counter("staging.spill_bytes").inc(nbytes)
+    record_active("staging:spill", bytes=nbytes)
 
 
 def spill_count() -> int:

@@ -32,13 +32,18 @@ before they hand a buffer out: ``delay`` sleeps there, ``fail`` raises
 the retryable ``FetchFailedError`` (the pool itself is intact, so the
 reader's retry loop is the right handler) with nothing handed out.
 
-Left out of the reference's pool: the tenant accounts that charge HBM
-slots, and the timeline events.
+Each acquire records a ``pool:acquire`` event (``hit``, ``wait_s``: the
+host time of the pop or the allocation) and every change of occupancy a
+``pool.outstanding`` counter sample on the owning manager's timeline
+(``timeline``, the null timeline until a manager binds its own), as in
+the reference. Left out of the reference's pool: the tenant accounts
+that charge HBM slots.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -48,6 +53,7 @@ from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class
 from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.obs.timeline import NULL_TIMELINE
 from sparkrdma_tpu_torch.runtime.device import resolve_device
 
 
@@ -121,6 +127,8 @@ class SlotPool:
         #: the owning manager rebinds this to its own registry
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
+        #: the owning manager's in-span timeline (rebound like metrics)
+        self.timeline = NULL_TIMELINE
         for records, count in self.conf.prealloc_classes().items():
             cls = size_class(records)
             rw = self.conf.record_words
@@ -156,6 +164,7 @@ class SlotPool:
                                               self.outstanding)
             out = self.outstanding
         self.metrics.gauge("pool.outstanding").set(out)
+        self.timeline.counter("pool.outstanding", out)
 
     def _pop(self, key) -> Optional[torch.Tensor]:
         """A free buffer under ``key`` (counted as a hit), or None (a
@@ -183,10 +192,14 @@ class SlotPool:
             raise ValueError(f"size class {cls} for request of {n_records} "
                              f"records > max_slot_records "
                              f"{self.conf.max_slot_records}")
+        t0 = time.perf_counter()
         _fire_pool_acquire()
         arr = self._pop((cls, rw))
+        hit = arr is not None
         if arr is None:
             arr = self._zeros((cls, rw))
+        self.timeline.event("pool:acquire", hit=hit,
+                            wait_s=round(time.perf_counter() - t0, 6))
         self._track(+1)
         return Slot(arr, cls, rw, self)
 
@@ -200,10 +213,16 @@ class SlotPool:
         """Pop (or allocate, zero-filled) a buffer of exactly ``shape`` and
         ``dtype``; hand it back with :meth:`put_shaped`."""
         shape = tuple(int(s) for s in shape)
+        t0 = time.perf_counter()
         _fire_pool_acquire()
         arr = self._pop(("shaped", shape, dtype))
+        hit = arr is not None
         if arr is None:
             arr = self._zeros(shape, dtype)
+        # a miss pays the allocation, a hit only the pop: the pool's
+        # share of the span's wall-clock
+        self.timeline.event("pool:acquire", hit=hit,
+                            wait_s=round(time.perf_counter() - t0, 6))
         self._track(+1)
         return arr
 

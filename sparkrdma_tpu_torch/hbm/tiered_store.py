@@ -29,9 +29,12 @@ Counters and gauges live in the process-wide registry
 The threads start with the first ``put``, ``adopt``, ``prefetch`` or
 ``drain``: a manager that never stages a segment runs none.
 
-Left out of the reference: the tenant quota accounts
-(``register_account`` and the charges; segments keep their ``tenant``
-tag) and the timeline events.
+The store records ``spill:write`` (a demotion to disk), ``spill:fetch``
+(``sync=True``: a ``get`` blocked on disk) and ``spill:promote`` (a
+prefetched promotion) on the active timeline (``obs/timeline.py
+record_active``), as the reference does. Left out of the reference: the
+tenant quota accounts (``register_account`` and the charges; segments
+keep their ``tenant`` tag).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.hbm.host_staging import (HostBuffer, HostBufferPool,
                                                   read_array, write_array)
 from sparkrdma_tpu_torch.obs.metrics import global_registry
+from sparkrdma_tpu_torch.obs.timeline import record_active
 
 
 def store_totals() -> Tuple[int, int, int, int]:
@@ -248,6 +252,7 @@ class TieredStore:
                 return data
         # synchronous fetch: the consumer is blocked on disk right now
         global_registry().counter("store.sync_fetches").inc()
+        record_active("spill:fetch", key=key, sync=True)
         data = self._read_segment(seg)
         self._promote_install(key, data)
         return data
@@ -484,6 +489,7 @@ class TieredStore:
             reg.counter("store.spill_bytes").inc(seg.nbytes)
             if self._spill_codec:
                 reg.counter("store.compressed_segments").inc()
+            record_active("spill:write", key=seg.key, bytes=seg.nbytes)
             self._set_gauges()
         return True
 
@@ -525,6 +531,7 @@ class TieredStore:
                 with self._lock:
                     if self._segments.get(key) is seg:
                         seg.promoted = True
+                record_active("spill:promote", key=key, bytes=seg.nbytes)
         with self._lock:
             seg.event = None
         ev.set()

@@ -9,8 +9,9 @@ overlap: one ShuffleConf gate each) and runs it on a ShuffleManager. See
 rewrites.
 """
 
-from sparkrdma_tpu_torch.plan.executor import (BroadcastBuildError,
-                                               PlanExecutor,
+from sparkrdma_tpu_torch.plan.executor import (PLAN_FIELDS,
+                                               BroadcastBuildError,
+                                               PlanExecutor, plan_line,
                                                reuse_shuffle_id)
 from sparkrdma_tpu_torch.plan.nodes import (LogicalPlan, PlanNode,
                                             node_fingerprint)
@@ -18,5 +19,6 @@ from sparkrdma_tpu_torch.plan.optimizer import optimize
 
 __all__ = [
     "LogicalPlan", "PlanNode", "PlanExecutor", "optimize",
-    "node_fingerprint", "reuse_shuffle_id", "BroadcastBuildError",
+    "node_fingerprint", "PLAN_FIELDS", "plan_line", "reuse_shuffle_id",
+    "BroadcastBuildError",
 ]

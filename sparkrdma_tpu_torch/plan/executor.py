@@ -1,11 +1,16 @@
 """Stage-DAG executor: runs an optimized plan on a ShuffleManager.
 
 Counterpart of ``sparkrdma_tpu.plan.executor``. ``PlanExecutor.run``
-optimizes the DAG (``plan/optimizer.py``), keeps the decisions in
-:attr:`PlanExecutor.decisions` and counts them, then walks the DAG
-bottom-up, running each node through the Dataset verbs. One executor can
-run a query SUITE: its exchange-reuse memo (fingerprint -> exchange
-output) spans ``run`` calls.
+opens a job trace (``manager.job``), optimizes the DAG
+(``plan/optimizer.py``) inside its ``plan_optimize`` stage, keeps the
+decisions in :attr:`PlanExecutor.decisions`, counts them and journals
+each as a ``{"kind": "plan"}`` line (:func:`plan_line`, the frozen
+:data:`PLAN_FIELDS`), then walks the DAG bottom-up, running each node
+through the Dataset verbs (a node's explicit ``stage`` opens that
+stage). ``run_inline`` does the same under the caller's job and stages.
+One executor can run a query SUITE: its exchange-reuse memo
+(fingerprint -> exchange output) spans ``run`` calls. The combine hoist,
+each reuse and each broadcast join journal their own plan lines.
 
 Per rewrite gate:
 
@@ -32,14 +37,13 @@ Per rewrite gate:
 The lookup join of each partition is ``torch.sort(stable=True)`` of the
 dim's keys and ``torch.searchsorted`` into them. Every rewrite is
 bit-identical on and off at the ``to_host_rows`` level.
-
-Not ported: the ``{"kind": "plan"}`` journal lines (``plan_line``) and
-the job-trace stages wait for the observability stack (ROADMAP A.8).
 """
 
 from __future__ import annotations
 
 import logging
+import time
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,6 +54,8 @@ from sparkrdma_tpu_torch.api.dataset import (Dataset, _low_word_hash,
 from sparkrdma_tpu_torch.api.pipeline import HostPrefetcher
 from sparkrdma_tpu_torch.interop import records_from_torch
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.obs.journal import SCHEMA_VERSION
 from sparkrdma_tpu_torch.plan.nodes import (LogicalPlan, PlanNode,
                                             fingerprint_hex)
 from sparkrdma_tpu_torch.plan.optimizer import Decision, optimize
@@ -65,10 +71,46 @@ _REUSE_ID_SPAN = 1 << 44
 
 _PAD_KEY = 0xFFFFFFFF
 
+#: the frozen field set of every ``{"kind": "plan"}`` journal line (the
+#: reference's; the CLIs read these keys)
+PLAN_FIELDS = frozenset({
+    "kind", "schema", "ts", "trace_id", "job", "node", "op", "rewrite",
+    "fingerprint", "rows", "bytes_saved", "detail",
+})
+
 
 def reuse_shuffle_id(fp: str) -> int:
     """Deterministic checkpoint shuffle id for an exchange fingerprint."""
     return _REUSE_ID_BASE + int(fp, 16) % _REUSE_ID_SPAN
+
+
+def plan_line(node: str, op: str, rewrite: str, fingerprint: str,
+              rows: int = 0, bytes_saved: int = 0,
+              detail: str = "") -> dict:
+    """One ``{"kind": "plan"}`` journal line (schema v13). ``rewrite``
+    is ``pushdown`` / ``reuse`` / ``broadcast_join`` / ``overlap`` /
+    ``combine_hoist``. The drift check raises (it survives ``python
+    -O``)."""
+    tc = _trace.current_trace()
+    line = {
+        "kind": "plan",
+        "schema": SCHEMA_VERSION,
+        "ts": time.time(),
+        "trace_id": tc.trace_id if tc else "",
+        "job": tc.job if tc else "",
+        "node": node,
+        "op": op,
+        "rewrite": rewrite,
+        "fingerprint": fingerprint,
+        "rows": int(rows),
+        "bytes_saved": int(bytes_saved),
+        "detail": detail,
+    }
+    if set(line) != PLAN_FIELDS:
+        raise RuntimeError("plan journal line drifted from PLAN_FIELDS "
+                           "— update the frozen set and this emitter "
+                           "together")
+    return line
 
 
 class BroadcastBuildError(RuntimeError):
@@ -92,17 +134,35 @@ class PlanExecutor:
 
     # ------------------------------------------------------------------
     def run(self, plan: LogicalPlan, job_name: str = ""):
-        """Optimize and execute: host rows for a ``sink`` root, a
-        ``GroupedData`` for a ``group_by_key`` root, else a Dataset.
-        ``job_name`` names the run (the job trace waits for A.8)."""
-        del job_name
+        """Optimize and execute under a job trace named ``job_name`` (else
+        the plan's name, else ``"plan"``): host rows for a ``sink`` root,
+        a ``GroupedData`` for a ``group_by_key`` root, else a Dataset."""
         m = self.manager
         self._reset_run_state()
-        root, self.decisions = optimize(plan.root, m.conf)
-        for d in self.decisions:
+        with m.job(job_name or plan.name or "plan"):
+            with _trace.stage("plan_optimize"):
+                root, self.decisions = optimize(plan.root, m.conf)
+            self._journal_decisions(self.decisions)
+            return self._exec(root)
+
+    def run_inline(self, plan: LogicalPlan):
+        """Optimize and execute under the CALLER's job and stage scopes:
+        no job of its own, no ``plan_optimize`` stage (a planner-built
+        fragment inside an explicitly staged workload, as q95's
+        ``co_partition`` stage)."""
+        self._reset_run_state()
+        root, self.decisions = optimize(plan.root, self.manager.conf)
+        self._journal_decisions(self.decisions)
+        return self._exec(root)
+
+    def _journal_decisions(self, decisions: List[Decision]) -> None:
+        m = self.manager
+        for d in decisions:
             if d.rewrite == "pushdown" and d.detail.startswith("fused"):
                 m.metrics.counter("plan.pushdown_sunk").inc()
-        return self._exec(root)
+            m.journal.emit_raw(plan_line(
+                d.node, d.op, d.rewrite, d.fingerprint,
+                rows=d.rows, bytes_saved=d.bytes_saved, detail=d.detail))
 
     def _reset_run_state(self) -> None:
         """Per-run source results and prefetch bookkeeping; an aborted
@@ -132,24 +192,30 @@ class PlanExecutor:
         if op == "join":
             return self._exec_join(node)
         ds = self._exec(node.children[0])
-        if op == "repartition":
-            return self._memo_exchange(
-                node.fp, node, lambda: ds.repartition(node.num_parts))
-        if op == "sort_by_key":
-            return self._memo_exchange(
-                node.fp, node,
-                lambda: ds.sort_by_key(node.samples_per_device))
-        if op == "reduce_by_key":
-            hint = self._hoist_combine(node, ds)
-            return self._memo_exchange(
-                node.fp, node,
-                lambda: ds.reduce_by_key(node.agg,
-                                         float_payload=node.float_payload,
-                                         combine_hint=hint))
-        if op == "group_by_key":
-            # a CSR result, not memoized (the memo holds Datasets)
-            return ds.group_by_key()
+        with self._maybe_stage(node.stage):
+            if op == "repartition":
+                return self._memo_exchange(
+                    node.fp, node, lambda: ds.repartition(node.num_parts))
+            if op == "sort_by_key":
+                return self._memo_exchange(
+                    node.fp, node,
+                    lambda: ds.sort_by_key(node.samples_per_device))
+            if op == "reduce_by_key":
+                hint = self._hoist_combine(node, ds)
+                return self._memo_exchange(
+                    node.fp, node,
+                    lambda: ds.reduce_by_key(
+                        node.agg, float_payload=node.float_payload,
+                        combine_hint=hint))
+            if op == "group_by_key":
+                # a CSR result, not memoized (the memo holds Datasets)
+                return ds.group_by_key()
         raise ValueError(f"unknown plan op {op!r}")
+
+    @staticmethod
+    def _maybe_stage(name: str):
+        """The node's explicit job-trace stage, if it names one."""
+        return _trace.stage(name) if name else nullcontext()
 
     def _eager(self, ds: Dataset) -> Dataset:
         """Pushdown off materializes pending ops now (filtered rows
@@ -181,7 +247,11 @@ class PlanExecutor:
         m = self.manager
         if not m.conf.plan_pushdown:
             return None
-        return m._exchange.plan_combine(ds.records, node.agg)
+        use, ratio = m._exchange.plan_combine(ds.records, node.agg)
+        m.journal.emit_raw(plan_line(
+            node.label, node.op, "combine_hoist", node.fp,
+            detail=f"use={use} ratio={ratio:.3f}"))
+        return (use, ratio)
 
     # ------------------------------------------------------------------
     # shuffle-output reuse
@@ -192,11 +262,18 @@ class PlanExecutor:
         if not m.conf.plan_reuse:
             return run()
         hit = self._memo.get(fp)
+        via = "memo"
         if hit is None and m.store is not None:
             hit = self._try_resume(fp, node)
+            via = "resume_segments"
         if hit is not None:
             records, totals, schema, projected = hit
+            rows = int(totals.sum())
             m.metrics.counter("plan.reuse_hits").inc()
+            m.journal.emit_raw(plan_line(
+                node.label, node.op, "reuse", fp, rows=rows,
+                bytes_saved=rows * int(records.shape[0]) * 4,
+                detail=f"adopted via {via}"))
             ds = Dataset(m, records, totals, schema=schema)
             ds.projected = projected
             return ds
@@ -266,9 +343,10 @@ class PlanExecutor:
         left_node, dim_node = node.children
         self._maybe_prefetch(dim_node)
         left = self._exec(left_node)
-        if node.broadcast and self.manager.conf.plan_broadcast_join:
-            return self._broadcast_join(node, left, dim_node)
-        return self._shuffle_join(node, left, dim_node)
+        with self._maybe_stage(node.stage):
+            if node.broadcast and self.manager.conf.plan_broadcast_join:
+                return self._broadcast_join(node, left, dim_node)
+            return self._shuffle_join(node, left, dim_node)
 
     def _maybe_prefetch(self, dim_node: PlanNode) -> None:
         """Start a marked dim source's host encode on the background
@@ -304,11 +382,11 @@ class PlanExecutor:
         fp_l = fingerprint_hex(("xjoin_left", node.children[0].fp,
                                 key_ix, mesh))
         fp_d = fingerprint_hex(("xjoin_dim", dim_node.fp, key_ix, mesh))
-        l2 = self._memo_exchange(fp_l, node,
-                                 lambda: left._exchange(part, mesh))
+        l2 = self._memo_exchange(
+            fp_l, node, lambda: left._exchange(part, mesh, op="join"))
         dim = self._exec(dim_node)
-        d2 = self._memo_exchange(fp_d, node,
-                                 lambda: dim._exchange(part, mesh))
+        d2 = self._memo_exchange(
+            fp_d, node, lambda: dim._exchange(part, mesh, op="join"))
         kw = m.conf.key_words
         out = torch.empty_like(l2.records)
         for lc, lt, dc, dt, o in zip(_parts(l2.records, mesh),
@@ -327,20 +405,26 @@ class PlanExecutor:
         side exchanges. The same rows as the shuffle join; only their
         placement differs, which the next exchange makes canonical."""
         m = self.manager
-        sd, attrs = self._broadcast_build(dim_node)
+        with _trace.auto_stage("broadcast_build"):
+            sd, attrs, n_slots = self._broadcast_build(dim_node)
         left = left._materialize_pending()
         mesh = m.runtime.num_partitions
         out = torch.empty_like(left.records)
-        for lc, lt, o in zip(_parts(left.records, mesh),
-                             left.totals.tolist(), _parts(out, mesh)):
+        totals = left.totals.tolist()
+        for lc, lt, o in zip(_parts(left.records, mesh), totals,
+                             _parts(out, mesh)):
             self._lookup(lc, lt, sd, attrs, node, o)
         m.metrics.counter("plan.broadcast_joins").inc()
+        m.journal.emit_raw(plan_line(
+            node.label, node.op, "broadcast_join", node.fp,
+            rows=sum(totals), detail=f"dim replicated ({n_slots} slots)"))
         return Dataset(m, out, left.totals, schema=node.schema)
 
     def _broadcast_build(self, dim_node: PlanNode):
         """The dim side on the host: its sorted unique keys (as unsigned
         int64) and attributes on the device, padded to a power-of-two
-        count with all-ones keys. Duplicate keys raise."""
+        count with all-ones keys, and that count. Duplicate keys
+        raise."""
         dim = self._exec(dim_node)
         rows = dim.to_host_rows()
         kw = self.manager.conf.key_words
@@ -361,7 +445,7 @@ class PlanExecutor:
         at = np.concatenate([attrs, np.zeros(pad, np.uint32)])
         dev = self.manager.runtime.device
         return (torch.from_numpy(sd.astype(np.int64)).to(dev),
-                torch.from_numpy(at.view(np.int32)).to(dev))
+                torch.from_numpy(at.view(np.int32)).to(dev), n_pad)
 
     def _lookup(self, lc: torch.Tensor, lt: int, sd: torch.Tensor,
                 attrs: torch.Tensor, node: PlanNode,
@@ -412,4 +496,5 @@ class PlanExecutor:
             self._prefetcher = None
 
 
-__all__ = ["PlanExecutor", "reuse_shuffle_id", "BroadcastBuildError"]
+__all__ = ["PlanExecutor", "PLAN_FIELDS", "plan_line", "reuse_shuffle_id",
+           "BroadcastBuildError"]

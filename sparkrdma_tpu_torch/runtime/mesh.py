@@ -49,6 +49,10 @@ class MeshRuntime:
         self.device = resolve_device(device)
         self.num_partitions = int(num_partitions)
         self.pool = SlotPool(self.conf, device=self.device)
+        #: the process's place among the hosts (one process, one card
+        #: here): stamped into journal spans as the reference stamps them
+        self.process_index = 0
+        self.process_count = 1
 
     def manager_id(self, device_index: int) -> ManagerId:
         if not 0 <= device_index < self.num_partitions:

@@ -1,10 +1,18 @@
-"""Timing utilities: a wall-clock ``Timer`` and a device ``barrier``."""
+"""Shuffle read statistics and timing utilities.
+
+``ExchangeRecord`` / ``ShuffleReadStats`` (the ``RdmaShuffleReaderStats``
+analogue) live in :mod:`sparkrdma_tpu_torch.obs.stats` and are
+re-exported here, as the reference's ``utils/stats.py`` does; ``Timer``
+and ``barrier`` are timing utilities.
+"""
 
 from __future__ import annotations
 
 import time
 
 import torch
+
+from sparkrdma_tpu_torch.obs.stats import ExchangeRecord, ShuffleReadStats
 
 
 class Timer:
@@ -27,4 +35,4 @@ def barrier(*tensors) -> None:
         torch.cuda.synchronize()
 
 
-__all__ = ["Timer", "barrier"]
+__all__ = ["ExchangeRecord", "ShuffleReadStats", "Timer", "barrier"]

@@ -17,8 +17,9 @@ is static, so both exchange plans are made once.
 The exchange output is bit-equal to the reference's for the same
 factors (the float sums mirror its scan tree, and the partials are
 plain products). The factors agree only to a tolerance, because
-``torch.linalg.solve`` is not ``jnp.linalg.solve``. The job-trace stages
-around each half-step wait for the observability stack (ROADMAP A.8).
+``torch.linalg.solve`` is not ``jnp.linalg.solve``. Under a job trace
+each half-step is a stage (``update_users`` / ``update_items``, attempt
+= the iteration), as in the reference.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
 
@@ -242,15 +244,20 @@ def run_als(
 
     wire: Dict[str, Dict[str, float]] = {}
     t0 = time.perf_counter()
-    for _ in range(iterations):
-        out, totals = als.exchange(als.build(V, als.users), als.users)
-        wire["users"] = dict(als.ex.wire_stats())
-        U = als.update(out, totals, als.users)
-        out, totals = als.exchange(als.build(U, als.items), als.items)
-        wire["items"] = dict(als.ex.wire_stats())
-        V = als.update(out, totals, als.items)
-        del out
-        barrier(V)              # each iteration is a stage boundary
+    for it in range(iterations):
+        # one job-trace stage per half-step (a no-op outside a job): the
+        # exchange here has no journal, so the stage's wall-clock comes
+        # from the job's clock, not from spans
+        with _trace.stage("update_users", attempt=it):
+            out, totals = als.exchange(als.build(V, als.users), als.users)
+            wire["users"] = dict(als.ex.wire_stats())
+            U = als.update(out, totals, als.users)
+        with _trace.stage("update_items", attempt=it):
+            out, totals = als.exchange(als.build(U, als.items), als.items)
+            wire["items"] = dict(als.ex.wire_stats())
+            V = als.update(out, totals, als.items)
+            del out
+            barrier(V)          # each iteration is a stage boundary
     total_s = time.perf_counter() - t0
 
     u_np = _from_owner_layout(U.reshape(-1, k).cpu().numpy(), mesh,

@@ -8,7 +8,8 @@ record per edge (key ``(0, dst)``, payload the float32 bits of
 (``aggregator="sum"``, ``float_payload=True``, with the map-side combine
 gate of ``conf.map_side_combine``), and adds each partition's per-key
 sums into its dense rank slice. The graph is static, so the plan is made
-once and reused by every iteration.
+once and reused by every iteration. Under a job trace each iteration is
+a ``rank_update`` stage (attempt = the iteration), as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
 
@@ -132,13 +134,17 @@ def run_pagerank(runtime: MeshRuntime, edges: np.ndarray, num_vertices: int,
         return torch.where(vid < v, new, 0.0)   # zero the padding vertices
 
     t0 = time.perf_counter()
-    for _ in range(iterations):
-        build_records(ranks)
-        out, totals, _ = ex.exchange(records, part, plan, mesh,
-                                     aggregator="sum", float_payload=True)
-        ranks = update_ranks(out, totals)
-        del out
-        barrier(ranks)          # each iteration is a stage boundary
+    for it in range(iterations):
+        # one job-trace stage per iteration (a no-op outside a job); the
+        # exchange has no journal, so the stage's wall-clock is the job's
+        with _trace.stage("rank_update", attempt=it):
+            build_records(ranks)
+            out, totals, _ = ex.exchange(records, part, plan, mesh,
+                                         aggregator="sum",
+                                         float_payload=True)
+            ranks = update_ranks(out, totals)
+            del out
+            barrier(ranks)      # each iteration is a stage boundary
     total_s = time.perf_counter() - t0
 
     r_np = ranks.cpu().numpy().T.reshape(-1)[:v]

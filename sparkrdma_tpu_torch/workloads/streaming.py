@@ -38,6 +38,7 @@ from sparkrdma_tpu_torch.hbm.input_stream import (InputStreamer,
                                                   StoreChunkSource)
 from sparkrdma_tpu_torch.hbm.tiered_store import store_totals
 from sparkrdma_tpu_torch.meta.sampling import compute_splitters
+from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.utils.stats import barrier
 from sparkrdma_tpu_torch.workloads.terasort import device_verify_sort
 
@@ -267,32 +268,38 @@ def run_tiered_terasort(
 
     base0 = store_totals()
     t0 = time.perf_counter()
-    if resume:
-        manager.resume_segments(shuffle_id_base)
-    else:
-        # the writer evicts past the watermark while later chunks publish
-        segs = []
-        for j in range(n_chunks):
-            chunk = cols[:, j * chunk_records:(j + 1) * chunk_records]
-            # not shuffle-tagged: the staged chunks are this workload's
-            # own working set, which unregister_shuffle must not drop
-            store.put(keys[j], chunk)
+    # the job-trace stages of this workload (no-ops outside a job):
+    # publish, one chunk_sort per chunk, collect
+    with _trace.stage("publish"):
+        if resume:
+            manager.resume_segments(shuffle_id_base)
+        else:
+            # the writer evicts past the watermark while later chunks
+            # publish
+            segs = []
+            for j in range(n_chunks):
+                chunk = cols[:, j * chunk_records:(j + 1) * chunk_records]
+                # not shuffle-tagged: the staged chunks are this
+                # workload's own working set, which unregister_shuffle
+                # must not drop
+                store.put(keys[j], chunk)
+                if checkpoint:
+                    segs.append((keys[j], chunk))
             if checkpoint:
-                segs.append((keys[j], chunk))
-        if checkpoint:
-            # segment checkpoints carry the chunks and a trivial plan
-            plan = ShufflePlan(counts=np.zeros((mesh, mesh), np.int64),
-                               num_rounds=1,
-                               out_capacity=chunk_records // mesh,
-                               capacity=chunk_records // mesh,
-                               split_factor=1)
-            manager.checkpoint_segments(shuffle_id_base, segs, plan, mesh)
-            del segs
+                # segment checkpoints carry the chunks and a trivial plan
+                plan = ShufflePlan(
+                    counts=np.zeros((mesh, mesh), np.int64), num_rounds=1,
+                    out_capacity=chunk_records // mesh,
+                    capacity=chunk_records // mesh, split_factor=1)
+                manager.checkpoint_segments(shuffle_id_base, segs, plan,
+                                            mesh)
+                del segs
 
-    # splitters from chunk 0, riding a promotion rather than a sync fetch
-    store.prefetch(keys[:1])
-    part = _splitter_partitioner(store.get(keys[0]), mesh, kw,
-                                 samples_per_device)
+        # splitters from chunk 0, riding a promotion rather than a sync
+        # fetch
+        store.prefetch(keys[:1])
+        part = _splitter_partitioner(store.get(keys[0]), mesh, kw,
+                                     samples_per_device)
 
     streamer = InputStreamer(rt, StoreChunkSource(
         store, keys, lookahead=manager.conf.spill_tier_prefetch),
@@ -307,23 +314,27 @@ def run_tiered_terasort(
         sid = shuffle_id_base + 1 + j
         handle = manager.register_shuffle(sid, mesh, part)
         try:
-            manager.get_writer(handle).write(chunk).stop(True)
-            out, totals = manager.get_reader(handle,
-                                             key_ordering=True).read()
-            if device_verify:
-                ok = device_verify_sort(manager, chunk, out, totals, kw,
-                                        out.shape[1] // mesh)
-                verified = ok if verified is None else verified and ok
-            if collect:
-                host = out.cpu().numpy().view(np.uint32)
-                tot = totals.tolist()
-                cap = host.shape[1] // mesh
-                for d in range(mesh):
-                    k = int(tot[d])
-                    device_rows[d].append(
-                        np.array(host[:, d * cap:d * cap + k].T))
-            else:
-                barrier(out)
+            with _trace.stage("chunk_sort", attempt=j):
+                # each chunk's span carries the store's spill and fetch
+                # totals and its spill:* events: the evidence that tier
+                # I/O overlapped the exchanges
+                manager.get_writer(handle).write(chunk).stop(True)
+                out, totals = manager.get_reader(handle,
+                                                 key_ordering=True).read()
+                if device_verify:
+                    ok = device_verify_sort(manager, chunk, out, totals, kw,
+                                            out.shape[1] // mesh)
+                    verified = ok if verified is None else verified and ok
+                if collect:
+                    host = out.cpu().numpy().view(np.uint32)
+                    tot = totals.tolist()
+                    cap = host.shape[1] // mesh
+                    for d in range(mesh):
+                        k = int(tot[d])
+                        device_rows[d].append(
+                            np.array(host[:, d * cap:d * cap + k].T))
+                else:
+                    barrier(out)
         finally:
             manager.unregister_shuffle(sid)
             # the consumed chunk leaves the store, bounding occupancy
@@ -332,9 +343,10 @@ def run_tiered_terasort(
 
     rows = None
     if collect:
-        rows = _canon(np.concatenate(
-            [r for per_dev in device_rows for r in per_dev])
-            if records else np.zeros((0, w), np.uint32))
+        with _trace.stage("collect"):
+            rows = _canon(np.concatenate(
+                [r for per_dev in device_rows for r in per_dev])
+                if records else np.zeros((0, w), np.uint32))
     return TieredSortResult(
         chunks=n_chunks, records=records, record_bytes=4 * w,
         stream_s=stream_s, rows=rows,

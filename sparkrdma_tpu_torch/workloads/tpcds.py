@@ -47,6 +47,7 @@ from sparkrdma_tpu_torch.api.dataset import Dataset, _parts
 from sparkrdma_tpu_torch.api.serde import RowSchema
 from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.plan import LogicalPlan, PlanExecutor
 from sparkrdma_tpu_torch.utils.stats import barrier
 
@@ -288,12 +289,19 @@ def run_q95_shape(
         return_order_offset, seed)
     ex = PlanExecutor(manager)
     t0 = time.perf_counter()
-    outs = [ex.run(LogicalPlan.dataset(
-        Dataset.from_host_rows(manager, table), name=name).repartition())
-        for name, table in (("q95_sales", sales), ("q95_returns", returns))]
+    # the query's two job-trace stages (no-ops outside a job): both
+    # co-partition exchanges, planner-run inline under the first, then
+    # the probe join
+    with _trace.stage("co_partition"):
+        outs = [ex.run_inline(LogicalPlan.dataset(
+            Dataset.from_host_rows(manager, table), name=name)
+            .repartition())
+            for name, table in (("q95_sales", sales),
+                                ("q95_returns", returns))]
     barrier(outs[1].records)
     shuffle_s = time.perf_counter() - t0     # the exchanges only
-    count, net_sum = _q95_probe(*outs)
+    with _trace.stage("probe_join"):
+        count, net_sum = _q95_probe(*outs)
     verified = None
     if verify:
         ref_cnt, ref_net = _q95_expect(sales, returns, n_warehouses)

@@ -6,8 +6,9 @@ A port of every case of ``tests/test_fault_recovery.py`` and of
 against the reference: the same input rows (made from a seed with
 numpy) and the same ``fault_spec`` or hook give the same ``out`` and
 ``totals`` bits (tolerance 0), or the same error type and ``attempt``.
-The port has no journal yet, so its retries are counted from the
-reader's warning log records (``caplog``). Then the port's own cases:
+The retries are counted from the reader's warning log records
+(``caplog``), which need no journal (``tests/test_torch_obs.py`` holds
+the journal span's ``retry_count``). Then the port's own cases:
 a ``torch.AcceleratorError`` or ``KernelLaunchError`` out of the
 exchange is retried; a plain ``RuntimeError``, a ``ValueError`` and the
 build's "nvcc not found" error propagate on the first attempt; a failed
@@ -512,8 +513,8 @@ class TestFaultPlaneRecovery:
 class TestBackoffDeadline:
     def test_backoff_follows_the_reference_schedule(self, ref, monkeypatch,
                                                     caplog_port):
-        """Each retry sleeps ``faults.backoff_ms(k, base)`` (the port has
-        no journal span, so its span id is 0): the reference's schedule,
+        """Each retry sleeps ``faults.backoff_ms(k, base)`` (the journal
+        is off, so the read's span id is 0): the reference's schedule,
         to the last bit, within its per-attempt bounds."""
         slept = []
         real_sleep = sm.time.sleep

@@ -76,6 +76,20 @@ def test_durability_and_fault_modules_scanned(rel):
     assert not [n for _, n in _imports(path) if _forbidden(n)]
 
 
+@pytest.mark.parametrize("rel", [
+    "obs/metrics.py", "obs/names.py", "obs/stats.py", "obs/timeline.py",
+    "obs/journal.py", "obs/critical_path.py", "obs/watchdog.py",
+    "obs/trace.py", "utils/profiling.py", "utils/stats.py"])
+def test_observability_modules_scanned(rel):
+    """The journal, the timeline, the watchdog, job traces, the critical
+    path and the profiling hooks are the port's own copies (the
+    reference's ``obs`` modules import no JAX, and are copied all the
+    same)."""
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):
