@@ -50,7 +50,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      E        PageRank, 5 iterations over a Graph500 Kronecker graph at
               SCALE 22, edgefactor 16 (67,108,864 edges), made on the card
               from a seed, checked against a float64 numpy PageRank;
-   with a ``torch.profiler`` table of one leg-D read;
+   (leg D's ``torch.profiler`` table went in PR 12, to pay for leg S
+   and the ``service`` phase: the ``obs`` phase's traces are the
+   process's profiler sessions now);
 4. the reference's default exchange geometry (``slot_records`` 4096,
    ``max_rounds_in_flight`` 2, ``queue_depth`` 8, the pack sort mode,
    the slot pool; only the transport and the record width set):
@@ -142,7 +144,8 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
     defaults have it): one ``phase: native_staging`` line per part —
     ``build`` (seconds, compiler, cores); ``codec`` (leg P's data through
     the four codec calls on the native codec at the default threads and
-    at one, and on numpy: bytes equal, MB/s); ``spill`` (leg Q's 1.68 GB
+    on numpy: bytes equal, MB/s; the one-thread runs went in PR 12);
+    ``spill`` (leg Q's 1.68 GB
     through a ``SpillWriter`` on each path: files byte-identical, GB/s,
     each file read on both paths); ``pinned`` (a pinned staging lease is
     page-locked and a copy from it returns before it lands, beside leg
@@ -171,11 +174,32 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
     line lands before ``synchronize()`` returns); M-small's queries with
     the journal on, card against CPU (the same plan lines and jobs); the
     reference's ``shuffle_report.py --json`` and ``shuffle_trace.py`` on
-    the phase's journals, as subprocesses;
-   then the ring kernel at every send shape legs B-Q launched it at
+    the phase's journals, as subprocesses (since PR 12 the journal-on
+    arm also folds every read into the windowed rollup);
+12. the multi-tenant service (``sparkrdma_tpu_torch/service``):
+     S        ``bench.py``'s ``run_multitenant``: two tenants' TeraSorts
+              (8,388,608 × 100-byte records each, tenant_a seed 11 and
+              tenant_b seed 12) at once through one ``ShuffleService``,
+              a warm-up and 3 reads each, with the journal, heartbeat,
+              telemetry, alerts and probe on; per-tenant and aggregate
+              GB/s, fairness (min/max), the wall clock and peak memory;
+              each tenant device-verified and equal bit for bit to the
+              same tenant run alone;
+     service  one line a part, each with its checks: ``sessions`` (leg
+              B's conf and ``ring_fused=False`` as sessions, each equal
+              to its solo run; the shared pool's stream order on two
+              streams), ``isolation`` (one tenant's injected dispatch
+              failure beside another tenant's clean read: books per
+              tenant), ``rpc`` (an ``RpcClient`` on localhost: every op
+              of the session surface, a corrupted frame retried, a 0.5 s
+              lease expiring), ``probe`` (Prometheus text, health, the
+              reference's ``shuffle_top.py --connect --rpc``), ``alerts``
+              (``spill_storm`` fired by a spilling out-of-core run and
+              resolved, read by ``shuffle_report.py``);
+   then the ring kernel at every send shape legs B-S launched it at
    (recorded while each leg ran), each against its plain version and
    timed;
-12. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+13. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
 Every phase, leg, profile and leg-seconds line carries ``wall_s``: the
@@ -482,6 +506,7 @@ RING_LEG_SHAPES = [
     ("M-small", (8, 1, 8, 1, 4, 89), False),
     ("M-small", (8, 1, 8, 1, 4, 193), False),
     ("M-small", (8, 1, 8, 1, 4, 513), False),
+    ("service", (8, 1, 8, 1, 4, 1025), False),
     ("M", (8, 1, 8, 1, 4, 3201), False),
     ("D-small", (8, 1, 8, 1, 4, 32768), True),
     ("D-small", (8, 1, 8, 1, 4, 32769), False),
@@ -495,15 +520,16 @@ RING_LEG_SHAPES = [
     ("M-small", (8, 1, 8, 1, 6, 249), False),
     ("M-small", (8, 1, 8, 1, 6, 1665), False),
     ("H-small", (8, 1, 8, 1, 25, 1152), True),
-    ("H-small, Q-small", (8, 1, 8, 1, 25, 1153), False),
+    ("H-small, Q-small, service", (8, 1, 8, 1, 25, 1153), False),
     ("H-small", (8, 1, 8, 1, 25, 1216), True),
-    ("H-small, Q-small", (8, 1, 8, 1, 25, 1217), False),
+    ("H-small, Q-small, service", (8, 1, 8, 1, 25, 1217), False),
     ("H-small", (8, 1, 8, 1, 25, 2049), False),
     ("F-small, K-small, Q-small", (8, 1, 8, 1, 25, 4096), True),
-    ("C-small", (8, 1, 8, 1, 25, 32768), True),
-    ("B-small", (8, 1, 8, 1, 25, 32769), False),
+    ("C-small, service", (8, 1, 8, 1, 25, 32768), True),
+    ("B-small, service", (8, 1, 8, 1, 25, 32769), False),
     ("H", (8, 1, 8, 1, 25, 34817), False),
     ("H", (8, 1, 8, 1, 25, 36865), False),
+    ("S", (8, 1, 8, 1, 25, 147457), False),
     ("C", (8, 1, 8, 1, 25, 524288), True),
     ("B", (8, 1, 8, 1, 25, 524289), False),
     ("L-small", (8, 1, 8, 1, 46, 32769), False),
@@ -900,7 +926,6 @@ def leg_d():
     if not verified:
         fail("leg D disagrees with numpy")
     del out, totals
-    profile("leg D read", reader.read, "profiles/torch_legD.txt")
     m.stop()
     return line
 
@@ -1091,19 +1116,6 @@ def leg(name: str, partitions: int, records: int, transport: str,
     if not res.verified:
         fail(f"leg {name} failed verification")
     return line, out, totals
-
-
-def profile(label: str, read, path: str) -> dict:
-    """Device time by kernel of one ``read()`` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    read()
-    read_ms = time_ms(read, reps=3, warm=0)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        read()
-        torch.cuda.synchronize()
-    return profile_table(label, prof, read_ms, path)
 
 
 def kernel_rows(prof) -> list:
@@ -3449,10 +3461,9 @@ def native_build_line(build_s: float) -> dict:
     return line
 
 
-#: the three codecs of the native_staging phase: native with the default
-#: threads, native on one thread, numpy
+#: the codecs of the native_staging phase: native with the default
+#: threads, numpy
 CODEC_VARIANTS = (("native", {"native": True}),
-                  ("native_1_thread", {"native": True, "threads": 1}),
                   ("numpy", {"native": False}))
 
 
@@ -4003,9 +4014,14 @@ def obs_cell(name: str, root: str) -> dict:
     del readers, ms, recs
     torch.cuda.empty_cache()
     spans = read_journal(sink)
-    (job_line,) = [e for e in read_entries(sink) if e.get("kind") == "job"]
+    entries = read_entries(sink)
+    (job_line,) = [e for e in entries if e.get("kind") == "job"]
+    rollups = [e for e in entries if e.get("kind") == "rollup"]
     checks, summary = obs_span_checks(spans, plan, job_line, conf,
                                       recorded)
+    # since PR 12 the journal-on arm folds every read into the rollup
+    checks["rollup_counts_every_read"] = \
+        sum(e["reads"] for e in rollups) == recorded
     if name == "F":
         checks["sync_warnings_equal"] = all(
             r["on"] == r["off"] for r in extra["sync_sites"][1:])
@@ -4020,7 +4036,8 @@ def obs_cell(name: str, root: str) -> dict:
             "gbps_on": gbps["on"], "gbps_off": gbps["off"],
             "gbps_on_median": on, "gbps_off_median": off,
             "on_over_off": on / off, "spans": len(spans),
-            "span": summary, "job": {k: job_line[k] for k in (
+            "rollup_lines": len(rollups), "span": summary,
+            "job": {k: job_line[k] for k in (
                 "wall_s", "stage_idle_s", "stage_count", "spans",
                 "dominant_stage", "bottleneck")},
             **extra, "checks": checks}
@@ -4169,15 +4186,576 @@ def obs_phase() -> list:
     return lines
 
 
+# ---------------------------------------------------------------------
+# leg S and the service phase: the multi-tenant shuffle service
+# ---------------------------------------------------------------------
+#: leg S: ``bench.py``'s ``run_multitenant`` at the port's stacked size:
+#: each tenant's TeraSort over 8,388,608 × 100-byte records (1,048,576 a
+#: partition, the reference's ``rpd // 2`` of leg B's cell)
+S_RECORDS = RECORDS // 2
+S_TENANTS = (("tenant_a", 20, 11), ("tenant_b", 21, 12))
+#: the service phase's sessions: leg B-small's size (the merge-path and
+#: all-to-all sessions, the isolation pair)
+SVC_SMALL = 1 << 20
+#: the RPC part's rows: 8 partitions × 4096 records of the default W = 4
+SVC_RPC_PER_PART = 4096
+
+
+def s_conf(**kw):
+    """Leg S's conf, ``bench.py:452-459``'s with the ring kernel as the
+    transport: slots of a tenant's partition, 64 rounds, "fine" classes,
+    pack/wide off."""
+    from sparkrdma_tpu_torch import ShuffleConf
+
+    slot = S_RECORDS // PARTS
+    return ShuffleConf(slot_records=slot, max_rounds=64,
+                       max_slot_records=max(1 << 22, 2 * slot),
+                       val_words=VAL_WORDS, geometry_classes="fine",
+                       pack_sort_min_payload=0, wide_sort_min_payload=0,
+                       transport="pallas_ring", **kw)
+
+
+def fetch_probe(port: int, path: str) -> bytes:
+    """One probe request (``GET <path>``), its body read to EOF."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sk:
+        sk.sendall(f"GET {path}\n".encode())
+        buf = b""
+        while True:
+            chunk = sk.recv(1 << 16)
+            if not chunk:
+                return buf
+            buf += chunk
+
+
+def journal_kinds(path: str) -> dict:
+    """Lines of a journal by kind (spans under ``"span"``)."""
+    from sparkrdma_tpu_torch.obs.journal import read_entries
+
+    kinds = {}
+    for e in read_entries(path, include_rotated=True):
+        kinds.setdefault(e.get("kind") or "span", []).append(e)
+    return kinds
+
+
+def tenant_threads(svc, runs: dict) -> dict:
+    """Each ``name -> fn(manager)`` in its own thread, on a session of
+    ``svc``, all started together; returns ``name -> fn's result`` and
+    fails the smoke on any error."""
+    import threading
+
+    results, errors = {}, []
+    start = threading.Barrier(len(runs))
+
+    def run(name, fn):
+        m = svc.open_session(name, getattr(fn, "conf", None))
+        try:
+            start.wait(timeout=300)
+            results[name] = fn(m)
+        except Exception as e:
+            errors.append(f"{name}: {e!r}")
+        finally:
+            svc.close_session(m)
+
+    threads = [threading.Thread(target=run, args=kv) for kv in runs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(results) != len(runs):
+        fail(f"tenant threads failed: {errors}")
+    return results
+
+
+def leg_s() -> dict:
+    """``run_multitenant`` (``bench.py:434``): two tenants' TeraSorts at
+    once through one ``ShuffleService`` on the card, a warm-up and 3
+    reads each, device-verified; the journal, heartbeat, telemetry,
+    alerts and probe on. Each tenant's output is then held against the
+    same tenant run alone in a standalone manager, bit for bit."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_s_")
+    sink = os.path.join(root, "s.jsonl")
+    conf = s_conf(metrics_sink=sink, heartbeat_s=1.0,
+                  telemetry_window_s=1.0, alert_eval_s=1.0, probe_port=0)
+
+    def tenant(seed, sid):
+        def fn(m):
+            res, out, totals = run_terasort(
+                m, S_RECORDS // PARTS, seed=seed, verify=False,
+                device_verify=True, warmup=True, repeats=3, shuffle_id=sid)
+            return res, out, totals
+        return fn
+
+    kernels = zeroed_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = ShuffleService(conf=conf)
+    runs = tenant_threads(svc, {name: tenant(seed, sid)
+                                for name, sid, seed in S_TENANTS})
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    health = json.loads(fetch_probe(svc.probe.port, "/health"))
+    prom = fetch_probe(svc.probe.port, "/metrics").decode()
+    svc.stop()
+    e2e = time.perf_counter() - t0
+    kinds = journal_kinds(sink)
+    rates = {name: runs[name][0].gbps for name, _, _ in S_TENANTS}
+    checks = {f"device_verify_{name}": runs[name][0].verified
+              for name, _, _ in S_TENANTS}
+    same = {}
+    for name, sid, seed in S_TENANTS:
+        _, out, totals = runs.pop(name)
+        solo = ShuffleManager(MeshRuntime(s_conf(), PARTS, device="cuda"))
+        _, want, want_totals = run_terasort(
+            solo, S_RECORDS // PARTS, seed=seed, verify=False,
+            warmup=False, shuffle_id=sid)
+        same[name] = bool(torch.equal(out, want)
+                          and torch.equal(totals, want_totals))
+        del out, totals, want, want_totals
+        solo.stop()
+        torch.cuda.empty_cache()
+    spans = {name: sum(1 for d in kinds.get("span", [])
+                       if d.get("tenant") == name) for name, _, _ in S_TENANTS}
+    checks.update({f"equal_to_solo_{n}": v for n, v in same.items()})
+    checks["spans_per_tenant"] = all(v == 4 for v in spans.values())
+    checks["rollups_per_tenant"] = {d.get("tenant") for d in
+                                    kinds.get("rollup", [])} == set(same)
+    checks["heartbeats"] = len(kinds.get("heartbeat", [])) >= 1
+    checks["probe_health"] = health.get("status") in ("ok", "info",
+                                                      "warn", "crit")
+    checks["probe_metrics"] = "service_admits" in prom
+    line = {"leg": "S", "tenants": len(S_TENANTS),
+            "records_per_tenant": S_RECORDS, "record_bytes": 100,
+            "partitions": PARTS, "transport": "pallas_ring",
+            "conf": "bench.py run_multitenant: slot_records 1048576, "
+                    "max_rounds 64, fine classes, pack/wide off",
+            "per_tenant_gbps": rates, "aggregate_gbps": sum(rates.values()),
+            "fairness": min(rates.values()) / max(rates.values()),
+            "e2e_s": e2e, "max_memory_gb": peak_gb,
+            "journal_lines": {k: len(v) for k, v in sorted(kinds.items())},
+            "alert_lines": [(d["rule"], d["event"])
+                            for d in kinds.get("alert", [])],
+            "health": health.get("status"), "checks": checks,
+            "launches": launches}
+    report(line)
+    if not all(checks.values()):
+        fail(f"leg S: {[k for k, v in checks.items() if not v]}")
+    if launches["ring_exchange"] <= 0:
+        fail("ring_exchange was not launched on leg S")
+    return line
+
+
+def leg_b_conf(**kw):
+    """Leg B's conf (``fast_sort``, ``"pow2"``, pack/wide off)."""
+    from sparkrdma_tpu_torch import ShuffleConf
+
+    return ShuffleConf(slot_records=SLOT_B, transport="pallas_ring",
+                       val_words=VAL_WORDS, key_words=KEY_WORDS,
+                       fast_sort=True, fast_sort_run=RUN,
+                       pack_sort_min_payload=0, wide_sort_min_payload=0,
+                       **kw)
+
+
+def solo_terasort(conf, seed: int, sid: int, per: int):
+    """The same TeraSort alone in a standalone manager: ``(out,
+    totals)``."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    _, out, totals = run_terasort(m, per, seed=seed, verify=False,
+                                  warmup=False, shuffle_id=sid)
+    m.stop()
+    return out, totals
+
+
+def stream_order_check(pool) -> dict:
+    """The shared pool across streams on the card: a buffer put back on
+    one stream behind ~0.1 s of queued work (a ``torch.cuda._sleep``,
+    then a fill with 1) and taken on another stream, where it is filled
+    with 2. If the getter's stream did not wait for the putter's, its
+    fill would run first and the buffer would end at 1."""
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    waits = pool.stats()["cross_stream_waits"]
+    buf = pool.get_shaped((1 << 20,))
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(200_000_000)
+        buf.fill_(1)
+        pool.put_shaped(buf)
+    with torch.cuda.stream(s2):
+        again = pool.get_shaped((1 << 20,))
+        again.fill_(2)
+    torch.cuda.synchronize()
+    ok = again is buf and bool((again == 2).all())
+    pool.put_shaped(again)
+    return {"same_buffer_ordered": ok,
+            "cross_stream_waits": pool.stats()["cross_stream_waits"] - waits}
+
+
+def service_sessions_line() -> dict:
+    """One session at leg B's conf (the merge-path tail) and one with
+    ``ring_fused=False`` (the per-round all-to-all), each at leg
+    B-small's size, device-verified, and each equal to the same run
+    alone; then the pool's stream order on the card."""
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    svc = ShuffleService(conf=leg_b_conf())
+    kernels = zeroed_counters()
+    torch.cuda.synchronize()
+    got = {}
+    for name, fused, sid in (("fused", True, 60), ("a2a", False, 61)):
+        m = svc.open_session(f"session_{name}", leg_b_conf(ring_fused=fused))
+        res, out, totals = run_terasort(
+            m, SVC_SMALL // PARTS, seed=5, verify=False, device_verify=True,
+            shuffle_id=sid)
+        got[name] = (res.verified, out, totals, fused, sid)
+        svc.close_session(m)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    checks = {}
+    for name, (verified, out, totals, fused, sid) in got.items():
+        want, want_totals = solo_terasort(leg_b_conf(ring_fused=fused), 5,
+                                          sid, SVC_SMALL // PARTS)
+        checks[f"{name}_verified"] = verified
+        checks[f"{name}_equal_to_solo"] = bool(
+            torch.equal(out, want) and torch.equal(totals, want_totals))
+    stream = stream_order_check(svc.runtime.pool)
+    checks["stream_order"] = stream["same_buffer_ordered"] and \
+        stream["cross_stream_waits"] == 1
+    svc.stop()
+    for k in ("merge_stage", "ring_exchange", "ring_all_to_all"):
+        checks[f"{k}_launched"] = launches[k] > 0
+    line = {"phase": "service", "part": "sessions",
+            "records": SVC_SMALL, "launches": launches, "stream": stream,
+            "checks": checks}
+    report(line)
+    return line
+
+
+def service_isolation_line(root: str) -> dict:
+    """Tenant A's session fails its first dispatch while tenant B reads
+    at the same time: B's plane injects nothing and B's spans show no
+    retry and no fault event; A's books balance (injections = retries in
+    its spans); both equal their solo runs."""
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    sink = os.path.join(root, "isolation.jsonl")
+    svc = ShuffleService(conf=leg_b_conf(metrics_sink=sink))
+    seeds = {"noisy": (6, 62), "clean": (7, 63)}
+
+    def tenant(name, conf):
+        seed, sid = seeds[name]
+
+        def fn(m):
+            res, out, totals = run_terasort(
+                m, SVC_SMALL // PARTS, seed=seed, verify=False,
+                device_verify=True, shuffle_id=sid)
+            return res.verified, out, totals, m.faults
+        fn.conf = conf
+        return fn
+
+    kernels = zeroed_counters()
+    res = tenant_threads(svc, {
+        "noisy": tenant("noisy", leg_b_conf(
+            metrics_sink=sink,
+            fault_spec="exchange.dispatch:fail@attempt<1")),
+        "clean": tenant("clean", leg_b_conf(metrics_sink=sink))})
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    svc.stop()
+    spans = journal_kinds(sink).get("span", [])
+    retries = {t: sum(d["retry_count"] for d in spans if d["tenant"] == t)
+               for t in seeds}
+    injected = {t: res[t][3].injected_total() for t in seeds}
+    fault_events = {t: sum(e["name"] == "fault:injected" for d in spans
+                           if d["tenant"] == t for e in d["events"])
+                    for t in seeds}
+    checks = {"noisy_books_balance": injected["noisy"] == 1
+              == retries["noisy"] == fault_events["noisy"],
+              "clean_untouched": injected["clean"] == retries["clean"]
+              == fault_events["clean"] == 0}
+    for t, (seed, sid) in seeds.items():
+        want, want_totals = solo_terasort(leg_b_conf(), seed, sid,
+                                          SVC_SMALL // PARTS)
+        checks[f"{t}_verified"] = res[t][0]
+        checks[f"{t}_equal_to_solo"] = bool(
+            torch.equal(res[t][1], want) and torch.equal(res[t][2],
+                                                         want_totals))
+    line = {"phase": "service", "part": "isolation", "records": SVC_SMALL,
+            "injected": injected, "retries": retries,
+            "fault_events": fault_events, "launches": launches,
+            "checks": checks}
+    report(line)
+    return line
+
+
+def service_rpc_lines(root: str) -> list:
+    """An ``RpcClient`` on localhost against the daemon on the card at 8 ×
+    4096 records: hello, open_session, register_shuffle, write, read,
+    read with a checkpoint and resume_read, each reply's rows equal to
+    the in-process read and to the same run on the CPU; one injected
+    ``rpc.recv`` corruption retried with the books balanced; a 0.5 s
+    lease without a heartbeat expiring (its session dropped, its
+    tenant's charges back to 0). Then the probe: its Prometheus text and
+    health routes, and the reference's ``scripts/shuffle_top.py --once
+    --connect <probe> --rpc <rpc>`` as a subprocess, which must render
+    both tenants and the lease table."""
+    from sparkrdma_tpu_torch import MeshRuntime, faults
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+    from sparkrdma_tpu_torch.service import RpcClient, ShuffleService
+
+    sink = os.path.join(root, "rpc.jsonl")
+    conf = default_conf(metrics_sink=sink, rpc_port=0, probe_port=0,
+                        heartbeat_s=3600.0,
+                        spill_dir=os.path.join(root, "rpc_ck"))
+    rows = np.random.default_rng(21).integers(
+        0, 2**32, size=(PARTS * SVC_RPC_PER_PART, conf.record_words),
+        dtype=np.uint32)
+    kernels = zeroed_counters()
+    svc = ShuffleService(conf=conf)
+    c = RpcClient.from_conf(conf, port=svc.rpc.port, client_id="smoke")
+    c.hello()
+    c.start_heartbeat()
+    s = c.open_session("tenant_a")
+    c.register_shuffle(s, 801, 0)
+    c.write(s, 801, rows)
+    got = [c.read(s, 801), c.read(s, 801, checkpoint=True)]
+    resumed = c.resume_read(s, 801)
+    got.append((resumed["rows"], resumed["totals"]))
+
+    def inproc(service, sid):
+        m = service.open_session("tenant_b")
+        h = m.register_shuffle(sid, PARTS,
+                               hash_partitioner(PARTS, m.conf.key_words))
+        m.get_writer(h).write(m.runtime.shard_records(rows)).stop(True)
+        out, totals = m.get_reader(h).read()
+        want = (out.cpu().numpy().view(np.uint32).copy(),
+                totals.cpu().numpy().copy())
+        m.unregister_shuffle(sid)
+        service.close_session(m)
+        return want
+
+    want = inproc(svc, 802)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    cpu = ShuffleService(MeshRuntime(default_conf(), PARTS, device="cpu"))
+    want_cpu = inproc(cpu, 802)
+    cpu.stop()
+    checks = {"rows_equal_inproc_and_cpu": all(
+        np.array_equal(np.asarray(r, np.uint32), want[0])
+        and np.array_equal(np.asarray(t), want[1]) for r, t in got)
+        and np.array_equal(want[0], want_cpu[0])
+        and np.array_equal(want[1], want_cpu[1]),
+        "resume_adopted": sorted(resumed["adopted"]) ==
+        ["rpc801:cols", "rpc801:totals"]}
+    # one corrupted reply frame, in this thread's plane only
+    recovered = faults.recovery_total()
+    plane = faults.FaultPlane("rpc.recv:corrupt@attempt<1")
+    c2 = RpcClient(port=svc.rpc.port, client_id="chaos", retry_ms=2.0,
+                   deadline_s=60.0)
+    with faults.scoped_plane(plane):
+        c2.hello()
+    checks["corruption_retried_books_balance"] = \
+        plane.injected_total() == 1 == c2.stats["retries"] + \
+        faults.recovery_total() - recovered
+    c2.close()
+    # a 0.5 s lease, no heartbeat: a daemon of its own, so that no slow
+    # call of the other clients races its reaper
+    lsink = os.path.join(root, "lease.jsonl")
+    lconf = default_conf(metrics_sink=lsink, rpc_port=0, lease_s=0.5,
+                         spill_dir=os.path.join(root, "lease_ck"))
+    lsvc = ShuffleService(conf=lconf)
+    c3 = RpcClient(port=lsvc.rpc.port, client_id="lapsed", retry_ms=2.0,
+                   deadline_s=60.0)
+    c3.hello()
+    s3 = c3.open_session("tenant_c")
+    c3.register_shuffle(s3, 803, 0)
+    c3.write(s3, 803, rows)
+    c3.read(s3, 803, checkpoint=True)
+    c3.resume_read(s3, 803)
+    c3.admit("tenant_c", 1)
+    held = lsvc.usage_by_tenant()["tenant_c"]
+    t0 = time.perf_counter()
+    while (lsvc.metrics.counter("service.leases_expired").value < 1
+           and time.perf_counter() - t0 < 30):
+        time.sleep(0.05)
+    expire_s = time.perf_counter() - t0
+    lease_events = [d["event"] for d in journal_kinds(lsink).get("lease", [])]
+    checks["lease_expired"] = (
+        lsvc.stats()["sessions"] == 0
+        and lsvc.stats()["admission"]["active"] == 0
+        and held["host"] + held["disk"] > 0
+        and lsvc.usage_by_tenant()["tenant_c"] ==
+        {"hbm": 0, "host": 0, "disk": 0}
+        and lease_events == ["grant", "adopt", "expire"])
+    lsvc.stop()
+    rpc_line = {"phase": "service", "part": "rpc",
+                "records": PARTS * SVC_RPC_PER_PART,
+                "record_words": conf.record_words, "held_before_expiry": held,
+                "expired_after_s": expire_s, "lease_events": lease_events,
+                "launches": launches, "checks": checks}
+    report(rpc_line)
+    # the probe and the reference's monitor
+    svc.heartbeat.beat()
+    prom = fetch_probe(svc.probe.port, "/metrics").decode()
+    health = json.loads(fetch_probe(svc.probe.port, "/health"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    top = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "shuffle_top.py"),
+         "--once", "--connect", f"127.0.0.1:{svc.probe.port}",
+         "--rpc", f"127.0.0.1:{svc.rpc.port}"],
+        capture_output=True, text=True, timeout=120)
+    tenant_rows = [ln for ln in top.stdout.splitlines()
+                   if ln.startswith(("tenant_a", "tenant_b"))]
+    pchecks = {"prometheus": "service_rpc_requests" in prom
+               and "service_sessions_opened" in prom,
+               "health": health.get("status") == "ok",
+               "shuffle_top_rc": top.returncode == 0,
+               "shuffle_top_tenants": {ln.split()[0] for ln in tenant_rows}
+               == {"tenant_a", "tenant_b"},
+               "shuffle_top_leases": "leases @ 127.0.0.1:" in top.stdout
+               and any(ln.startswith("smoke") for ln in
+                       top.stdout.splitlines())}
+    c.close()
+    svc.stop()
+    probe_line = {"phase": "service", "part": "probe",
+                  "prometheus_lines": len(prom.splitlines()),
+                  "health": health, "shuffle_top_lines":
+                  len(top.stdout.splitlines()), "checks": pchecks}
+    if top.returncode:
+        probe_line["stderr"] = top.stderr[-2000:]
+    report(probe_line)
+    return [rpc_line, probe_line]
+
+
+def service_alerts_line(root: str) -> dict:
+    """An H-small-sized out-of-core run through a session, twice, with a
+    host tier of four chunks: the tiered store spills, and
+    ``spill_storm`` fires after ``alert_fire_breaches`` (2) breaching
+    windows and resolves after ``alert_resolve_windows`` (2) clean ones.
+    The telemetry and the evaluator are driven window by window (their
+    threads parked at a 3600 s cadence); the journal holds the fire and
+    resolve lines, rollup and heartbeat lines, and the reference's
+    ``shuffle_report.py --json --doctor`` reads it."""
+    from sparkrdma_tpu_torch import ShuffleConf
+    from sparkrdma_tpu_torch.obs.metrics import global_registry
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.workloads.streaming import run_tiered_terasort
+
+    w, chunk = KEY_WORDS + VAL_WORDS, H_SMALL_CHUNK
+    sink = os.path.join(root, "alerts.jsonl")
+    slot = max(4096, chunk)
+    conf = ShuffleConf(
+        slot_records=slot, max_rounds=64,
+        max_slot_records=max(1 << 22, 2 * slot), val_words=VAL_WORDS,
+        geometry_classes="fine", transport="pallas_ring",
+        spill_dir=os.path.join(root, "ooc_spill"),
+        spill_tier_dir=os.path.join(root, "ooc_tier"),
+        spill_tier_host_bytes=4 * w * chunk * 4, spill_tier_prefetch=2,
+        metrics_sink=sink, heartbeat_s=3600.0, telemetry_window_s=3600.0,
+        telemetry_history=2, alert_eval_s=3600.0, alert_fire_breaches=2,
+        alert_resolve_windows=2)
+    cols = np.random.default_rng(15).integers(
+        0, 2**32, size=(w, H_CHUNKS * chunk), dtype=np.uint32)
+    svc = ShuffleService(conf=conf)
+    m = svc.open_session("tenant_ooc")
+    spill = global_registry().counter("store.spill_bytes")
+    spill.inc(0)
+    kernels = zeroed_counters()
+    now = time.time()
+    svc.telemetry.sample(now=now)
+    events, spilled = [], []
+    for k in range(conf.alert_fire_breaches):
+        before = spill.value
+        run_tiered_terasort(m, cols, chunk, collect=False,
+                            shuffle_id_base=9500 + 100 * k)
+        spilled.append(spill.value - before)
+        now += 1.0
+        svc.telemetry.sample(now=now)
+        events += [(d["rule"], d["event"], k + 1)
+                   for d in svc.alerts.evaluate_once(now=now)]
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items()}
+    health = svc.alerts.health()
+    for k in range(conf.alert_resolve_windows):
+        now += 1.0
+        svc.telemetry.sample(now=now)
+        events += [(d["rule"], d["event"], k + 1)
+                   for d in svc.alerts.evaluate_once(now=now)]
+    svc.heartbeat.beat()
+    svc.close_session(m)
+    svc.stop()
+    kinds = journal_kinds(sink)
+    here = os.path.dirname(os.path.abspath(__file__))
+    rep = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts", "shuffle_report.py"),
+         "--json", "--doctor", sink], capture_output=True, text=True,
+        timeout=300)
+    reported = json.loads(rep.stdout) if rep.returncode == 0 else {}
+    checks = {
+        "spilled_each_run": all(b > 0 for b in spilled),
+        "fired_then_resolved": events == [
+            ("spill_storm", "fired", conf.alert_fire_breaches),
+            ("spill_storm", "resolved", conf.alert_resolve_windows)],
+        "health_warn_while_active": health["status"] == "warn",
+        "journal_alert_lines": [d["event"] for d in kinds.get("alert", [])]
+        == ["fired", "resolved"],
+        "journal_rollups": len(kinds.get("rollup", [])) >= 1,
+        "journal_heartbeats": len(kinds.get("heartbeat", [])) >= 1,
+        "report_rc": rep.returncode == 0,
+        "report_reads_rollups": bool(reported.get("rollups")),
+        "report_doctor_sees_alert": any(
+            "spill_storm" in ln for ln in reported.get("doctor", []))}
+    line = {"phase": "service", "part": "alerts", "chunks": H_CHUNKS,
+            "chunk_records": chunk, "spill_bytes": spilled,
+            "events": events, "health_while_active": health,
+            "journal_lines": {k: len(v) for k, v in sorted(kinds.items())},
+            "launches": launches, "checks": checks}
+    if rep.returncode:
+        line["stderr"] = rep.stderr[-2000:]
+    report(line)
+    return line
+
+
+def service_phase() -> dict:
+    """The multi-tenant service on the card: sessions, isolation, RPC,
+    probe, alerts. Returns the phase's launch counts (the sum of its
+    parts', each zeroed just before its part) for the kernels line."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    lines = [service_sessions_line(), service_isolation_line(root)]
+    lines += service_rpc_lines(root)
+    lines.append(service_alerts_line(root))
+    bad = [f"{ln['part']}: {k}" for ln in lines
+           for k, v in ln["checks"].items() if not v]
+    if bad:
+        fail("service: " + ", ".join(bad))
+    launches = {k: sum(ln.get("launches", {}).get(k, 0) for ln in lines)
+                for k in lines[0]["launches"]}
+    return {"phase": "service", "launches": launches}
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
 DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
+SERVICE_LEGS = (("S", leg_s), ("service", service_phase))
 
 
 def main(argv=None) -> int:
-    """``--legs M,P,Q`` runs only those of legs M-Q (M-small and Q-small
-    included, and ``native_staging`` and ``obs`` for those phases) and
-    prints the ring
+    """``--legs M,P,Q`` runs only those of legs M-Q and S (M-small and
+    Q-small included, and ``native_staging``, ``obs`` and ``service``
+    for those phases) and prints the ring
     shapes they launched, without the kernel phases or the table check:
     a quick run while a leg is brought up. ``--launch-failure-child`` is
     leg Q-small's child process."""
@@ -4229,6 +4807,9 @@ def main(argv=None) -> int:
             native_staging_phase(build_s, legs)
         if "obs" in only:
             obs_phase()
+        for name, fn in SERVICE_LEGS:
+            if name in only:
+                run_leg(legs, shapes, name, fn)
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -4261,6 +4842,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     obs_phase()
     report({"leg_s": "obs", "seconds": time.perf_counter() - t0})
+    for name, fn in SERVICE_LEGS:
+        run_leg(legs, shapes, name, fn)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:

@@ -208,6 +208,17 @@ def check(err: int, what: str) -> None:
         raise KernelLaunchError(what, err)
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count: the service's
+    tenant threads launch the same kernels at once, and a bare ``+= 1``
+    from two threads can lose one."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def stream_ptr(index: int) -> int:
     """Raw pointer of PyTorch's current stream on card ``index`` (a graph
     capture's stream while one is capturing), read without making a
@@ -217,6 +228,7 @@ def stream_ptr(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-__all__ = ["build_all", "library", "check", "stream_ptr", "BUILD_ROOT",
+__all__ = ["build_all", "library", "check", "stream_ptr", "count_launch",
+           "BUILD_ROOT",
            "KernelLaunchError", "build_native", "native_lib_path",
            "NATIVE_ROOT"]

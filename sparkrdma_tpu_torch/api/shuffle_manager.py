@@ -53,8 +53,9 @@ then a stage retry from map output that survived):
   build error, a shape error, a ``TORCH_CHECK``) propagates at once: a
   retry would hide it. An unreadable checkpoint raises
   ``UnrecoverableShuffleError`` once.
-- The manager installs its fault plane (``faults.FaultPlane(conf
-  .fault_spec)``) process-wide and puts the earlier one back in ``stop``.
+- A standalone manager installs its fault plane (``faults.FaultPlane(
+  conf.fault_spec)``) process-wide and puts the earlier one back in
+  ``stop``.
 
 Observability (``obs/``), as in the reference: with ``conf.metrics_sink``
 set, each ``read(record_stats=True)`` call writes one journal span (one
@@ -68,14 +69,35 @@ exchange runs inside a ``shuffle:exchange#s<span_id>`` profiler range
 (``utils/profiling.py``). ``conf.collect_shuffle_read_stats`` keeps an
 ``ExchangeRecord`` per read in ``manager.stats``, printed by ``stop``;
 ``conf.watchdog_timeout_s`` arms the stall watchdog around the streaming
-wait. The tenant scoping of the plane and the timeline waits for the
-service.
+wait. With a journal, every recorded read is also folded into the
+windowed rollup (``obs/rollup.py``, ``conf.rollup_window_s``), sampled
+away or not. The live layer, as in the reference, is gated on
+``collect_shuffle_read_stats`` or ``metrics_sink`` (not on the port's
+always-on registry) and each part on its own knob: the telemetry store
+(``telemetry_window_s``), the heartbeat (``heartbeat_s``), the alert
+evaluator with its baselines (``alert_eval_s``, ``baseline_dir``) and
+the probe on ``127.0.0.1`` (``probe_port``). With the default knobs a
+manager starts no thread and opens no socket.
+
+Service mode (``tiered=`` given: a session that
+:class:`~sparkrdma_tpu_torch.service.daemon.ShuffleService` hands a
+tenant): the runtime, its pool, the tiered store, the journal and the
+telemetry store are the daemon's, shared and never closed here, and the
+daemon owns the heartbeat, the alerts and the probe. The session's fault
+plane and timeline are installed for the calling thread only, for the
+duration of each SPI call (:meth:`ShuffleManager._tenant_scope`), never
+process-wide, so one tenant's fault schedule cannot fire inside another
+tenant's read. Its pooled buffers and store segments are charged to the
+tenant's account, each read waits for the admission controller at a
+cost of its plan's rounds, and ``stop`` drops only its tenant's segments.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -96,10 +118,18 @@ from sparkrdma_tpu_torch.meta.checkpoint import MapOutputStore
 from sparkrdma_tpu_torch.meta.map_output import MapOutputRegistry
 from sparkrdma_tpu_torch.obs import critical_path
 from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.obs.alerts import AlertEvaluator
+from sparkrdma_tpu_torch.obs.baseline import BaselineStore
 from sparkrdma_tpu_torch.obs.journal import (ExchangeJournal, ExchangeSpan,
                                              next_span_id)
-from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
-from sparkrdma_tpu_torch.obs.timeline import EventTimeline, set_active
+from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry, global_registry
+from sparkrdma_tpu_torch.obs.probe import ProbeServer
+from sparkrdma_tpu_torch.obs.rollup import (HeartbeatEmitter,
+                                            RollupAggregator,
+                                            span_latency_ms)
+from sparkrdma_tpu_torch.obs.timeline import (EventTimeline, scoped_active,
+                                              set_active)
+from sparkrdma_tpu_torch.obs.tsdb import NULL_TELEMETRY, TelemetryStore
 from sparkrdma_tpu_torch.obs.watchdog import (StallWatchdog,
                                               install_state_dump)
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
@@ -117,14 +147,6 @@ _SENTINEL = 0xFFFFFFFF      # rank of a dropped segment (sorts last)
 #: failure as PyTorch reports it (``torch.AcceleratorError``), and a
 #: kernel entry point's refusal
 _DEVICE_ERRORS = (torch.AcceleratorError, KernelLaunchError)
-
-
-def span_latency_ms(span: ExchangeSpan) -> float:
-    """The latency a read costs its caller: exchange + sort wall-clock
-    (plan time is shared by the reads of a shuffle). The number the
-    ``slow:<ms>`` sampling rule tests (the reference's
-    ``obs.rollup.span_latency_ms``)."""
-    return (span.exchange_s + span.sort_s) * 1e3
 
 
 @dataclasses.dataclass
@@ -182,7 +204,8 @@ class ShuffleWriter:
         if not success or self._records is None:
             self._records = None
             return None
-        with Timer() as t, annotate("shuffle:plan", self._m.runtime.device):
+        with self._m._tenant_scope(), Timer() as t, \
+                annotate("shuffle:plan", self._m.runtime.device):
             self._plan = self._m._exchange.plan(
                 self._records, self._h.partitioner, self._h.num_parts)
         self._m._registry.publish_map_output(self._h.shuffle_id,
@@ -262,8 +285,27 @@ class ShuffleReader:
         =False`` skips the closing device sync (warm-up and pipelined
         reads): a CUDA failure of such a read surfaces at the caller's
         own first sync, outside the retry loop."""
+        # reads in flight (heartbeat lines, shuffle_top) cover the whole
+        # read, the admission wait included
+        self._m._read_started()
+        try:
+            with self._m._tenant_scope():
+                return self._read(record_stats)
+        finally:
+            self._m._read_finished()
+
+    def _read(self, record_stats: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         writer = self._m._recover_writer(self._h)
-        return self._read_attempts(writer, record_stats)
+        adm = self._m.admission
+        if adm is None:
+            return self._read_attempts(writer, record_stats)
+        # service mode: one ticket a read, weighed by the plan's rounds,
+        # so the controller shares exchange rounds, not read calls; a
+        # tenant over capacity queues here (an ``admission`` wait line)
+        with adm.admit(self._m.tenant,
+                       cost=max(int(writer.plan.num_rounds), 1)):
+            return self._read_attempts(writer, record_stats)
 
     def _read_attempts(self, writer: ShuffleWriter, record_stats: bool
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -394,7 +436,8 @@ class ShuffleReader:
         st_totals = store_totals()
         pool = m.runtime.pool
         span = ExchangeSpan(
-            span_id=span_id, shuffle_id=sid, transport=ex.transport(),
+            span_id=span_id, shuffle_id=sid, tenant=m.tenant,
+            transport=ex.transport(),
             rounds=plan.num_rounds, dispatches=ex.last_dispatches,
             records=plan.total_records, record_bytes=out.shape[0] * 4,
             plan_s=plan_s,
@@ -424,6 +467,10 @@ class ShuffleReader:
         _trace.observe_active_span(span)
         weight = m.sampler.keep_weight(span_id,
                                        span_latency_ms(span) / 1e3)
+        # the rollup folds every read, kept or sampled away, so window
+        # totals stay exact under any journal_sample
+        if m.rollup is not None:
+            m.rollup.observe(span, kept=weight > 0)
         if weight > 0:
             span.sample_weight = weight
             m.journal.emit(span)
@@ -510,39 +557,139 @@ class ShuffleManager:
 
     def __init__(self, runtime: Optional[MeshRuntime] = None,
                  conf: Optional[ShuffleConf] = None, *,
-                 num_partitions: int = 8, device="cuda"):
+                 num_partitions: int = 8, device="cuda", tenant: str = "",
+                 tiered: Optional[TieredStore] = None,
+                 journal: Optional[ExchangeJournal] = None,
+                 admission=None, account=None, telemetry=None):
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
+        # service mode (module docstring): the daemon's tiered store,
+        # journal and telemetry; per-tenant plane and timeline per call
+        self.tenant = tenant
+        self.account = account
+        self.admission = admission
+        self._service_mode = tiered is not None
         self.metrics = MetricsRegistry(enabled=True)
-        # the exchange journal: one span per recorded read; a literal
-        # {process} in the sink names the host's own file
-        sink = self.conf.metrics_sink
-        if "{process}" in sink:
-            sink = sink.replace("{process}", str(self.runtime.process_index))
-        self.journal = ExchangeJournal(sink, metrics=self.metrics,
-                                       max_bytes=self.conf.journal_max_bytes)
+        #: the reference's gate of the live layer (the port's registry is
+        #: always on, so it cannot stand in for it)
+        obs_on = (self.conf.collect_shuffle_read_stats
+                  or bool(self.conf.metrics_sink))
+        if journal is not None:
+            self.journal = journal       # the daemon's: shared, not closed
+            self._sink_path = ""         # the daemon's probe serves it
+        else:
+            # the exchange journal: one span per recorded read; a literal
+            # {process} in the sink names the host's own file
+            sink = self.conf.metrics_sink
+            if "{process}" in sink:
+                sink = sink.replace("{process}",
+                                    str(self.runtime.process_index))
+            self.journal = ExchangeJournal(
+                sink, metrics=self.metrics,
+                max_bytes=self.conf.journal_max_bytes)
+            self._sink_path = sink
         #: which reads get a full span (the rest feed the metrics only)
         self.sampler = self.conf.sampling_policy()
-        # the per-span event timeline, process-wide so module-level sites
-        # (staging, the tiered store, the fault plane) reach it; events
-        # accumulate over plan and read and drain into the span
+        # the live telemetry store: the daemon's in service mode, else
+        # this manager's own (folding in the process-wide registry, where
+        # the tiered store and staging count), else the null store
+        if telemetry is not None:
+            self.telemetry = telemetry
+        elif obs_on and self.conf.telemetry_window_s > 0:
+            self.telemetry = TelemetryStore(
+                self.metrics, window_s=self.conf.telemetry_window_s,
+                history=self.conf.telemetry_history,
+                extra_sources=(lambda: global_registry().snapshot(),))
+            self.telemetry.start()
+        else:
+            self.telemetry = NULL_TELEMETRY
+        #: per-shuffle windows of every recorded read (journal on)
+        self.rollup = (RollupAggregator(
+            self.journal, window_s=self.conf.rollup_window_s,
+            process_index=self.runtime.process_index,
+            store=self.telemetry if self.telemetry.enabled else None)
+            if self.journal.enabled and self.conf.rollup_window_s > 0
+            else None)
+        #: reads executing now (heartbeat lines and shuffle_top)
+        self._reads_in_flight = 0           # guarded-by: _inflight_lock
+        self._inflight_lock = threading.Lock()
+        self.heartbeat = None
+        if (not self._service_mode and self.journal.enabled
+                and self.conf.heartbeat_s > 0):
+            pool = self.runtime.pool
+            self.heartbeat = HeartbeatEmitter(
+                self.journal, self.conf.heartbeat_s,
+                identity=self.runtime.process_identity(),
+                probes={
+                    "in_flight": lambda: self._reads_in_flight,
+                    "pool_outstanding": lambda: pool.outstanding,
+                    "host_tier_mb": (lambda: self.tiered.occupancy()[
+                        "host_bytes"] // (1 << 20)),
+                    "disk_tier_mb": (lambda: self.tiered.occupancy()[
+                        "disk_bytes"] // (1 << 20)),
+                })
+            self.heartbeat.start()
+        self.baselines = None
+        self.alerts = None
+        if (not self._service_mode and self.telemetry.enabled
+                and self.conf.alert_eval_s > 0):
+            self.baselines = (BaselineStore(self.conf.baseline_dir)
+                              if self.conf.baseline_dir else None)
+            self.alerts = AlertEvaluator(
+                telemetry=self.telemetry, metrics=self.metrics,
+                journal=self.journal, baselines=self.baselines,
+                heartbeat=self.heartbeat,
+                interval_s=self.conf.alert_eval_s,
+                fire_after=self.conf.alert_fire_breaches,
+                resolve_after=self.conf.alert_resolve_windows,
+                geometry=f"w{self.runtime.num_partitions}")
+            self.alerts.start()
+        # the probe: a bind failure is logged, never fatal (telemetry
+        # must not take down the shuffle it observes)
+        self.probe = None
+        if not self._service_mode and self.conf.probe_port >= 0:
+            try:
+                self.probe = ProbeServer(
+                    self.conf.probe_port, metrics=self.metrics,
+                    telemetry=self.telemetry,
+                    identity=self.runtime.process_identity(),
+                    journal_path=self._sink_path,
+                    rollups=(self.rollup.peek
+                             if self.rollup is not None else None),
+                    alerts=(self.alerts.active
+                            if self.alerts is not None else None),
+                    health=(self.alerts.health
+                            if self.alerts is not None else None),
+                    jobs=self.telemetry.job_lines)
+                self.probe.start()
+            except OSError:
+                log.warning("probe endpoint failed to bind port %d",
+                            self.conf.probe_port, exc_info=True)
+        # the per-span event timeline; a standalone manager installs it
+        # process-wide so module-level sites (staging, the tiered store,
+        # the fault plane) reach it; events accumulate over plan and read
+        # and drain into the span. A session installs it per call.
         self.timeline = EventTimeline(enabled=self.journal.enabled)
-        self._prev_timeline = set_active(self.timeline)
+        self._prev_timeline = (None if self._service_mode
+                               else set_active(self.timeline))
         self.watchdog = StallWatchdog(self.conf.watchdog_timeout_s,
                                       journal=self.journal,
                                       metrics=self.metrics,
                                       timeline=self.timeline)
         if self.watchdog.enabled:
             install_state_dump()   # SIGUSR1 dump of armed waits
-        # the fault plane, process-wide: module-level sites (staging,
-        # the checkpoint store) reach it without a handle
+        # the fault plane: process-wide for a standalone manager (module-
+        # level sites reach it without a handle), per call for a session
         self.faults = faults.FaultPlane(self.conf.fault_spec)
-        self._prev_plane = faults.set_active_plane(
-            self.faults if self.faults.enabled else None)
-        # the node owns the pool, the exchange draws from it
-        self.runtime.pool.metrics = self.metrics
-        self.runtime.pool.timeline = self.timeline
+        self._prev_plane = None
+        if not self._service_mode:
+            self._prev_plane = faults.set_active_plane(
+                self.faults if self.faults.enabled else None)
+            # the node owns the pool, the exchange draws from it; a
+            # session must not re-point the daemon's shared pool
+            self.runtime.pool.metrics = self.metrics
+            self.runtime.pool.timeline = self.timeline
         #: ``ExchangeRecord`` per recorded read
         #: (``conf.collect_shuffle_read_stats``)
         self.stats = ShuffleReadStats(self.conf.collect_shuffle_read_stats,
@@ -554,15 +701,17 @@ class ShuffleManager:
             compression_level=self.conf.compression_level)
             if self.conf.spill_dir else None)
         #: the tiered out-of-core store: the pool as its HBM tier, host
-        #: leases, disk segments
-        self.tiered = TieredStore(self.conf, pool=self.runtime.pool)
+        #: leases, disk segments (the daemon's in service mode)
+        self.tiered = (tiered if tiered is not None
+                       else TieredStore(self.conf, pool=self.runtime.pool))
         self._exchange = ShuffleExchange(
             self.runtime, self.conf, metrics=self.metrics,
             pool=self.runtime.pool, store=self.tiered, stats=self.stats,
             timeline=self.timeline, watchdog=self.watchdog,
-            journal=self.journal,
+            journal=self.journal, rollup=self.rollup,
             identity=(self.runtime.process_index,
-                      self.runtime.process_count))
+                      self.runtime.process_count),
+            tenant=self.tenant, account=self.account)
         ids = tuple(self.runtime.manager_id(i)
                     for i in range(self.runtime.num_partitions))
         self._registry = MapOutputRegistry(ids, metrics=self.metrics)
@@ -612,7 +761,8 @@ class ShuffleManager:
         in the journal, with each stage's critical-path profile, the
         ``stage:idle`` time and the job's verdict
         (:mod:`sparkrdma_tpu_torch.obs.trace`)."""
-        return _trace.JobTrace(name, journal=self.journal,
+        return _trace.JobTrace(name, tenant=self.tenant, journal=self.journal,
+                               store=self.telemetry,
                                process_index=self.runtime.process_index)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
@@ -623,7 +773,7 @@ class ShuffleManager:
         self._writers.pop(shuffle_id, None)
         self._plan_seconds.pop(shuffle_id, None)
         self._exchange.release_shuffle(shuffle_id)
-        self.tiered.delete_shuffle(shuffle_id)
+        self.tiered.delete_shuffle(shuffle_id, tenant=self.tenant)
         if self.store is not None:
             self.store.delete(shuffle_id)
 
@@ -735,7 +885,7 @@ class ShuffleManager:
                 continue
             self.tiered.adopt(key, self.store.segment_path(shuffle_id, entry),
                               entry["shape"], entry["dtype"],
-                              shuffle=shuffle_id)
+                              tenant=self.tenant, shuffle=shuffle_id)
             adopted.append(key)
         return adopted
 
@@ -810,13 +960,31 @@ class ShuffleManager:
     def stop(self) -> None:
         """Release the pooled buffers, close the store and the journal
         (printing the read stats' per-source table first); checkpoints
-        stay for a restarted manager to resume."""
-        if faults.active_plane() is self.faults:
+        stay for a restarted manager to resume. The heartbeat writes a
+        last beat, the alert evaluator saves its baselines, the probe
+        closes its socket and the rollup writes its open window. A
+        service session drops its tenant's segments and closes nothing
+        of the daemon's."""
+        if not self._service_mode and faults.active_plane() is self.faults:
             faults.set_active_plane(self._prev_plane)
         if self.stats.enabled and self.stats.records:
             self.stats.print_histogram()
+        if self.heartbeat is not None:
+            self.heartbeat.stop()
+        if self.alerts is not None:
+            self.alerts.stop()
+            self.alerts = None
+        if self.probe is not None:
+            self.probe.stop()
+            self.probe = None
+        if self.rollup is not None:
+            self.rollup.flush()
         self._exchange.release_all()
         self._writers.clear()
+        if self._service_mode:
+            self.tiered.delete_tenant(self.tenant)
+            return
+        self.telemetry.stop()
         self.journal.close()
         self.tiered.close()
         self.runtime.stop()
@@ -825,6 +993,32 @@ class ShuffleManager:
         current = set_active(self._prev_timeline)
         if current is not self.timeline:
             set_active(current)      # a later manager's: it stays
+
+    def _read_started(self) -> None:
+        with self._inflight_lock:
+            self._reads_in_flight += 1
+            n = self._reads_in_flight
+        self.metrics.gauge("reads.in_flight").set(n)
+
+    def _read_finished(self) -> None:
+        with self._inflight_lock:
+            self._reads_in_flight -= 1
+            n = self._reads_in_flight
+        self.metrics.gauge("reads.in_flight").set(n)
+
+    def _tenant_scope(self) -> contextlib.ExitStack:
+        """For one SPI call of a service session: the session's fault
+        plane and timeline, installed for the calling thread only
+        (``faults.scoped_plane``, ``timeline.scoped_active``), so that
+        module-level sites reach the tenant's own without a process-wide
+        install. A standalone manager's are process-wide already: an
+        empty stack."""
+        stack = contextlib.ExitStack()
+        if self._service_mode:
+            stack.enter_context(faults.scoped_plane(
+                self.faults if self.faults.enabled else None))
+            stack.enter_context(scoped_active(self.timeline))
+        return stack
 
     def __enter__(self) -> "ShuffleManager":
         return self

@@ -7,7 +7,9 @@ out-of-core path: host staging, the tiered store and segment
 checkpoints; the query planner's rewrite gates and the host codec's
 chunking; the whole-shuffle checkpoint, the reader's retry loop and
 the fault plane; the observability knobs of the journal, the read
-stats and the stall watchdog), under the reference's names and with its defaults, so a
+stats and the stall watchdog, of the live telemetry and alert layer,
+and of the multi-tenant service), under the reference's names and with
+its defaults, so a
 configuration written for one package means the same thing to the
 other. Transports
 that are not ported (the hierarchical one) are refused; the reference's
@@ -118,6 +120,39 @@ class ShuffleConf:
     #: rotate the live journal file past this many bytes (``<sink>.1``,
     #: ``.2``, …); 0 never rotates
     journal_max_bytes: int = 0
+    #: windowed rollups (``obs/rollup.py``): with a journal, every read
+    #: is folded into per-shuffle windows of this many seconds, one
+    #: ``{"kind": "rollup"}`` line a window, exact whatever
+    #: ``journal_sample`` keeps. 0 disables
+    rollup_window_s: float = 30.0
+    #: with a journal, a ``{"kind": "heartbeat"}`` line every this many
+    #: seconds (process identity, uptime, reads in flight, pool
+    #: occupancy, rss), from a thread. 0 disables
+    heartbeat_s: float = 0.0
+    #: live telemetry store (``obs/tsdb.py``): a thread snapshots every
+    #: scalar metric into a bounded ring this often (rates, deltas, the
+    #: probe's view). Needs ``collect_shuffle_read_stats`` or
+    #: ``metrics_sink``; 0 disables
+    telemetry_window_s: float = 0.0
+    #: samples kept per series, and rollup windows per shuffle
+    telemetry_history: int = 120
+    #: probe endpoint (``obs/probe.py``) on ``127.0.0.1``: journal,
+    #: snapshot, Prometheus text, alerts, health and jobs, for
+    #: ``scripts/shuffle_top.py --connect``. -1 disables; 0 binds an
+    #: ephemeral port (``manager.probe.port``)
+    probe_port: int = -1
+    #: alert evaluator (``obs/alerts.py``): every this many seconds a
+    #: thread evaluates the rules against the telemetry store and
+    #: journals ``{"kind": "alert"}`` fire and resolve lines. Needs the
+    #: telemetry store; 0 disables
+    alert_eval_s: float = 0.0
+    #: consecutive breaching evaluations before an alert fires
+    alert_fire_breaches: int = 3
+    #: consecutive clean evaluations before an active alert resolves
+    alert_resolve_windows: int = 2
+    #: persisted baselines (``obs/baseline.py``) in
+    #: ``<baseline_dir>/baselines.json``; empty disables
+    baseline_dir: str = ""
 
     # --- map-side combine (pre-exchange reduction) ---
     #: map-side combine policy for aggregator shuffles: "auto" (a sampled
@@ -213,6 +248,38 @@ class ShuffleConf:
     serde_schema_spill_codec: str = ""
     serde_schema_spill_level: int = 1
 
+    # --- multi-tenant service (service/) ---
+    #: default per-tenant quota of slot-pool buffers held at once (0:
+    #: unlimited); a tenant at its quota blocks in the acquisition until
+    #: one of its own buffers comes back, bounded by ``admission_wait_s``
+    tenant_hbm_slots: int = 0
+    #: default per-tenant host-tier bytes of the tiered store (0:
+    #: unlimited); an over-quota put blocks while the tenant's own
+    #: segments are demoted to disk
+    tenant_host_bytes: int = 0
+    #: default per-tenant disk-tier bytes (0: unlimited); eviction does
+    #: not demote a segment of a tenant at its disk quota
+    tenant_disk_bytes: int = 0
+    #: reads admitted at once across all tenants by the service's
+    #: deficit-round-robin controller (0: unlimited)
+    admission_slots: int = 0
+    #: rounds added to a waiting tenant's deficit per sweep; a read is
+    #: admitted once its tenant's deficit covers its planned rounds
+    admission_quantum: float = 1.0
+    #: longest quota or admission wait, in seconds, before the operation
+    #: fails with a clear error
+    admission_wait_s: float = 300.0
+    #: the service's RPC port on ``127.0.0.1`` (``service/rpc.py``): -1
+    #: disables, 0 binds an ephemeral port (``service.rpc.port``)
+    rpc_port: int = -1
+    #: a client silent for this many seconds loses its lease, which is
+    #: reaped like a clean ``close_session``; 0: leases never expire
+    lease_s: float = 30.0
+    #: backoff base of the RPC client's retries, in ms (0: no sleep)
+    rpc_retry_ms: float = 25.0
+    #: deadline across all attempts of one RPC call (0: none)
+    rpc_deadline_s: float = 30.0
+
     # --- fault handling (faults.py, the reader's retry loop) ---
     max_retry_attempts: int = 3       # maxConnectionAttempts analogue
     #: probability of an injected fault at each exchange (draws from one
@@ -303,6 +370,49 @@ class ShuffleConf:
         if self.journal_max_bytes < 0:
             raise ValueError("journal_max_bytes must be >= 0 (0 = no "
                              "rotation)")
+        if self.rollup_window_s < 0:
+            raise ValueError("rollup_window_s must be >= 0 (0 disables)")
+        if self.heartbeat_s < 0:
+            raise ValueError("heartbeat_s must be >= 0 (0 disables)")
+        if self.telemetry_window_s < 0:
+            raise ValueError("telemetry_window_s must be >= 0 "
+                             "(0 disables)")
+        if self.telemetry_history < 2:
+            raise ValueError("telemetry_history must be >= 2 "
+                             "(rate/delta need two samples)")
+        if not -1 <= self.probe_port <= 65535:
+            raise ValueError("probe_port must be in [-1, 65535] "
+                             "(-1 disables, 0 = ephemeral)")
+        if self.alert_eval_s < 0:
+            raise ValueError("alert_eval_s must be >= 0 (0 disables)")
+        if self.alert_fire_breaches < 1:
+            raise ValueError("alert_fire_breaches must be >= 1 "
+                             "(1 = fire on first breach)")
+        if self.alert_resolve_windows < 1:
+            raise ValueError("alert_resolve_windows must be >= 1 "
+                             "(1 = resolve on first clean window)")
+        if not -1 <= self.rpc_port <= 65535:
+            raise ValueError("rpc_port must be in [-1, 65535] "
+                             "(-1 disables, 0 = ephemeral)")
+        if self.lease_s < 0:
+            raise ValueError("lease_s must be >= 0 (0 = leases never "
+                             "expire)")
+        if self.rpc_retry_ms < 0:
+            raise ValueError("rpc_retry_ms must be >= 0 (0 = tight "
+                             "retry, no backoff sleep)")
+        if self.rpc_deadline_s < 0:
+            raise ValueError("rpc_deadline_s must be >= 0 "
+                             "(0 = no deadline)")
+        for name in ("tenant_hbm_slots", "tenant_host_bytes",
+                     "tenant_disk_bytes", "admission_slots"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 = unlimited)")
+        if self.admission_quantum <= 0:
+            raise ValueError("admission_quantum must be > 0 (rounds "
+                             "refilled per DRR sweep)")
+        if self.admission_wait_s < 0:
+            raise ValueError("admission_wait_s must be >= 0 (0 = fail "
+                             "immediately when over quota)")
         self.sampling_policy()  # validate journal_sample eagerly
         self.fault_rules()               # validate fault_spec eagerly
         _parse_prealloc(self.prealloc)  # validate eagerly

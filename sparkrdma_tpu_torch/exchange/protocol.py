@@ -47,7 +47,10 @@ regime draws its chunks and accumulator from it, and the fused regime's
 the same shuffle, which overwrites it in place — consume (or copy) it
 before then. :meth:`ShuffleExchange.release_shuffle` hands a shuffle's
 buffers back to the pool. Given a tiered store (``store=``), the
-exchange acquires and releases every pooled buffer through it.
+exchange acquires and releases every pooled buffer through it. A service
+session's exchange (``tenant=``, ``account=``) charges each pooled
+buffer to the tenant's account while it holds it and tags its spans with
+the tenant.
 
 The record-movement strategy of every sort (``sort_mode``: pack, wide
 or plain) is chosen as in the reference; all three are one stable sort
@@ -166,8 +169,13 @@ class ShuffleExchange:
                  store=None, stats: Optional[ShuffleReadStats] = None,
                  timeline: Optional[EventTimeline] = None,
                  watchdog: Optional[StallWatchdog] = None, journal=None,
-                 identity: Tuple[int, int] = (0, 1)):
+                 identity: Tuple[int, int] = (0, 1), rollup=None,
+                 tenant: str = "", account=None):
         self.runtime = runtime
+        #: the service tenant this exchange runs for ("" standalone): its
+        #: spans carry it, and ``account`` meters its pooled buffers
+        self.tenant = tenant
+        self.account = account
         self.conf = conf or runtime.conf
         self.mesh_size = runtime.num_partitions
         self.metrics = metrics if metrics is not None \
@@ -188,6 +196,8 @@ class ShuffleExchange:
         #: the journal :meth:`shuffle` writes its spans to (None: none),
         #: and the ``(process_index, host_count)`` stamped into them
         self.journal = journal
+        #: the rollup aggregator :meth:`shuffle` folds its spans into
+        self.rollup = rollup
         self.sampler = self.conf.sampling_policy()
         self.identity = identity
         #: host seconds of the last :meth:`plan`
@@ -225,16 +235,18 @@ class ShuffleExchange:
         if self.pool is None:
             return torch.empty(shape, dtype=torch.int32, device=device)
         if self.store is not None:
-            return self.store.acquire_device(shape)
-        return self.pool.get_shaped(shape)
+            return self.store.acquire_device(shape, account=self.account)
+        return self.pool.get_shaped(shape, account=self.account)
 
     def _put_buf(self, arr: torch.Tensor) -> None:
         if self.pool is None:
             return
         if self.store is not None:
-            self.store.release_device(arr)
-        else:
+            self.store.release_device(arr, account=self.account)
+        elif self.account is None:
             self.pool.put_shaped(arr)
+        else:
+            self.pool.put_shaped(arr, account=self.account)
 
     def release_shuffle(self, shuffle_id: int) -> None:
         """Return a shuffle's recycled output buffers to the pool
@@ -244,7 +256,9 @@ class ShuffleExchange:
             self._put_buf(self._out_prev.pop(okey))
 
     def release_all(self) -> None:
-        """Return every recycled output buffer (manager teardown)."""
+        """Return every recycled output buffer (manager teardown; a
+        session's exchange dies with it, so nothing stays charged to its
+        tenant's account)."""
         while self._out_prev:
             self._put_buf(self._out_prev.popitem()[1])
 
@@ -990,8 +1004,9 @@ class ShuffleExchange:
         With ``conf.collect_shuffle_read_stats`` each call adds an
         :class:`~sparkrdma_tpu_torch.obs.stats.ExchangeRecord` to
         ``self.stats``, and with an enabled ``journal`` it writes a
-        (sampled) span: the stats and journal path of exchanges driven
-        without a ShuffleManager. Either one times the exchange through
+        (sampled) span, folded into ``rollup`` when one is given: the
+        stats and journal path of exchanges driven without a
+        ShuffleManager. Either one times the exchange through
         a closing device sync; with neither, nothing waits."""
         from sparkrdma_tpu_torch.utils.stats import Timer, barrier
 
@@ -1023,7 +1038,7 @@ class ShuffleExchange:
             span_id = next_span_id()
             st_spill, st_fetch, st_hits, st_sync = store_totals()
             span = ExchangeSpan(
-                span_id=span_id, shuffle_id=shuffle_id,
+                span_id=span_id, shuffle_id=shuffle_id, tenant=self.tenant,
                 transport=self.transport(), rounds=plan.num_rounds,
                 dispatches=self.last_dispatches,
                 records=plan.total_records,
@@ -1047,6 +1062,8 @@ class ShuffleExchange:
             critical_path.enrich(span, metrics=self.metrics)
             _trace.observe_active_span(span)
             weight = self.sampler.keep_weight(span_id, t.elapsed)
+            if self.rollup is not None:
+                self.rollup.observe(span, kept=weight > 0)
             if weight > 0:
                 span.sample_weight = weight
                 self.journal.emit(span)

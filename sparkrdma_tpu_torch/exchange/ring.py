@@ -112,7 +112,7 @@ def ring_exchange(send: torch.Tensor,
         recv = ring_exchange_plain(send)
         return recv if out is None else out.copy_(recv)
     if send.numel():
-        ring_exchange.launches += 1
+        _build.count_launch(ring_exchange)
     return _launch(send, out)
 
 
@@ -159,7 +159,7 @@ def ring_all_to_all(send: torch.Tensor,
         recv = send.transpose(0, 1).contiguous()
         return recv if out is None else out.copy_(recv)
     if send.numel():
-        ring_all_to_all.launches += 1
+        _build.count_launch(ring_all_to_all)
     return _launch(send, out, round_axis=False)
 
 

@@ -20,12 +20,14 @@ site                        where it fires
                             per call (never on the numpy codec)
 ``serde.decode``            the native branches of ``decode_bytes_rows``
                             and ``decode_cols``, as ``serde.encode``
-``rpc.send``                nothing yet: the service (queue A item 10)
-``rpc.recv``                nothing yet, as ``rpc.send``
+``rpc.send``                ``service/wire.py send_frame``, before a frame
+                            is written (``corrupt`` after its CRC)
+``rpc.recv``                ``service/wire.py recv_frame``, after a frame
+                            is read, before its CRC check
 ==========================  =================================================
 
-A spec naming the two idle sites parses as in the reference; nothing
-fires them. An injected failure at a ``serde.*`` site is overcome by
+An injected failure at an ``rpc.*`` site is retried by the RPC client
+(``service.rpc.retries``). An injected failure at a ``serde.*`` site is overcome by
 running the native call again (the ``serde_native`` recovery, where the
 reference falls back to numpy for the rest of the process); a second
 one raises ``RuntimeError``.
@@ -56,9 +58,12 @@ Each injection also records ``fault:injected`` (``site``, ``action``,
 timeline (``obs/timeline.py``); with no degradation rung, no
 ``fault:degraded`` event fires.
 
-``ShuffleManager`` installs its plane process-wide, so module-level
-sites (host staging, the checkpoint store) reach it without a handle.
-``fire`` on the null plane is a no-op.
+A standalone ``ShuffleManager`` installs its plane process-wide, so
+module-level sites (host staging, the checkpoint store) reach it without
+a handle; a service session's plane is installed for the calling thread
+only, for each SPI call (:func:`scoped_plane`), so one tenant's schedule
+never fires in another tenant's thread. ``fire`` on the null plane is a
+no-op.
 """
 
 from __future__ import annotations

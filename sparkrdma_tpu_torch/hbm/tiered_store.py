@@ -32,9 +32,18 @@ The threads start with the first ``put``, ``adopt``, ``prefetch`` or
 The store records ``spill:write`` (a demotion to disk), ``spill:fetch``
 (``sync=True``: a ``get`` blocked on disk) and ``spill:promote`` (a
 prefetched promotion) on the active timeline (``obs/timeline.py
-record_active``), as the reference does. Left out of the reference: the
-tenant quota accounts (``register_account`` and the charges; segments
-keep their ``tenant`` tag).
+record_active``), as the reference does.
+
+Tenant accounts (the service's ``service/tenant.py``), as in the
+reference: ``register_account(tenant, account)`` meters the segments
+tagged with that tenant. A ``put`` charges host bytes first, blocking
+while the tenant is over its host quota (each wait slice asks the writer
+to demote one of that tenant's own least-recently-used segments); an
+``adopt`` charges disk bytes; a demotion moves the charge from host to
+disk and is skipped for a tenant at its disk quota; a promotion moves it
+back only if the tenant has host headroom (else the segment stays on
+disk); every way a segment leaves the store returns its charge.
+``delete_tenant`` drops the tenant's segments and detaches its account.
 """
 
 from __future__ import annotations
@@ -111,6 +120,8 @@ class TieredStore:
         # ``get`` (the input streamer stages it in its own page-locked pool)
         self.host_pool = HostBufferPool(use_native=self._use_native)
         self._segments: Dict[str, _Segment] = {}    # guarded-by: _lock
+        #: tenant name -> TenantAccount (the service's wiring)
+        self._accounts: Dict[str, object] = {}      # guarded-by: _lock
         self._lock = threading.Lock()
         self._tick = 0                       # guarded-by: _lock
         self._host_bytes = 0                 # guarded-by: _lock
@@ -141,15 +152,35 @@ class TieredStore:
     # HBM tier: delegates, so the exchange acquires round buffers through
     # the store without changing the pool's discipline
     # ------------------------------------------------------------------
-    def acquire_device(self, shape):
+    def acquire_device(self, shape, account=None):
         """An ``int32`` device buffer from the HBM tier
-        (``SlotPool.get_shaped``); each acquisition also pokes the
-        writer."""
+        (``SlotPool.get_shaped``, charged to ``account``); each
+        acquisition also pokes the writer."""
         self.service()
-        return self.pool.get_shaped(shape)
+        return self.pool.get_shaped(shape, account=account)
 
-    def release_device(self, arr) -> None:
-        self.pool.put_shaped(arr)
+    def release_device(self, arr, account=None) -> None:
+        # a standalone caller passes no account, and the pool is called
+        # as before the accounts existed (a pool subclass may not take one)
+        if account is None:
+            self.pool.put_shaped(arr)
+        else:
+            self.pool.put_shaped(arr, account=account)
+
+    def register_account(self, tenant: str, account) -> None:
+        """Meter ``tenant``'s host and disk holdings against ``account``
+        (a ``TenantAccount``). Segments of a tenant with no account are
+        tagged but not metered."""
+        if not tenant:
+            raise ValueError("tenant name must be non-empty")
+        with self._lock:
+            self._accounts[tenant] = account
+
+    def _account(self, tenant: str):
+        if not tenant:
+            return None
+        with self._lock:
+            return self._accounts.get(tenant)
 
     def service(self) -> None:
         """Non-blocking poke: wake the writer if host occupancy is over
@@ -167,16 +198,26 @@ class TieredStore:
         """Stage ``arr`` (copied into a pooled host lease) under ``key``.
         The put always lands in the host tier; the writer then evicts
         least-recently-used segments until occupancy is back under the
-        watermark."""
+        watermark. A metered ``tenant`` is charged the host bytes first
+        (module docstring), with no store lock held."""
         self._start()
         arr = np.asarray(arr)
+        acct = self._account(tenant)
+        if acct is not None:
+            acct.charge("host", arr.nbytes,
+                        poke=lambda: self._wq.put(("tenant", tenant)))
         seg = _Segment(key, arr.shape, arr.dtype, arr.nbytes,
                        tenant=tenant, shuffle=shuffle)
-        lease = self.host_pool.get(arr.nbytes)
+        lease = None
         try:
+            lease = self.host_pool.get(arr.nbytes)
             lease.view(arr.dtype, arr.shape)[...] = arr
         except BaseException:
-            lease.release()
+            # a charge for bytes that never landed goes back
+            if lease is not None:
+                lease.release()
+            if acct is not None:
+                acct.release("host", arr.nbytes)
             raise
         seg.lease = lease
         old = None
@@ -196,6 +237,8 @@ class TieredStore:
                 over = self._host_bytes > self._watermark
         if closed:
             lease.release()
+            if acct is not None:
+                acct.release("host", arr.nbytes)
             raise RuntimeError("TieredStore is closed")
         if old_ev is not None:
             old_ev.set()
@@ -297,10 +340,14 @@ class TieredStore:
     def adopt(self, key: str, path: str, shape, dtype,
               tenant: str = "", shuffle: Optional[int] = None) -> None:
         """Register an existing on-disk file (e.g. a checkpoint segment)
-        as a disk-tier segment; nothing is read until a get or prefetch."""
+        as a disk-tier segment; nothing is read until a get or prefetch.
+        A metered ``tenant`` is charged the disk bytes first."""
         self._start()
         dtype = np.dtype(dtype)
         nbytes = int(np.prod(shape)) * dtype.itemsize
+        acct = self._account(tenant)
+        if acct is not None:
+            acct.charge("disk", nbytes)
         seg = _Segment(key, shape, dtype, nbytes,
                        tenant=tenant, shuffle=shuffle)
         seg.tier = "disk"
@@ -319,6 +366,8 @@ class TieredStore:
                 self._segments[key] = seg
                 self._disk_bytes += nbytes
         if closed:
+            if acct is not None:
+                acct.release("disk", nbytes)
             raise RuntimeError("TieredStore is closed")
         if old_ev is not None:
             old_ev.set()
@@ -359,17 +408,25 @@ class TieredStore:
 
     def _promote_install(self, key: str, data: np.ndarray) -> bool:
         """Install freshly read bytes as the segment's host residence;
-        True iff installed (False when it raced a delete or another
-        read)."""
+        True iff installed (False when it raced a delete or another read,
+        or when its tenant has no host headroom: a promotion never waits
+        on a quota, the data was read for the caller already)."""
         with self._lock:
             seg = self._segments.get(key)
             if seg is None or seg.tier == "host":
                 return False
-        lease = self.host_pool.get(data.nbytes)
+            acct = self._accounts.get(seg.tenant) if seg.tenant else None
+        if acct is not None and not acct.try_charge("host", seg.nbytes):
+            return False
+        lease = None
         try:
+            lease = self.host_pool.get(data.nbytes)
             lease.view(data.dtype, data.shape)[...] = data
         except BaseException:
-            lease.release()
+            if lease is not None:
+                lease.release()
+            if acct is not None:
+                acct.release("host", seg.nbytes)
             raise
         over = False
         with self._lock:
@@ -387,7 +444,12 @@ class TieredStore:
                 over = self._host_bytes > self._watermark
         if stale:
             lease.release()
+            if acct is not None:
+                acct.release("host", seg.nbytes)
             return False
+        if acct is not None:
+            # the bytes moved disk -> host: the disk charge goes back
+            acct.release("disk", seg.nbytes)
         self._set_gauges()
         if over:
             self._wq.put("evict")
@@ -410,25 +472,45 @@ class TieredStore:
                 self._wq.task_done()
                 return
             try:
-                while self._evict_one():
-                    pass
+                if isinstance(item, tuple) and item[0] == "tenant":
+                    # a quota-blocked put: demote one of that tenant's
+                    # own segments, never another tenant's
+                    self._evict_one(set(), tenant=item[1])
+                else:
+                    # victims skipped for their tenant's disk quota stay
+                    # skipped for the rest of this sweep
+                    skip: set = set()
+                    while self._evict_one(skip):
+                        pass
             finally:
                 self._wq.task_done()
 
-    def _evict_one(self) -> bool:
-        """Demote the least-recently-used unpinned host segment to disk
-        while occupancy is over the watermark. True when the sweep should
-        go on."""
+    def _evict_one(self, skip: set, tenant: Optional[str] = None) -> bool:
+        """Demote the least-recently-used unpinned host segment (of
+        ``tenant`` when given, regardless of the watermark; else while
+        occupancy is over it) to disk. True when the sweep should go
+        on."""
+        acct = None
         with self._lock:
-            if self._closed or self._host_bytes <= self._watermark:
+            if self._closed or (tenant is None
+                                and self._host_bytes <= self._watermark):
                 return False
             victims = [s for s in self._segments.values()
                        if s.tier == "host" and not s.pinned
-                       and not s.wanted]
+                       and not s.wanted and s.key not in skip
+                       and (tenant is None or s.tenant == tenant)]
             if not victims:
                 return False
             seg = min(victims, key=lambda s: s.tick)
             tick = seg.tick
+            if seg.tenant:
+                acct = self._accounts.get(seg.tenant)
+            # the demotion moves the bytes into the owner's disk budget;
+            # an owner with no disk headroom keeps the segment on the host
+            # (the writer never waits on a quota)
+            if acct is not None and not acct.try_charge("disk", seg.nbytes):
+                skip.add(seg.key)
+                return True
             # in flight: a concurrent get keeps reading the valid lease,
             # and a drop defers the lease's release to this thread
             seg.pinned = True
@@ -448,6 +530,8 @@ class TieredStore:
                 lease = seg.lease if gone else None
                 if gone:
                     seg.lease = None
+            if acct is not None:
+                acct.release("disk", seg.nbytes)
             if lease is not None:
                 lease.release()
             return False
@@ -477,6 +561,11 @@ class TieredStore:
                 orphan = path
         if lease is not None:
             lease.release()
+        if acct is not None:
+            # demoted: the host charge goes back (the disk one stays);
+            # not demoted: the speculative disk charge goes back (a drop
+            # meanwhile returned the host charge already)
+            acct.release("host" if demoted else "disk", seg.nbytes)
         if orphan is not None:
             try:
                 os.remove(orphan)
@@ -599,7 +688,8 @@ class TieredStore:
             self.delete(key)
 
     def delete_tenant(self, tenant: str) -> None:
-        """Drop every segment tagged with ``tenant``."""
+        """Drop every segment tagged with ``tenant`` and detach its account
+        (a service session's teardown: its charges here return to 0)."""
         if not tenant:
             return
         with self._lock:
@@ -607,10 +697,13 @@ class TieredStore:
                     if s.tenant == tenant]
         for key in keys:
             self.delete(key)
+        with self._lock:
+            self._accounts.pop(tenant, None)
 
     def _drop_locked(self, seg: _Segment):
         """Detach ``seg`` as it leaves ``_segments`` (caller holds
-        ``_lock``). Returns ``(event, defer)``: the promotion event to
+        ``_lock``), returning its tier bytes and its tenant's charge.
+        Returns ``(event, defer)``: the promotion event to
         set once the lock is released (a ``get`` riding it would park
         forever otherwise), and whether the lease's release is deferred
         to the writer, which is reading it outside the lock."""
@@ -618,6 +711,13 @@ class TieredStore:
             self._host_bytes -= seg.nbytes
         else:
             self._disk_bytes -= seg.nbytes
+        if seg.tenant:
+            acct = self._accounts.get(seg.tenant)
+            if acct is not None:
+                # the account's lock is a leaf: its non-blocking release
+                # is safe under the store's lock
+                acct.release("host" if seg.tier == "host" else "disk",
+                             seg.nbytes)
         ev, seg.event = seg.event, None
         defer = seg.pinned and seg.tier == "host" and seg.lease is not None
         return ev, defer

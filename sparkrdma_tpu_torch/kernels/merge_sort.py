@@ -158,7 +158,7 @@ def merge_splits(cols: torch.Tensor, run: int, tile: int) -> torch.Tensor:
     splits = torch.empty(-(-n // tile), dtype=torch.int32,
                          device=cols.device)
     lib = _build.library("merge_path")
-    merge_splits.launches += 1
+    _build.count_launch(merge_splits)
     err = lib.sr_merge_splits(
         ctypes.c_void_p(cols.data_ptr()), ctypes.c_void_p(splits.data_ptr()),
         w, n, _ld(cols), run, tile,
@@ -214,7 +214,7 @@ def merge_stage(cols: torch.Tensor, run: int,
     tile = pick_tile(w, run)
     splits = merge_splits(cols, run, tile)
     lib = _build.library("merge_path")
-    merge_stage.launches += 1
+    _build.count_launch(merge_stage)
     err = lib.sr_merge_stage(
         ctypes.c_void_p(cols.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(splits.data_ptr()), w, n, _ld(cols), _ld(out), run,

@@ -64,6 +64,24 @@ COUNTERS = frozenset({
     "store.crc_rereads",
     "store.compressed_segments",
     "critical_path.attributions",
+    "service.admits",
+    "service.admission_waits",
+    "service.sessions_opened",
+    "service.sessions_closed",
+    "service.rpc.requests",
+    "service.rpc.errors",
+    "service.rpc.replays",
+    "service.rpc.calls",
+    "service.rpc.retries",
+    "service.leases_granted",
+    "service.leases_renewed",
+    "service.leases_expired",
+    "tsdb.samples",
+    "tsdb.evictions",
+    "probe.requests",
+    "probe.errors",
+    "alerts.fired",
+    "alerts.resolved",
 })
 
 #: Point-in-time gauges (``registry.gauge(name)``).
@@ -72,6 +90,9 @@ GAUGES = frozenset({
     "meta.registered_shuffles",
     "store.host_bytes",
     "store.disk_bytes",
+    "reads.in_flight",
+    "service.tenants",
+    "alerts.active",
 })
 
 #: Distributions (``registry.histogram(name)``).
@@ -103,6 +124,10 @@ WILDCARDS = frozenset({
     "serde.columnar.*_calls",
     "serde.columnar.*_native",
     "serde.columnar.*_fallback",
+    "tenant.*.hbm_slots",
+    "tenant.*.host_bytes",
+    "tenant.*.disk_bytes",
+    "tenant.*.quota_waits",
 })
 
 __all__ = ["COUNTERS", "GAUGES", "HISTOGRAMS", "TIMELINE_TRACKS",

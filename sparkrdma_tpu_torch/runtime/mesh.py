@@ -16,6 +16,8 @@ are the only places a host ``uint32`` array crosses.
 from __future__ import annotations
 
 import dataclasses
+import os
+import socket
 from typing import Optional
 
 import numpy as np
@@ -53,6 +55,14 @@ class MeshRuntime:
         #: here): stamped into journal spans as the reference stamps them
         self.process_index = 0
         self.process_count = 1
+
+    def process_identity(self) -> dict:
+        """This host process's identity, as stamped into every
+        ``{"kind": "heartbeat"}`` line (``obs/rollup.py``): the rank
+        pair, the host name and the pid."""
+        return {"process_index": self.process_index,
+                "host_count": self.process_count,
+                "host": socket.gethostname(), "pid": os.getpid()}
 
     def manager_id(self, device_index: int) -> ManagerId:
         if not 0 <= device_index < self.num_partitions:

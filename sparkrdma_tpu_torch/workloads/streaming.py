@@ -279,10 +279,10 @@ def run_tiered_terasort(
             segs = []
             for j in range(n_chunks):
                 chunk = cols[:, j * chunk_records:(j + 1) * chunk_records]
-                # not shuffle-tagged: the staged chunks are this
-                # workload's own working set, which unregister_shuffle
-                # must not drop
-                store.put(keys[j], chunk)
+                # tenant-tagged (a service session's quota), not
+                # shuffle-tagged: the staged chunks are this workload's
+                # own working set, which unregister_shuffle must not drop
+                store.put(keys[j], chunk, tenant=manager.tenant)
                 if checkpoint:
                     segs.append((keys[j], chunk))
             if checkpoint:

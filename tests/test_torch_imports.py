@@ -90,6 +90,20 @@ def test_observability_modules_scanned(rel):
     assert not [n for _, n in _imports(path) if _forbidden(n)]
 
 
+@pytest.mark.parametrize("rel", [
+    "obs/rollup.py", "obs/tsdb.py", "obs/baseline.py", "obs/alerts.py",
+    "obs/probe.py", "service/__init__.py", "service/tenant.py",
+    "service/admission.py", "service/wire.py", "service/rpc.py",
+    "service/client.py", "service/daemon.py"])
+def test_telemetry_and_service_modules_scanned(rel):
+    """The live telemetry and alert layer and the multi-tenant service
+    are the port's own copies (the reference's import no JAX, and are
+    copied all the same)."""
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):
