@@ -196,10 +196,34 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               reference's ``shuffle_top.py --connect --rpc``), ``alerts``
               (``spill_storm`` fired by a spilling out-of-core run and
               resolved, read by ``shuffle_report.py``);
+13. shuffles across processes (``runtime/distributed.py``,
+    ``exchange/hierarchical.py``): the smoke spawns two workers of itself
+    (``--distributed-worker``), both on this card over gloo, which meet
+    through a ``file://`` rendezvous; the one-process references run
+    first and the cached memory is freed before the spawn; a worker's
+    non-zero exit or ``DIST_WORKER_S`` fails the smoke:
+     T            leg B's records (seed 0) and conf, 4 partitions a
+                  process, on ``"xla"`` (one ``all_to_all_single`` a
+                  round) then ``"hierarchical"`` (H = 2), a warm-up and
+                  3 reads each; per read the GB/s (the global bytes over
+                  the slower worker's wall time), each worker's seconds
+                  in ``all_to_all_single``, merge-path launches and peak
+                  memory; each partition's totals and in-order digest
+                  (``part_digests``) equal to the one-process ``"xla"``
+                  run's; where the machine has two cards the same over
+                  ``"cpu:gloo,cuda:nccl"``, a card a process (else the
+                  line says ``"nccl": "needs 2 cards"``);
+     distributed  2^20 records: TeraSort outputs bit-exact against one
+                  process on ``"xla"`` and ``"hierarchical"`` at H = 1,
+                  2 and 4; ``repartition(16)``; a sharded checkpoint
+                  (each process writes only its ``proc{p}`` shards),
+                  resumed by fresh managers; the refusals of
+                  ``pallas_ring`` (ROADMAP B.1) and of the one-process
+                  entry points (A.12);
    then the ring kernel at every send shape legs B-S launched it at
    (recorded while each leg ran), each against its plain version and
-   timed;
-13. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+   timed (cold only where a send/out pair is 1 MiB or more);
+14. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
 Every phase, leg, profile and leg-seconds line carries ``wall_s``: the
@@ -219,6 +243,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -563,6 +588,10 @@ RING_PHASE_SHAPES = {
 #: buffers streamed between two uses of one send/out pair when timing
 #: cold: over twice the H100's 50 MB L2
 COLD_BYTES = 1 << 27
+#: the ring-shape lines time a pair cold only from this size on: below
+#: it the cold graph holds over 128 launches (up to ~22,000 at the
+#: smallest shapes) of a kernel that launch latency bounds
+COLD_MIN_PAIR = 1 << 20
 #: host microseconds per launch of each ring wrapper and of
 #: ``permute().contiguous()``, measured once by ``ring_host_phase``
 RING_HOST_US = {}
@@ -599,7 +628,7 @@ def ring_host_phase() -> dict:
 
 
 def ring_times(send: torch.Tensor, out: torch.Tensor,
-               a2a: bool = False) -> dict:
+               a2a: bool = False, cold: bool = True) -> dict:
     """Device ms of the ring kernel on ``send`` (``[D, D, ...]`` through
     ``ring_all_to_all`` when ``a2a``) and of ``permute().contiguous()``'s
     copy into a buffer allocated outside the graph, each by CUDA-graph
@@ -608,7 +637,9 @@ def ring_times(send: torch.Tensor, out: torch.Tensor,
     on the main path; the pooled out is not). Cold: the launches rotate
     over copies of the pair, ``COLD_BYTES`` in all, so each finds its
     buffers evicted; a pair of ``COLD_BYTES`` or more is cold when warm,
-    and is timed once. The share of the HBM bound is the cold one."""
+    and is timed once. The share of the HBM bound is the cold one.
+    ``cold=False`` leaves the cold pair out (``None``) and takes the
+    share from the warm time."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
                                                    ring_exchange)
 
@@ -621,7 +652,9 @@ def ring_times(send: torch.Tensor, out: torch.Tensor,
             "library_device_ms": graph_ms(
                 lambda: lib_out.copy_(send.permute(dims)))}
     copies = -(-COLD_BYTES // max(pair, 1))
-    if copies > 1:
+    if not cold:
+        line["device_cold_ms"] = line["library_device_cold_ms"] = None
+    elif copies > 1:
         sends = [send] + [send.clone() for _ in range(copies - 1)]
         outs = [out] + [torch.empty_like(out) for _ in range(copies - 1)]
         libs = [lib_out] + [torch.empty_like(send)
@@ -643,16 +676,16 @@ def ring_times(send: torch.Tensor, out: torch.Tensor,
     else:
         line["device_cold_ms"] = line["device_ms"]
         line["library_device_cold_ms"] = line["library_device_ms"]
-    line["device_share_of_bound"] = \
-        pair / MEM_RATE * 1e3 / line["device_cold_ms"]
+    line["device_share_of_bound"] = pair / MEM_RATE * 1e3 / (
+        line["device_cold_ms"] if cold else line["device_ms"])
     del lib_out
     return line
 
 
 def ring_device(send: torch.Tensor, out: torch.Tensor,
-                a2a: bool = False) -> dict:
+                a2a: bool = False, cold: bool = True) -> dict:
     """``ring_times`` and the host cost per launch."""
-    return {**ring_times(send, out, a2a),
+    return {**ring_times(send, out, a2a, cold),
             "host_us_per_launch":
                 RING_HOST_US["ring_all_to_all" if a2a else "ring_exchange"],
             "library_host_us_per_launch": RING_HOST_US["permute_contiguous"]}
@@ -1712,7 +1745,8 @@ def ring_leg_phases(shapes: dict) -> list:
                 "library_ms": time_ms(
                     lambda: send.permute(dims).contiguous(), reps=5,
                     inner=inner),
-                **ring_device(send, got, a2a)}
+                **ring_device(send, got, a2a,
+                              cold=2 * send.numel() * 4 >= COLD_MIN_PAIR)}
         report(line)
         lines.append(line)
         del send, got
@@ -2000,7 +2034,9 @@ def join_codes_expect(xa: np.ndarray, xb: np.ndarray) -> np.ndarray:
     """Every joined row of ``xa ⋈ xb`` on word 1, as the sorted codes
     ``key << 20 | a_payload << 10 | b_payload`` (lossless: keys below
     2^24, payloads below 2^10)."""
-    kb_order = np.argsort(xb[:, 1], kind="stable")
+    # the codes are sorted at the end, so the order among equal keys
+    # does not matter: the default sort, not a stable one
+    kb_order = np.argsort(xb[:, 1])
     kb, pb = xb[kb_order, 1], xb[kb_order, 2].astype(np.uint64)
     lo = np.searchsorted(kb, xa[:, 1], side="left")
     hi = np.searchsorted(kb, xa[:, 1], side="right")
@@ -4746,6 +4782,515 @@ def service_phase() -> dict:
     return {"phase": "service", "launches": launches}
 
 
+# --- leg T and phase: distributed (shuffles across processes) -----------
+#: leg T: leg B's records (seed 0) over two worker processes on one card
+T_WORKERS = 2
+T_READS = 3
+#: phase: distributed: the records of its runs, and its hierarchies
+DIST_RECORDS = 1 << 20
+DIST_HOSTS = (1, 2, 4)
+DIST_SEED, DIST_CKPT_SID = 5, 97
+#: a worker pair past this is killed and fails the smoke
+DIST_WORKER_S = 600
+
+
+def part_digests(out: torch.Tensor, totals: torch.Tensor, cap: int) -> list:
+    """An in-order 64-bit digest of each stacked partition's valid words
+    (``[W, totals[d]]``, word-major): every word is mixed with its
+    position, so a moved, lost or changed word changes the digest.
+    Integer arithmetic mod 2^64, so it is the same in any process."""
+    digests = []
+    for d, t in enumerate(totals.tolist()):
+        u = out[:, d * cap:d * cap + t].to(torch.int64) & 0xFFFFFFFF
+        pos = torch.arange(u.numel(), device=u.device).reshape(u.shape)
+        x = (u + 1) * (2 * pos + 1) * 0x7E3779B97F4A7C15
+        digests.append(int((x ^ (x >> 29)).sum()))
+    return digests
+
+
+def dist_conf(transport: str, **kw):
+    """Leg B's conf (merge-path tail, ``"pow2"``, pack/wide off) on a
+    transport that runs across processes."""
+    return leg_b_conf().replace(transport=transport, **kw)
+
+
+def dist_transports() -> list:
+    """``(name, conf kwargs)`` of the phase: the flat transport and the
+    hierarchy at each H."""
+    return [("xla", {})] + [(f"hierarchical{h}", {"hierarchy_hosts": h})
+                            for h in DIST_HOSTS]
+
+
+def dist_refusals(m) -> dict:
+    """The entry points that run in one process only, each driven with a
+    runtime across processes: the message each raised (ROADMAP A.12;
+    the ring transport names B.1)."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+    from sparkrdma_tpu_torch.hbm.input_stream import (ArrayChunkSource,
+                                                      InputStreamer)
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+    from sparkrdma_tpu_torch.service.daemon import ShuffleService
+    from sparkrdma_tpu_torch.workloads import (als, join, pagerank,
+                                               streaming, tpcds)
+
+    cols = np.zeros((4, 64), np.uint32)
+    rt = m.runtime
+    h = m.register_shuffle(DIST_CKPT_SID + 1, PARTS, hash_partitioner(PARTS))
+    calls = {
+        "pallas_ring": lambda: ShuffleManager(MeshRuntime(
+            leg_b_conf(), PARTS, device="cuda")),
+        "Dataset": lambda: Dataset(m, rt.shard_records(
+            np.ones((PARTS * 2, m.conf.record_words), np.uint32))),
+        "PlanExecutor": lambda: PlanExecutor(m),
+        "ShuffleService": lambda: ShuffleService(runtime=rt),
+        "InputStreamer": lambda: InputStreamer(rt, ArrayChunkSource(cols, 32)),
+        "run_pagerank": lambda: pagerank.run_pagerank(
+            rt, np.zeros((8, 2), np.int64), 8),
+        "run_hash_join": lambda: join.run_hash_join(m, 8, 8),
+        "run_als": lambda: als.run_als(rt, np.zeros((8, 3)), 8, 8),
+        "run_q64_shape": lambda: tpcds.run_q64_shape(m),
+        "run_q95_shape": lambda: tpcds.run_q95_shape(m),
+        "run_star_suite": lambda: tpcds.run_star_suite(m),
+        "run_streaming_terasort": lambda: streaming.run_streaming_terasort(
+            m, ArrayChunkSource(cols, 32)),
+        "run_tiered_terasort": lambda: streaming.run_tiered_terasort(
+            m, cols, 32),
+        "checkpoint_segments": lambda: m.checkpoint_segments(1, [], None, 8),
+        "resume_segments": lambda: m.resume_segments(1),
+        "read_partition": lambda: m.get_reader(h).read_partition(0),
+        "read_view": lambda: m.get_reader(h).read_view(),
+    }
+    said = {}
+    for name, call in calls.items():
+        want = (ValueError, "B.1") if name == "pallas_ring" else \
+            (NotImplementedError, "A.12")
+        try:
+            call()
+        except want[0] as e:
+            said[name] = want[1] in str(e)
+        else:
+            said[name] = False
+    m.unregister_shuffle(DIST_CKPT_SID + 1)
+    return said
+
+
+def t_worker(rank: int, backend: str) -> dict:
+    """Leg T in one worker: for each transport, this process's share of
+    leg B's records, a warm-up read and ``T_READS`` timed reads (the
+    processes meet at a barrier before each), each with its wall time,
+    its seconds in ``all_to_all_single``, the merge-path launches and
+    the peak memory; then each local partition's totals and digest."""
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
+    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
+                                                   make_sampler)
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    a2a_s = [0.0]
+    plain_a2a = dist.all_to_all_single
+
+    def timed_a2a(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plain_a2a(*a, **kw)
+        torch.cuda.synchronize()
+        a2a_s[0] += time.perf_counter() - t0
+        return res
+
+    dist.all_to_all_single = timed_a2a
+    per = RECORDS // PARTS
+    out_lines = {}
+    for name, conf in (("xla", dist_conf("xla")),
+                       ("hierarchical", dist_conf("hierarchical"))):
+        m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+        rt = m.runtime
+        records = random_records(RECORDS, conf.record_words, 0, rt.device)
+        first = rt.local_device_indices()[0] * per
+        records = records[:, first:first + rt.local_partitions * per].clone()
+        torch.cuda.empty_cache()
+        spl = compute_splitters(make_sampler(
+            PARTS, KEY_WORDS, 256, 0, runtime=rt)(records), PARTS)
+        h = m.register_shuffle(1, PARTS, range_partitioner(spl, KEY_WORDS))
+        plan = m.get_writer(h).write(records).stop()
+        reader = m.get_reader(h, key_ordering=True)
+        reads = []
+        for i in range(T_READS + 1):
+            kernels = zeroed_counters()
+            torch.cuda.reset_peak_memory_stats()
+            a2a_s[0] = 0.0
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, totals = reader.read()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i:      # the first read is the warm-up
+                reads.append({
+                    "wall_s": wall, "a2a_s": a2a_s[0],
+                    "merge_stage": kernels["merge_stage"].launches,
+                    "merge_splits": kernels["merge_splits"].launches,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out_lines[name] = {
+            "reads": reads, "rounds": plan.num_rounds,
+            "out_capacity": plan.out_capacity,
+            "totals": totals.tolist(),
+            "digests": part_digests(out, totals, plan.out_capacity),
+            "staged": m.metrics.counter(
+                "transport.hier.staged_exchanges").value,
+            "local": list(rt.local_device_indices()), "backend": backend}
+        del out, totals, records, reader
+        m.stop()
+        torch.cuda.empty_cache()
+    dist.all_to_all_single = plain_a2a
+    return out_lines
+
+
+def dist_phase_worker(rank: int, out_dir: str) -> dict:
+    """``phase: distributed`` in one worker, at ``DIST_RECORDS``: TeraSort
+    on each transport of :func:`dist_transports` (outputs saved whole),
+    ``repartition(16)``, a sharded checkpoint resumed by a fresh
+    manager, and the refusals."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    res = {"t0": time.perf_counter()}
+    per = DIST_RECORDS // PARTS
+    for name, kw in dist_transports():
+        conf = dist_conf("hierarchical" if kw else "xla", **kw)
+        m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+        _, out, totals = run_terasort(m, per, seed=DIST_SEED, verify=False,
+                                      warmup=False, shuffle_id=2)
+        np.save(os.path.join(out_dir, f"ts-{name}-{rank}.npy"),
+                out.cpu().numpy())
+        res[name] = {"totals": totals.tolist(), "staged": m.metrics.counter(
+            "transport.hier.staged_exchanges").value}
+        m.stop()
+    out, totals = dist_repartition("cuda")
+    np.save(os.path.join(out_dir, f"repart-{rank}.npy"), out)
+    res["repartition"] = totals
+    res["ckpt"] = dist_checkpoint(os.path.join(out_dir, "ckpt"), rank)
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    res["refused"] = dist_refusals(m)
+    m.stop()
+    res["seconds"] = time.perf_counter() - res.pop("t0")
+    return res
+
+
+def dist_repartition(device: str):
+    """``repartition(16)`` of ``DIST_RECORDS`` 100-byte records through
+    the SPI (and ``run_repartition`` once): ``(out, totals)`` on the
+    host."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
+    from sparkrdma_tpu_torch.workloads.repartition import (generate_records,
+                                                           run_repartition)
+
+    per = DIST_RECORDS // PARTS
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device=device))
+    recs = generate_records(m, per, DIST_SEED)
+    h = m.register_shuffle(3, 16, hash_partitioner(16, KEY_WORDS))
+    m.get_writer(h).write(recs).stop()
+    out, totals = m.get_reader(h).read()
+    out, totals = out.cpu().numpy(), totals.tolist()
+    r = run_repartition(m, per, num_parts=16, seed=DIST_SEED, shuffle_id=4,
+                        verify=False, warmup=False)
+    if r.records != DIST_RECORDS:
+        fail(f"run_repartition counted {r.records} records")
+    m.stop()
+    return out, totals
+
+
+def dist_checkpoint(root: str, rank: int) -> dict:
+    """A shuffle checkpointed by ``stop(True)`` (sharded across
+    processes), read, then resumed by a fresh manager and read again:
+    the two reads' words, and which shard files this process wrote."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
+
+    conf = dist_conf("xla", spill_to_host=True, spill_dir=root)
+    rows = np.random.default_rng(DIST_SEED).integers(
+        0, 2**32, size=(DIST_RECORDS, conf.record_words), dtype=np.uint32)
+    part = modulo_partitioner(PARTS, key_word=1)
+    m1 = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    h = m1.register_shuffle(DIST_CKPT_SID, PARTS, part)
+    m1.get_writer(h).write(m1.runtime.shard_records(rows)).stop(True)
+    live, live_tot = m1.get_reader(h).read()
+    live = live.cpu().numpy()
+    local = list(m1.runtime.local_device_indices())
+    m1._writers.clear()
+    m1.runtime.stop()
+    m2 = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    h2 = m2.register_shuffle(DIST_CKPT_SID, PARTS, part)
+    m2.resume_shuffle(h2)
+    again, again_tot = m2.get_reader(h2).read()
+    m2.stop()
+    marker = json.loads(open(os.path.join(
+        root, f"shuffle_{DIST_CKPT_SID}", f"proc{rank}.json")).read())
+    return {"local": local, "marker_shards": marker["shards"],
+            "totals": live_tot.tolist(),
+            "resumed_equal": bool(np.array_equal(again.cpu().numpy(), live)
+                                  and again_tot.tolist()
+                                  == live_tot.tolist()),
+            "digests": part_digests(torch.from_numpy(live.view(np.int32)),
+                                    live_tot.cpu(), live.shape[1]
+                                    // len(local))}
+
+
+def dist_ckpt_single() -> dict:
+    """The checkpoint scenario's read in this (one) process."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
+
+    conf = dist_conf("xla")
+    rows = np.random.default_rng(DIST_SEED).integers(
+        0, 2**32, size=(DIST_RECORDS, conf.record_words), dtype=np.uint32)
+    m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    h = m.register_shuffle(DIST_CKPT_SID, PARTS,
+                           modulo_partitioner(PARTS, key_word=1))
+    m.get_writer(h).write(m.runtime.shard_records(rows)).stop()
+    out, totals = m.get_reader(h).read()
+    res = {"totals": totals.tolist(),
+           "digests": part_digests(out, totals, out.shape[1] // PARTS)}
+    m.stop()
+    return res
+
+
+def distributed_worker(args) -> int:
+    """One process of leg T and ``phase: distributed``:
+    ``--distributed-worker RANK WORLD INIT_FILE OUT_DIR BACKEND PHASE``
+    (PHASE 1: the phase too). A card per process where the backend is
+    NCCL's; else every worker on the current card."""
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch import initialize_distributed
+
+    rank, world = int(args[0]), int(args[1])
+    init, out_dir, backend, phase = args[2], args[3], args[4], args[5] == "1"
+    if backend != "gloo":
+        torch.cuda.set_device(rank)
+    if not initialize_distributed(num_processes=world, process_id=rank,
+                                  init_method=f"file://{init}",
+                                  backend=backend, timeout_s=300):
+        fail("no process group")
+    t0 = time.perf_counter()
+    res = {"T": t_worker(rank, backend), "T_s": time.perf_counter() - t0}
+    if phase:
+        res["distributed"] = dist_phase_worker(rank, out_dir)
+    res["jax_imported"] = "jax" in sys.modules
+    with open(os.path.join(out_dir, f"worker-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_workers(backend: str, phase: bool) -> tuple:
+    """Start ``T_WORKERS`` workers of this script and wait for them: a
+    non-zero exit or ``DIST_WORKER_S`` fails the smoke. Returns
+    ``(results by rank, out_dir, seconds)``."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    init = os.path.join(out_dir, "rendezvous")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--distributed-worker",
+         str(r), str(T_WORKERS), init, out_dir, backend,
+         "1" if phase else "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(T_WORKERS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_WORKER_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"distributed workers ran past {DIST_WORKER_S} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(out[-6000:], file=sys.stderr)
+            fail(f"distributed worker {r} exited {p.returncode}")
+    res = []
+    for r in range(T_WORKERS):
+        with open(os.path.join(out_dir, f"worker-{r}.json")) as f:
+            res.append(json.load(f))
+    return res, out_dir, time.perf_counter() - t0
+
+
+def t_reference() -> dict:
+    """Leg T's reference: the same records and conf in one process, the
+    stacked ``"xla"`` transport: each partition's totals and digest."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    kernels = zeroed_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, out, totals = run_terasort(m, RECORDS // PARTS, seed=0,
+                                    verify=False, warmup=False)
+    torch.cuda.synchronize()
+    line = {"totals": totals.tolist(),
+            "digests": part_digests(out, totals, res.plan.out_capacity),
+            "read_s": res.sort_exchange_s,
+            "run_wall_s": time.perf_counter() - t0,
+            "merge_stage": kernels["merge_stage"].launches}
+    del out, totals
+    m.stop()
+    return line
+
+
+def t_line(name: str, ref: dict, workers: list, seconds: float,
+           **extra) -> dict:
+    """Leg T's line for one backend (``extra`` added to it); fails unless
+    every worker's partitions equal the one-process run."""
+    line = {"leg": name, "records": RECORDS, "partitions": PARTS,
+            "processes": T_WORKERS, "backend": workers[0]["T"]["xla"][
+                "backend"], "workers_s": seconds,
+            "one_process_xla_read_s": ref["read_s"]}
+    checks = {}
+    for transport in ("xla", "hierarchical"):
+        per = [w["T"][transport] for w in workers]
+        reads = []
+        for i in range(T_READS):
+            walls = [p["reads"][i]["wall_s"] for p in per]
+            reads.append({
+                "gbps": RECORDS * (KEY_WORDS + VAL_WORDS) * 4
+                / max(walls) / 1e9,
+                "wall_s": walls, "a2a_s": [p["reads"][i]["a2a_s"]
+                                           for p in per],
+                "merge_stage": [p["reads"][i]["merge_stage"] for p in per],
+                "peak_gb": [p["reads"][i]["peak_gb"] for p in per]})
+        line[transport] = {"rounds": per[0]["rounds"],
+                           "out_capacity": per[0]["out_capacity"],
+                           "staged_exchanges": [p["staged"] for p in per],
+                           "reads": reads}
+        for p in per:
+            lo, hi = p["local"][0], p["local"][-1] + 1
+            checks[f"{transport} partitions {lo}-{hi - 1} equal"] = (
+                p["totals"] == ref["totals"][lo:hi]
+                and p["digests"] == ref["digests"][lo:hi])
+        checks[f"{transport} merge_stage launched in every worker"] = all(
+            r["merge_stage"][k] > 0 for r in reads
+            for k in range(T_WORKERS))
+    checks["hierarchical staged"] = all(
+        p["T"]["hierarchical"]["staged"] > 0 for p in workers)
+    checks["no jax"] = not any(w["jax_imported"] for w in workers)
+    line["checks"] = checks
+    line.update(extra)
+    report(line)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"leg {name}: " + ", ".join(bad))
+    return line
+
+
+def leg_t() -> dict:
+    """Leg T and ``phase: distributed`` (one pair of workers runs both):
+    the one-process references first, then the cached memory freed, then
+    the workers; NCCL's run where the machine has two cards."""
+    from sparkrdma_tpu_torch.runtime.distributed import CARD_PER_PROCESS
+
+    ref = t_reference()
+    ts_ref, rep_ref = dist_single_refs()
+    ck_ref = dist_ckpt_single()
+    gc.collect()
+    torch.cuda.empty_cache()
+    workers, out_dir, seconds = spawn_workers("gloo", phase=True)
+    if torch.cuda.device_count() >= 2:
+        # a card a process: the data over NCCL (its own leg line)
+        nccl, _, nccl_s = spawn_workers(CARD_PER_PROCESS, phase=False)
+        t_line("T nccl", ref, nccl, nccl_s)
+        nccl = "ran: leg T nccl"
+    else:
+        nccl = "needs 2 cards"
+    line = t_line("T", ref, workers, seconds, nccl=nccl)
+    dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref)
+    launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
+                "ring_all_to_all": 0}
+    for w in workers:
+        for transport in ("xla", "hierarchical"):
+            for r in w["T"][transport]["reads"]:
+                launches["merge_stage"] += r["merge_stage"]
+                launches["merge_splits"] += r["merge_splits"]
+    return {"leg": "T", "launches": launches, "gbps": {
+        t: [r["gbps"] for r in line[t]["reads"]]
+        for t in ("xla", "hierarchical")}}
+
+
+def dist_single_refs():
+    """The phase's one-process runs: TeraSort's whole output on the
+    stacked ``"xla"`` transport, and ``repartition(16)``'s."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+    from sparkrdma_tpu_torch.workloads.terasort import run_terasort
+
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    _, out, totals = run_terasort(m, DIST_RECORDS // PARTS, seed=DIST_SEED,
+                                  verify=False, warmup=False, shuffle_id=2)
+    ts = (out.cpu().numpy(), totals.tolist())
+    m.stop()
+    return ts, dist_repartition("cuda")
+
+
+def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref) -> dict:
+    """``phase: distributed``'s line: every check of the workers' runs
+    against the one-process runs; fails unless each holds."""
+    checks = {}
+    halves = [w["distributed"] for w in workers]
+
+    def joined(prefix):
+        return np.concatenate([np.load(os.path.join(
+            out_dir, f"{prefix}-{r}.npy")) for r in range(T_WORKERS)], axis=1)
+
+    for name, kw in dist_transports():
+        checks[f"terasort {name} equal"] = (
+            np.array_equal(joined(f"ts-{name}"), ts_ref[0])
+            and sum((h[name]["totals"] for h in halves), []) == ts_ref[1])
+        hosts = kw.get("hierarchy_hosts", 0)
+        checks[f"terasort {name} moves"] = all(
+            (h[name]["staged"] > 0) == (hosts > 1) for h in halves)
+    checks["repartition(16) equal"] = (
+        np.array_equal(joined("repart"), rep_ref[0])
+        and sum((h["repartition"] for h in halves), []) == rep_ref[1])
+    ck = [h["ckpt"] for h in halves]
+    checks["checkpoint: each process wrote its own shards"] = all(
+        c["marker_shards"] == c["local"] for c in ck)
+    files = sorted(os.listdir(os.path.join(out_dir, "ckpt",
+                                           f"shuffle_{DIST_CKPT_SID}")))
+    checks["checkpoint files"] = files == sorted(
+        ["meta.json"] + [f"proc{r}.json" for r in range(T_WORKERS)]
+        + [f"shard_{c}.u32" for c in range(PARTS)])
+    checks["checkpoint resumed equal"] = all(c["resumed_equal"] for c in ck)
+    checks["checkpoint equal to one process"] = (
+        sum((c["totals"] for c in ck), []) == ck_ref["totals"]
+        and sum((c["digests"] for c in ck), []) == ck_ref["digests"])
+    for h in halves:
+        for name, ok in h["refused"].items():
+            checks[f"refuses {name}"] = checks.get(
+                f"refuses {name}", True) and ok
+    line = {"phase": "distributed", "records": DIST_RECORDS,
+            "processes": T_WORKERS, "transports": [n for n, _ in
+                                                   dist_transports()],
+            "worker_s": [h["seconds"] for h in halves], "checks": checks}
+    report(line)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail("distributed: " + ", ".join(bad))
+    return line
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
 DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
@@ -4753,12 +5298,12 @@ SERVICE_LEGS = (("S", leg_s), ("service", service_phase))
 
 
 def main(argv=None) -> int:
-    """``--legs M,P,Q`` runs only those of legs M-Q and S (M-small and
+    """``--legs M,P,Q`` runs only those of legs M-Q, S and T (M-small and
     Q-small included, and ``native_staging``, ``obs`` and ``service``
-    for those phases) and prints the ring
+    for those phases; T brings ``phase: distributed``) and prints the ring
     shapes they launched, without the kernel phases or the table check:
     a quick run while a leg is brought up. ``--launch-failure-child`` is
-    leg Q-small's child process."""
+    leg Q-small's child process, ``--distributed-worker`` leg T's."""
     args = sys.argv[1:] if argv is None else argv
     only = args[1].split(",") if args[:1] == ["--legs"] else None
     t_smoke = time.perf_counter()
@@ -4771,6 +5316,8 @@ def main(argv=None) -> int:
                           "expandable_segments:True")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
+    if args[:1] == ["--distributed-worker"]:
+        return distributed_worker(args[1:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4810,6 +5357,8 @@ def main(argv=None) -> int:
         for name, fn in SERVICE_LEGS:
             if name in only:
                 run_leg(legs, shapes, name, fn)
+        if "T" in only:
+            run_leg(legs, shapes, "T", leg_t)
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -4844,6 +5393,7 @@ def main(argv=None) -> int:
     report({"leg_s": "obs", "seconds": time.perf_counter() - t0})
     for name, fn in SERVICE_LEGS:
         run_leg(legs, shapes, name, fn)
+    run_leg(legs, shapes, "T", leg_t)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -4857,6 +5407,8 @@ def main(argv=None) -> int:
             fail(f"the ring kernel was not launched on leg {name}")
     if legs["P"]["launches"]["merge_stage"] <= 0:
         fail("merge_stage was not launched on leg P")
+    if legs["T"]["launches"]["merge_stage"] <= 0:
+        fail("merge_stage was not launched in leg T's workers")
     for k, name in (("ring_exchange", "Q"), ("merge_stage", "Q"),
                     ("ring_exchange", "Q-small"), ("merge_stage", "Q-small"),
                     ("ring_all_to_all", "Q-small")):

@@ -57,6 +57,7 @@ from sparkrdma_tpu_torch.kernels.sort import as_unsigned, sort_by_lead_cols
 from sparkrdma_tpu_torch.meta.map_output import DuplicateShuffleIdError
 from sparkrdma_tpu_torch.meta.sampling import compute_splitters, make_sampler
 from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.workloads.join import _local_join, _local_join_rows
 
 #: Dataset-layer shuffle ids live in their own range, clear of the ids a
@@ -251,6 +252,8 @@ class Dataset:
 
     def __init__(self, manager: ShuffleManager, records: torch.Tensor,
                  totals: Optional[torch.Tensor] = None, schema=None):
+        # the verbs read whole outputs on the host, as the reference's do
+        refuse_across_processes(manager.runtime, "Dataset")
         self.manager = manager
         self.records = records          # columnar int32 [W, mesh * cap]
         mesh = manager.runtime.num_partitions

@@ -132,6 +132,7 @@ from sparkrdma_tpu_torch.obs.timeline import (EventTimeline, scoped_active,
 from sparkrdma_tpu_torch.obs.tsdb import NULL_TELEMETRY, TelemetryStore
 from sparkrdma_tpu_torch.obs.watchdog import (StallWatchdog,
                                               install_state_dump)
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.profiling import annotate, annotate_span
 from sparkrdma_tpu_torch.utils.stats import (ExchangeRecord,
@@ -488,7 +489,9 @@ class ShuffleReader:
         """Run the exchange and return a reference-counted view of its
         output (``RdmaRegisteredBuffer``): ``view.partition(p)`` gives
         partition ``p``'s records without another exchange; release every
-        retained view and the base, and the pages go back to the pool."""
+        retained view and the base, and the pages go back to the pool.
+        One process only (a partition's window may lie in another)."""
+        refuse_across_processes(self._m.runtime, "read_view")
         return OutputView(self._m, self._h, *self._raw_read())
 
     def read_partition(self, partition: int) -> np.ndarray:
@@ -498,6 +501,9 @@ class ShuffleReader:
             raise ValueError(
                 f"partition {partition} outside reader range "
                 f"[{self.start_partition}, {self.end_partition})")
+        # the reference's reads the whole output on the host, which no
+        # process holds across processes: parity
+        refuse_across_processes(self._m.runtime, "read_partition")
         out, _, plan = self._raw_read()
         mesh = self._m.runtime.num_partitions
         cap = plan.out_capacity
@@ -790,7 +796,10 @@ class ShuffleManager:
         stacked ``[W, N]`` records as ``uint32`` and the plan
         (:meth:`MapOutputStore.save`). ``writer`` checkpoints that
         writer's state (``ShuffleWriter.stop`` passes itself), even if a
-        later ``get_writer`` displaced it from the manager's table."""
+        later ``get_writer`` displaced it from the manager's table.
+        Across processes each process writes only its own partitions'
+        shards (:meth:`MapOutputStore.save_shards`), the reference's
+        per-executor shuffle files."""
         store = self._require_store()
         if writer is None:
             writer = self._writers.get(handle.shuffle_id)
@@ -798,14 +807,25 @@ class ShuffleManager:
             raise RuntimeError(
                 f"shuffle {handle.shuffle_id}: nothing published to "
                 "checkpoint")
-        store.save(handle.shuffle_id, writer.records.cpu().numpy(),
-                   writer.plan, handle.num_parts)
+        rt = self.runtime
+        records = writer.records.cpu().numpy()
+        if rt.process_count > 1:
+            n = records.shape[1] // rt.local_partitions
+            shards = [(coord, records[:, r * n:(r + 1) * n])
+                      for r, coord in enumerate(rt.local_device_indices())]
+            store.save_shards(
+                handle.shuffle_id, shards, writer.plan, handle.num_parts,
+                (records.shape[0], records.shape[1] * rt.process_count),
+                rt.process_index, rt.process_count)
+            return
+        store.save(handle.shuffle_id, records, writer.plan, handle.num_parts)
 
     def resume_shuffle(self, handle: ShuffleHandle) -> ShuffleWriter:
         """Rebuild the writer of a re-registered shuffle (the same
         partitioner: functions are not saved, as a restarted Spark job
         re-creates its lineage) from its checkpoint, whole or sharded,
-        on the runtime's device; the map stage is skipped. An unreadable
+        on the runtime's device; the map stage is skipped. Across
+        processes each reads only its own partitions. An unreadable
         checkpoint raises ``UnrecoverableShuffleError``."""
         store = self._require_store()
         meta = store.load_meta(handle.shuffle_id)
@@ -823,14 +843,21 @@ class ShuffleManager:
                 f"mesh; current mesh has {mesh_now} devices — re-run the "
                 "map stage instead of resuming")
         shape = tuple(meta["shape"])
+        rt = self.runtime
         try:
             if meta.get("sharded"):
+                # executor-local files: this process's shards only
                 shard = (shape[0], shape[1] // mesh_now)
                 records = np.concatenate(
                     [store.read_shard(handle.shuffle_id, c, shard)
-                     for c in range(mesh_now)], axis=1)
+                     for c in rt.local_device_indices()], axis=1)
             else:
                 records = store.read_records(handle.shuffle_id, meta)
+                if rt.process_count > 1:
+                    n = shape[1] // mesh_now
+                    first = rt.local_device_indices()[0] * n
+                    records = records[:, first:first
+                                      + rt.local_partitions * n]
         except OSError as e:
             # the live map output is gone and the persisted copy fails
             # its CRC check even after the store's re-reads: terminal
@@ -869,7 +896,8 @@ class ShuffleManager:
         """Persist chunked map output (``[(key, array), ...]``) as
         independent CRC-framed segment files and a manifest
         (:meth:`MapOutputStore.save_segments`), for
-        :meth:`resume_segments`."""
+        :meth:`resume_segments`. One process only."""
+        refuse_across_processes(self.runtime, "checkpoint_segments")
         self._require_store().save_segments(shuffle_id, segments, plan,
                                             num_parts, extra_meta=extra_meta)
 
@@ -877,7 +905,8 @@ class ShuffleManager:
         """Adopt a segment checkpoint into the tiered store, only the
         segments missing from it, and without reading them (the
         prefetcher brings them in as they are consumed). Returns the
-        adopted keys."""
+        adopted keys. One process only."""
+        refuse_across_processes(self.runtime, "resume_segments")
         meta = self._require_store().load_segment_meta(shuffle_id)
         adopted = []
         for key, entry in meta["segments"].items():
@@ -895,16 +924,23 @@ class ShuffleManager:
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Keep only partitions ``[start, end)``: the kept partitions of
         a stacked partition are adjacent segments of its output, so they
-        form one window, moved to the front with the rest zeroed."""
-        mesh = self.runtime.num_partitions
+        form one window, moved to the front with the rest zeroed. Across
+        processes, of this process's partitions."""
+        rt = self.runtime
+        mesh = rt.num_partitions
         cap = plan.out_capacity
+        first_d = rt.local_device_indices()[0]
         spans: Dict[int, Tuple[int, int]] = {}
         for p in range(start, end):
             d, st, ln = _partition_windows(plan, mesh, num_parts, p)[0]
+            d -= first_d
+            if not 0 <= d < rt.local_partitions:
+                continue
             first, total = spans.get(d, (st, 0))
             spans[d] = (first, total + ln)
         res = torch.zeros_like(out)
-        totals = torch.zeros(mesh, dtype=torch.int32, device=out.device)
+        totals = torch.zeros(rt.local_partitions, dtype=torch.int32,
+                             device=out.device)
         for d, (first, ln) in spans.items():
             res[:, d * cap:d * cap + ln] = out[:, d * cap + first:
                                                d * cap + first + ln]
@@ -920,20 +956,26 @@ class ShuffleManager:
         split + j``, every other row the sentinel ``0xFFFFFFFF``, and one
         stable rank-keyed sort groups the kept rows by parent, as an
         unsplit read lays them out."""
-        mesh = self.runtime.num_partitions
+        rt = self.runtime
+        mesh = rt.num_partitions
+        local = rt.local_partitions
+        first_d = rt.local_device_indices()[0]
         cap = plan.out_capacity
         k = plan.split_factor
-        rank = torch.full((mesh, cap), _SENTINEL, dtype=torch.int64,
+        rank = torch.full((local, cap), _SENTINEL, dtype=torch.int64,
                           device=out.device)
-        kept = [0] * mesh
+        kept = [0] * local
         for p in range(start, end):
             for j, (d, st, ln) in enumerate(
                     _partition_windows(plan, mesh, num_parts, p)):
+                d -= first_d
+                if not 0 <= d < local:
+                    continue
                 rank[d, st:st + ln] = (p - start) * k + j
                 kept[d] += ln
         mode = self._exchange.sort_mode(out.shape[0])
         res = torch.zeros_like(out)
-        for d in range(mesh):
+        for d in range(local):
             part = out[:, d * cap:(d + 1) * cap]
             res[:, d * cap:d * cap + kept[d]] = sort_by_lead_cols(
                 part, rank[d], mode)[:, :kept[d]]

@@ -11,8 +11,7 @@ stats and the stall watchdog, of the live telemetry and alert layer,
 and of the multi-tenant service), under the reference's names and with
 its defaults, so a
 configuration written for one package means the same thing to the
-other. Transports
-that are not ported (the hierarchical one) are refused; the reference's
+other. The reference's
 ``combine_fallback`` and ``transport_fallback`` rungs are not kept at
 all, because a map-side combine or a transport that fails raises here.
 """
@@ -28,8 +27,11 @@ DEFAULT_KEY_WORDS = 2
 DEFAULT_VAL_WORDS = 2
 
 #: transports the port implements: ``"xla"`` is the plain stacked
-#: permute, ``"pallas_ring"`` the hand-written CUDA exchange kernel
-_TRANSPORTS = ("xla", "pallas_ring")
+#: permute (one ``all_to_all_single`` across processes),
+#: ``"pallas_ring"`` the hand-written CUDA exchange kernel (one process),
+#: ``"hierarchical"`` the two-stage exchange of
+#: ``exchange/hierarchical.py``
+_TRANSPORTS = ("xla", "pallas_ring", "hierarchical")
 
 
 def _parse_prealloc(spec: str) -> Dict[int, int]:
@@ -76,6 +78,10 @@ class ShuffleConf:
     #: pallas_ring only: all rounds in one kernel launch, with the size
     #: exchange riding a prefix lane of round 0
     ring_fused: bool = True
+    #: host-group count for the hierarchical transport; 0 = auto from the
+    #: process group (partitions per host = partitions / processes, the
+    #: cards of one process standing for one host's)
+    hierarchy_hosts: int = 0
     #: "pow2" or "fine" size classes for slot and output capacity
     geometry_classes: str = "pow2"
 
@@ -316,6 +322,8 @@ class ShuffleConf:
         if self.transport not in _TRANSPORTS:
             raise ValueError(f"unknown transport {self.transport!r} "
                              f"(ported: {', '.join(_TRANSPORTS)})")
+        if self.hierarchy_hosts < 0:
+            raise ValueError("hierarchy_hosts must be >= 0")
         if self.geometry_classes not in ("pow2", "fine"):
             raise ValueError(f"unknown geometry_classes "
                              f"{self.geometry_classes!r}")

@@ -13,7 +13,8 @@ geometry derived from it) and then executed (:meth:`exchange`):
 3. data rounds through the configured transport: ``"xla"`` is the plain
    stacked permute, ``"pallas_ring"`` the hand-written CUDA kernel of
    ``exchange/ring.py`` (all rounds of a launch at once when
-   ``ring_fused``, else one launch per round);
+   ``ring_fused``, else one launch per round), ``"hierarchical"`` the
+   two-stage move of ``exchange/hierarchical.py``;
 4. reduce side, per destination partition: compaction of the received
    round-chunked stream, then the optional tail — combine-by-key for an
    aggregator read, else the key-ordering sort (the merge-path kernel
@@ -39,6 +40,17 @@ projection into the map side, and :meth:`ShuffleExchange.wire_stats`
 accounts for what they kept off the wire.
 
 Partition ``p`` lives on stacked partition ``p % D`` (round-robin).
+
+Across processes (a runtime that spans a ``torch.distributed`` group,
+``runtime/mesh.py``) each process plans from the all-gathered counts
+(every process derives the same geometry), runs the map side of its own
+``L`` source partitions and the reduce side of its own ``L``
+destinations, and moves its ``[L_src, D_dst, ...]`` sends through
+``exchange/hierarchical.py``: ``"xla"`` is one ``all_to_all_single``,
+``"hierarchical"`` the staged move; the counts ride the same move. The
+stacked ring kernel cannot reach another process's memory, so
+``"pallas_ring"`` is refused there (ROADMAP B.1). One process takes the
+stacked path unchanged.
 
 Buffer reuse contract (``RdmaRegisteredBuffer`` semantics): when the
 exchange owns a pool (a ``ShuffleManager``'s does), the streaming
@@ -95,6 +107,8 @@ import torch
 from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.config import ShuffleConf, size_class, size_class_fine
 from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
+from sparkrdma_tpu_torch.exchange.hierarchical import (
+    make_flat_all_to_all, make_hierarchical_all_to_all)
 from sparkrdma_tpu_torch.exchange.ring import (make_ring_all_to_all,
                                                make_ring_exchange)
 from sparkrdma_tpu_torch.kernels.aggregate import (OPS, combine_by_key_cols,
@@ -178,6 +192,14 @@ class ShuffleExchange:
         self.account = account
         self.conf = conf or runtime.conf
         self.mesh_size = runtime.num_partitions
+        #: processes of the runtime's group (1: the stacked path)
+        self.processes = runtime.process_count
+        if self.processes > 1 and self.conf.transport == "pallas_ring":
+            raise ValueError(
+                "transport 'pallas_ring' runs in one process: the stacked "
+                "ring kernel cannot reach another process's memory (the "
+                "one-sided multi-card form is ROADMAP B.1); use 'xla' or "
+                "'hierarchical' across processes")
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
         # the in-span timeline and the stall watchdog default to no-ops,
@@ -308,15 +330,26 @@ class ShuffleExchange:
                    if self.conf.geometry_classes == "fine" else size_class)
         rt = self.runtime
 
+        # every process holds an equal share of the global batch
+        n_global = records.shape[1] * self.processes
+
         def measure(part_fn, parts):
             counts = torch.stack([
                 histogram_pids(part_fn(rt.partition(records, d)), parts)
-                for d in range(self.mesh_size)]).cpu().numpy()
-            counts = counts.astype(np.int64)
-            if int(counts.sum()) != records.shape[1]:
+                for d in range(rt.local_partitions)]).cpu()
+            if self.processes > 1:
+                # the metadata-table read, made collective: every process
+                # gets the [D, parts] table (CPU tensors, gloo)
+                counts = counts.to(torch.int64)
+                rows = [torch.empty_like(counts)
+                        for _ in range(self.processes)]
+                torch.distributed.all_gather(rows, counts)
+                counts = torch.cat(rows)
+            counts = counts.numpy().astype(np.int64)
+            if int(counts.sum()) != n_global:
                 raise ValueError(
                     f"partitioner produced out-of-range partition ids: "
-                    f"counted {int(counts.sum())} of {records.shape[1]} "
+                    f"counted {int(counts.sum())} of {n_global} "
                     f"records over {parts} partitions (ids must lie in "
                     f"[0, num_parts))")
             per_pair_max = int(counts.max(initial=0))
@@ -354,10 +387,16 @@ class ShuffleExchange:
         return self.transport() == "pallas_ring" and self.conf.ring_fused
 
     def _data_a2a(self) -> Callable:
-        """One round: dest-major ``[D_src, D_dst, ...]`` -> ``[D_dst,
-        D_src, ...]``."""
+        """One round: this process's dest-major ``[L_src, D_dst, ...]``
+        -> ``[L_dst, D_src, ...]`` (one process: ``[D_src, D_dst, ...]``
+        -> ``[D_dst, D_src, ...]``)."""
         if self.transport() == "pallas_ring":
             return make_ring_all_to_all(self.mesh_size, self.metrics)
+        if self.transport() == "hierarchical":
+            return make_hierarchical_all_to_all(
+                self.runtime, self.conf.hierarchy_hosts, self.metrics)
+        if self.processes > 1:
+            return make_flat_all_to_all(self.runtime)
         return lambda send: send.transpose(0, 1).contiguous()
 
     def _uses_fast_sort(self, out_capacity: int, sort_key_words: int,
@@ -553,11 +592,12 @@ class ShuffleExchange:
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Run the planned exchange.
 
-        Returns ``(out [W, D*out_capacity], totals int32[D], incoming
-        int32[D, D, ppd])``: partition ``d``'s columns are its compacted
-        received records (zero tail), ``totals[d]`` how many are valid,
-        and ``incoming[d, s, q]`` the count source ``s`` sent to ``d``'s
-        local partition ``q``.
+        Returns ``(out [W, L*out_capacity], totals int32[L], incoming
+        int32[L, D, ppd])`` over this process's ``L`` stacked partitions
+        (``L = D`` in one process): partition ``d``'s columns are its
+        compacted received records (zero tail), ``totals[d]`` how many
+        are valid, and ``incoming[d, s, q]`` the count source ``s`` sent
+        to ``d``'s local partition ``q``.
 
         ``aggregator`` ("sum"/"min"/"max", payload words as uint32, or
         float32 with ``float_payload``) combines each partition's
@@ -678,16 +718,17 @@ class ShuffleExchange:
         ``out`` is written (it may be a recycled buffer)."""
         rt = self.runtime
         mesh = self.mesh_size
+        local = rt.local_partitions
         ppd = num_parts // mesh
         w = records.shape[0]
         rows = list(keep_words) if keep_words is not None else slice(None)
         w_eff = len(keep_words) if keep_words is not None else w
         dev = records.device
         oc = out_capacity
-        out = self._fused_out(okey, (w, mesh * oc), dev)
+        out = self._fused_out(okey, (w, local * oc), dev)
         if keep_words is not None:
             out[[i for i in range(w) if i not in keep_words]] = 0
-        totals = torch.zeros((mesh,), dtype=torch.int32, device=dev)
+        totals = torch.zeros((local,), dtype=torch.int32, device=dev)
 
         def map_side(src):
             return self._map_side(rt.partition(records, src), partitioner,
@@ -756,10 +797,14 @@ class ShuffleExchange:
                        for d in range(mesh)]
         else:
             a2a = self._data_a2a()
-            mapped = [map_side(s) for s in range(mesh)]
+            mapped = [map_side(s) for s in range(local)]
             incoming = torch.stack([
                 _device_partition_counts(c, num_parts, mesh)
-                for _, c, _ in mapped]).transpose(0, 1).to(torch.int32)
+                for _, c, _ in mapped])
+            # the size exchange: a transpose here, the data's move
+            # across processes
+            incoming = (incoming.transpose(0, 1) if self.processes == 1
+                        else a2a(incoming)).to(torch.int32)
             rounds = []
             for r in range(num_rounds):
                 send = torch.stack([
@@ -771,12 +816,12 @@ class ShuffleExchange:
             del mapped
             # per destination: [S, ppd, R, W, C] -> (w; q, s, r, c)
             streams = [torch.stack([rv[d] for rv in rounds], dim=2)
-                       .permute(3, 1, 0, 2, 4) for d in range(mesh)]
+                       .permute(3, 1, 0, 2, 4) for d in range(local)]
 
         # reduce side: chunk (q, s, r) is prefix-valid with length
         # clip(incoming[d, s, q] - r*C, 0, C), in stream order (q, s, r)
         r_ix = torch.arange(num_rounds, device=dev)[None, :] * capacity
-        for d in range(mesh):
+        for d in range(local):
             inc = incoming[d].T.reshape(ppd * mesh, 1).to(torch.int64)
             chunk_len = torch.clamp(inc - r_ix, 0, capacity).reshape(-1)
             stream = streams[d].reshape(w_eff, -1)
@@ -831,6 +876,7 @@ class ShuffleExchange:
         rt = self.runtime
         m = self.metrics
         mesh = self.mesh_size
+        local = rt.local_partitions
         ppd = num_parts // mesh
         cap = plan.capacity
         oc = plan.out_capacity
@@ -840,15 +886,19 @@ class ShuffleExchange:
         w = records.shape[0]
         w_eff = len(keep_words) if keep_words is not None else w
         dev = records.device
-        n = records.shape[1] // mesh
+        n = records.shape[1] // local
         unfused = (self.transport() == "pallas_ring"
                    and not self.conf.ring_fused)
+        # the move of a hierarchical or multi-process exchange: [L_src,
+        # D_dst, ...] -> [L_dst, D_src, ...] (None: the stacked paths)
+        cross = (self._data_a2a() if self.transport() == "hierarchical"
+                 or self.processes > 1 else None)
 
         tl = self.timeline
         # --- prep -------------------------------------------------------
         tl.begin("stream:prep", chunks=n_chunks, rounds=plan.num_rounds)
         srs, cnts, offs = [], [], []
-        for s in range(mesh):
+        for s in range(local):
             sr, c, o = self._map_side(
                 rt.partition(records, s), partitioner, num_parts, combine,
                 aggregator, float_payload, row_filter, keep_words)
@@ -857,33 +907,40 @@ class ShuffleExchange:
             offs.append(o)
         src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))], dim=1)
         del srs
-        zero_col = mesh * n
+        zero_col = local * n
         # dest-major: p_dq[d, q] = partition q * mesh + d
         p_dq = torch.arange(num_parts, device=dev).reshape(ppd, mesh).T
         cnt = torch.stack(cnts)[:, p_dq]                   # [S, D, ppd]
         base = torch.stack(offs)[:, p_dq] + (
-            torch.arange(mesh, device=dev) * n)[:, None, None]
-        incoming = cnt.transpose(0, 1).to(torch.int32)     # [D, S, ppd]
+            torch.arange(local, device=dev) * n)[:, None, None]
+        if self.processes == 1:
+            incoming = cnt.transpose(0, 1).to(torch.int32)  # [D, S, ppd]
+            by_dest = cnt.permute(1, 2, 0)                  # [D, ppd, S]
+        else:
+            # the size exchange rides the data's move between processes
+            moved = cross(cnt)                              # [L, S, ppd]
+            incoming = moved.to(torch.int32)
+            by_dest = moved.permute(0, 2, 1)                # [L, ppd, S]
         # segment (q, s, r) of destination d: its length and its start in
         # the destination's columns of the accumulator
         r_ix = torch.arange(total_rounds, device=dev) * cap
-        seg = (cnt.permute(1, 2, 0)[..., None] - r_ix).clamp(0, cap)
-        flat = seg.reshape(mesh, -1)                       # [D, ppd*S*TR]
+        seg = (by_dest[..., None] - r_ix).clamp(0, cap)
+        flat = seg.reshape(local, -1)                      # [L, ppd*S*TR]
         starts = ((flat.cumsum(1) - flat).reshape(seg.shape)
-                  + (torch.arange(mesh, device=dev) * oc)[:, None, None,
-                                                          None])
+                  + (torch.arange(local, device=dev) * oc)[:, None, None,
+                                                           None])
         totals = flat.sum(1)
         col = torch.arange(cap, device=dev)
-        dump = mesh * oc + col
+        dump = local * oc + col
         dispatches = 1
         tl.end("stream:prep")
 
-        acc = self._get_buf((w_eff, mesh * oc + cap), dev)
+        acc = self._get_buf((w_eff, local * oc + cap), dev)
         send = recv = None
         try:
             acc.zero_()     # a pooled buffer holds its last user's words
             shape = ((f_in, mesh, mesh, ppd, w_eff, cap) if unfused
-                     else (mesh, f_in, mesh, ppd, w_eff, cap))
+                     else (local, f_in, mesh, ppd, w_eff, cap))
             move = (make_ring_all_to_all(mesh, m) if unfused
                     else make_ring_exchange(mesh, f_in, m)
                     if self._ring_fused_active() else None)
@@ -929,15 +986,19 @@ class ShuffleExchange:
                 send = self._get_buf(shape, dev)
                 torch.gather(src.expand(shape[:4] + src.shape), 5,
                              idx.unsqueeze(4).expand(shape), out=send)
-                recv = self._get_buf(shape, dev)
-                if unfused:
-                    for f in range(f_in):
-                        move(send[f], out=recv[f])
-                    view = recv.transpose(0, 1)    # [D, F, S, ppd, W, C]
-                elif move is not None:
-                    view = move(send, out=recv)
+                if cross is not None:
+                    # [L_src, D_dst, F, ...] -> [L_dst, D_src, F, ...]
+                    view = cross(send.transpose(1, 2)).transpose(1, 2)
                 else:
-                    view = recv.copy_(send.transpose(0, 2))
+                    recv = self._get_buf(shape, dev)
+                    if unfused:
+                        for f in range(f_in):
+                            move(send[f], out=recv[f])
+                        view = recv.transpose(0, 1)  # [D, F, S, ppd, W, C]
+                    elif move is not None:
+                        view = move(send, out=recv)
+                    else:
+                        view = recv.copy_(send.transpose(0, 2))
                 self._put_buf(send)
                 send = None
                 tl.event("chunk:dispatch", chunk=j, rounds=f_in)
@@ -951,7 +1012,8 @@ class ShuffleExchange:
                 st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
                 acc[:, torch.where(col < ln, st + col, dump)] = \
                     view.permute(4, 0, 1, 2, 3, 5)
-                self._put_buf(recv)     # read by the fold already queued
+                if recv is not None:
+                    self._put_buf(recv)  # read by the fold already queued
                 recv = None
                 dispatches += 2
                 done = None
@@ -967,8 +1029,9 @@ class ShuffleExchange:
             # --- tail ---------------------------------------------------
             rows = (list(keep_words) if keep_words is not None
                     else slice(None))
-            out = (self.pool.zeros((w, mesh * oc)) if self.pool is not None
-                   else torch.zeros((w, mesh * oc), dtype=torch.int32,
+            out = (self.pool.zeros((w, local * oc))
+                   if self.pool is not None
+                   else torch.zeros((w, local * oc), dtype=torch.int32,
                                     device=dev))
             new_totals = []
             for d, total in enumerate(totals.tolist()):

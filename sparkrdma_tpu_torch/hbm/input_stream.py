@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.hbm.host_staging import HostBufferPool, read_array
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 
 
 class ArrayChunkSource:
@@ -123,6 +124,7 @@ class InputStreamer:
 
     def __init__(self, runtime, source, prefetch: int = 1,
                  use_native: bool = True):
+        refuse_across_processes(runtime, "InputStreamer")
         self._rt = runtime
         self._src = source
         self._prefetch = max(0, prefetch)

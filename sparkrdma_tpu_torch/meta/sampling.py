@@ -5,6 +5,12 @@ replacement from its own records; the reference draws them with
 ``jax.random``, which torch cannot reproduce, so the indices come from a
 ``torch.Generator`` seeded per partition. ``compute_splitters`` is equal
 to the reference's on the same samples.
+
+Across processes (a ``runtime`` spanning a ``torch.distributed`` group)
+each process samples its own partitions, each with the generator the
+one-process sampler gives that partition, and the samples are
+all-gathered on CPU tensors, so every process computes the same
+splitters (the reference's ``all_gather`` of its samples).
 """
 
 from __future__ import annotations
@@ -18,20 +24,35 @@ from sparkrdma_tpu_torch.kernels.sort import lexsort_records
 
 
 def make_sampler(num_partitions: int, key_words: int,
-                 samples_per_device: int, seed: int = 0) -> Callable:
+                 samples_per_device: int, seed: int = 0,
+                 runtime=None) -> Callable:
     """``records [W, D*n] -> uint32[D * samples_per_device, key_words]``
-    (host array, partition-major)."""
+    (host array, partition-major). With a ``runtime`` that spans
+    processes, ``records`` is the local batch ``[W, L*n]`` and the
+    result is still every partition's sample."""
+    local = range(num_partitions)
+    procs = 1
+    if runtime is not None:
+        if runtime.num_partitions != num_partitions:
+            raise ValueError(f"sampler for {num_partitions} partitions, "
+                             f"runtime has {runtime.num_partitions}")
+        local = runtime.local_device_indices()
+        procs = runtime.process_count
 
     def sample(records: torch.Tensor) -> np.ndarray:
-        n = records.shape[1] // num_partitions
+        n = records.shape[1] // len(local)
         parts = []
-        for d in range(num_partitions):
+        for r, d in enumerate(local):
             gen = torch.Generator().manual_seed(seed * 1_000_003 + d)
             idx = torch.randint(0, max(n, 1), (samples_per_device,),
-                                generator=gen) + d * n
+                                generator=gen) + r * n
             parts.append(records[:key_words, idx.to(records.device)].T)
-        rows = torch.cat(parts).cpu().contiguous().numpy()
-        return rows.view(np.uint32)
+        rows = torch.cat(parts).cpu().contiguous()
+        if procs > 1:
+            gathered = [torch.empty_like(rows) for _ in range(procs)]
+            torch.distributed.all_gather(gathered, rows)
+            rows = torch.cat(gathered)
+        return rows.numpy().view(np.uint32)
 
     return sample
 

@@ -36,6 +36,8 @@ COUNTERS = frozenset({
     "transport.ring.fused_kernels",
     "transport.ring.fused_rounds",
     "transport.ring.overlap_rounds",
+    "transport.hier.flat_fallbacks",
+    "transport.hier.staged_exchanges",
     "watchdog.stalls",
     "exchange.faults",
     "exchange.plans",

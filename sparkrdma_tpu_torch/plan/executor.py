@@ -59,6 +59,7 @@ from sparkrdma_tpu_torch.obs.journal import SCHEMA_VERSION
 from sparkrdma_tpu_torch.plan.nodes import (LogicalPlan, PlanNode,
                                             fingerprint_hex)
 from sparkrdma_tpu_torch.plan.optimizer import Decision, optimize
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 
 log = logging.getLogger("sparkrdma_tpu_torch.plan")
 
@@ -121,6 +122,7 @@ class PlanExecutor:
     """Executes optimized :class:`LogicalPlan` DAGs on one manager."""
 
     def __init__(self, manager):
+        refuse_across_processes(manager.runtime, "PlanExecutor")
         self.manager = manager
         #: exchange-reuse memo: fingerprint -> (records, totals, schema,
         #: projected); spans run() calls

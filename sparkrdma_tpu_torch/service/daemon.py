@@ -50,6 +50,7 @@ from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry, global_registry
 from sparkrdma_tpu_torch.obs.probe import ProbeServer
 from sparkrdma_tpu_torch.obs.rollup import HeartbeatEmitter
 from sparkrdma_tpu_torch.obs.tsdb import NULL_TELEMETRY, TelemetryStore
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.service.admission import AdmissionController
 from sparkrdma_tpu_torch.service.rpc import RpcServer
@@ -67,6 +68,7 @@ class ShuffleService:
                  num_partitions: int = 8, device="cuda"):
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
+        refuse_across_processes(self.runtime, "ShuffleService")
         self.conf = conf or self.runtime.conf
         # the reference's gate: the daemon's registry, and with it the
         # telemetry store and the alerts, is on with either knob

@@ -35,6 +35,7 @@ from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
 from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
 
@@ -81,7 +82,10 @@ def _edge_tables(ratings: np.ndarray, owner_col: int, mesh: int):
     padded tables: ``(table [mesh, epad, 3] (u, i, r), mask [mesh,
     epad])``."""
     owner = ratings[:, owner_col].astype(np.int64) % mesh
-    order = np.argsort(owner, kind="stable")
+    # a stable sort of the narrowest type the owners fit is numpy's
+    # radix sort: the same order, several times faster
+    order = np.argsort(owner.astype(np.min_scalar_type(mesh - 1)),
+                       kind="stable")
     r_sorted = ratings[order]
     counts = np.bincount(owner, minlength=mesh)
     epad = max(1, int(counts.max()))
@@ -228,6 +232,7 @@ def run_als(
     ``slot_records`` and ``map_side_combine`` ("on"/"off") override the
     runtime's configuration. The initial item factors are the reference's
     for the same ``seed``."""
+    refuse_across_processes(runtime, "run_als")
     mesh = runtime.num_partitions
     k = rank
     ratings = np.asarray(ratings, dtype=np.float64)

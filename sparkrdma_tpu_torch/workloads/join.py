@@ -29,6 +29,7 @@ import torch
 from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
 from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.utils.stats import barrier
 
 _SENTINEL = 0xFFFFFFFF
@@ -148,6 +149,7 @@ def run_hash_join(
     ``key_offset_b`` shifts B's key range (by ``key_range``: disjoint
     sides, the zero-match path). The reference caches its compiled join
     program per manager; torch compiles nothing, so there is no cache."""
+    refuse_across_processes(manager.runtime, "run_hash_join")
     rt = manager.runtime
     mesh = rt.num_partitions
     conf = manager.conf

@@ -25,6 +25,7 @@ from sparkrdma_tpu_torch.exchange.partitioners import modulo_partitioner
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
 from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.stats import barrier
 
@@ -53,6 +54,7 @@ def run_pagerank(runtime: MeshRuntime, edges: np.ndarray, num_vertices: int,
                  map_side_combine: Optional[str] = None) -> PageRankResult:
     """``edges``: int ``[E, 2]`` (src, dst). ``slot_records`` and
     ``map_side_combine`` override the runtime's configuration."""
+    refuse_across_processes(runtime, "run_pagerank")
     mesh = runtime.num_partitions
     conf = runtime.conf
     if slot_records is not None:
@@ -77,7 +79,11 @@ def run_pagerank(runtime: MeshRuntime, edges: np.ndarray, num_vertices: int,
     # edges grouped by source owner into a padded [mesh, epad] table;
     # padding rows are src = dst = 0 with a zero contribution
     owner = edges[:, 0] % mesh
-    edges_by_owner = edges[np.argsort(owner, kind="stable")]
+    # the narrowest type the owners fit: numpy's stable sort of 8- and
+    # 16-bit keys is a radix sort (the same permutation, several times
+    # faster at tens of millions of edges)
+    owner_key = owner.astype(np.min_scalar_type(mesh - 1))
+    edges_by_owner = edges[np.argsort(owner_key, kind="stable")]
     per_dev = np.bincount(owner, minlength=mesh)
     epad = int(per_dev.max())
     etab = np.zeros((mesh, epad, 2), dtype=np.int64)
@@ -167,7 +173,8 @@ def _numpy_pagerank(edges: np.ndarray, v: int, iterations: int,
                         1.0)
     r = np.full(v, 1.0 / v)
     for _ in range(iterations):
-        acc = np.bincount(dst, weights=r[src] / outdeg[src], minlength=v)
+        # (r / outdeg)[src] is r[src] / outdeg[src], with one gather
+        acc = np.bincount(dst, weights=(r / outdeg)[src], minlength=v)
         r = (1 - damping) / v + damping * acc
     return r.astype(np.float32)
 

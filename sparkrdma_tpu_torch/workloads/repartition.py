@@ -5,6 +5,10 @@ Counterpart of ``sparkrdma_tpu.workloads.repartition``: a
 (64-bit) key, hashed to their destinations. Every byte crosses the
 exchange once and nothing is computed on it: a pure transport
 benchmark.
+
+Across processes ``records_per_device`` is per partition, as in the
+reference: each process places its own partitions' rows of the global
+records; ``verify`` (the global count) refuses there.
 """
 
 from __future__ import annotations
@@ -105,7 +109,13 @@ def run_repartition(
     warm-up read first when ``warmup``), verify the total.
     ``device_verify`` also checks the read on its device
     (:func:`device_verify_placement`), as TeraSort's option does."""
-    num_parts = num_parts or manager.runtime.num_partitions
+    rt = manager.runtime
+    if rt.process_count > 1 and (verify or device_verify):
+        raise ValueError(
+            "run_repartition's verify and device_verify check the global "
+            f"count; across {rt.process_count} processes pass verify=False "
+            "and device_verify=False")
+    num_parts = num_parts or rt.num_partitions
     part = hash_partitioner(num_parts, manager.conf.key_words)
     records = generate_records(manager, records_per_device, seed)
 
@@ -131,7 +141,8 @@ def run_repartition(
             verified = verified and device_verify_placement(
                 manager, records, out, totals, writer.plan, part, num_parts)
         return RepartitionResult(
-            records=records.shape[1], record_bytes=records.shape[0] * 4,
+            records=records.shape[1] * rt.process_count,
+            record_bytes=records.shape[0] * 4,
             plan_s=plan_s, exchange_s=exchange_s, verified=verified)
     finally:
         manager.unregister_shuffle(shuffle_id)

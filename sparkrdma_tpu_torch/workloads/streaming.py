@@ -39,6 +39,7 @@ from sparkrdma_tpu_torch.hbm.input_stream import (InputStreamer,
 from sparkrdma_tpu_torch.hbm.tiered_store import store_totals
 from sparkrdma_tpu_torch.meta.sampling import compute_splitters
 from sparkrdma_tpu_torch.obs import trace as _trace
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.utils.stats import barrier
 from sparkrdma_tpu_torch.workloads.terasort import device_verify_sort
 
@@ -100,6 +101,7 @@ def run_streaming_terasort(
     None folds the conservation sums on the device instead. ``verify``
     (host, test scale) merges the spilled runs per partition and checks
     that the result is sorted and a permutation of the input."""
+    refuse_across_processes(manager.runtime, "run_streaming_terasort")
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words
@@ -254,6 +256,7 @@ def run_tiered_terasort(
     device that holds it (conservation, order within each partition,
     ascending partition boundaries), at the cost of a few syncs a chunk.
     """
+    refuse_across_processes(manager.runtime, "run_tiered_terasort")
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words

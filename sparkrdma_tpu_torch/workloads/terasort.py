@@ -4,6 +4,13 @@ sample -> range splitters -> range-partitioned slotted exchange ->
 per-partition sort; the global output is the concatenation of the
 sorted partitions in partition order. Counterpart of
 ``sparkrdma_tpu.workloads.terasort``.
+
+Across processes (a runtime spanning a group) ``records_per_device`` is
+per partition, as in the reference: every process makes the global
+records from the seed and keeps its own partitions' columns, so the run
+sorts the same records as one process would. Its outputs are the local
+partitions'. The host check (``verify``) and the device check read
+every partition, which no process holds, and refuse there.
 """
 
 from __future__ import annotations
@@ -82,8 +89,10 @@ def validate_global_sort(out, totals, x_input: np.ndarray, key_words: int,
         return False
 
     def canon(a):
-        return a[np.lexsort(tuple(a[:, c]
-                                  for c in range(a.shape[1] - 1, -1, -1)))]
+        # each row as one 4W-byte value, sorted: equal multisets of rows
+        # give equal arrays (one sort of whole rows, not a W-key lexsort)
+        a = np.ascontiguousarray(a, dtype=np.uint32)
+        return np.sort(a.view(np.dtype((np.void, 4 * a.shape[1]))).ravel())
     return bool(np.array_equal(canon(got), canon(x_input)))
 
 
@@ -169,16 +178,27 @@ def run_terasort(manager: ShuffleManager, records_per_device: int,
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words
+    if rt.process_count > 1 and (verify or device_verify):
+        raise ValueError(
+            "run_terasort's verify and device_verify read every partition; "
+            f"across {rt.process_count} processes pass verify=False and "
+            "device_verify=False and compare the local outputs")
     if input_records is None:
         records = random_records(mesh * records_per_device,
                                  manager.conf.record_words, seed, rt.device)
+        if rt.process_count > 1:
+            first = rt.local_device_indices()[0] * records_per_device
+            records = records[:, first:first + rt.local_partitions
+                              * records_per_device].clone()
     else:
         records = input_records
     rec_words, n_records = records.shape
+    n_records *= rt.process_count
     x = rt.host_rows(records) if verify else None
 
     with Timer() as t_sample:
-        sampler = make_sampler(mesh, kw, samples_per_device, seed)
+        sampler = make_sampler(mesh, kw, samples_per_device, seed,
+                               runtime=rt)
         splitters = compute_splitters(sampler(records), mesh)
 
     part = range_partitioner(splitters, kw)

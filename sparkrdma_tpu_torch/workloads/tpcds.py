@@ -49,6 +49,7 @@ from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
 from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.plan import LogicalPlan, PlanExecutor
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.utils.stats import barrier
 
 _PAD_KEY = 0xFFFFFFFF
@@ -161,6 +162,7 @@ def run_q64_shape(
     sums against numpy. ``shuffle_ids`` is accepted for the reference's
     signature (the planner draws Dataset-layer ids). Pass ``executor``
     to share a :class:`PlanExecutor`'s reuse memo across queries."""
+    refuse_across_processes(manager.runtime, "run_q64_shape")
     del shuffle_ids
     fact, item, store = _q64_tables(
         manager.runtime.num_partitions, fact_rows_per_device, n_items,
@@ -282,6 +284,7 @@ def run_q95_shape(
     are hash-repartitioned by the planner (two exchanges), then
     :func:`_q95_probe` runs on the co-partitioned tables. Checked
     against numpy: the count exactly, the float32 net at rtol 1e-6."""
+    refuse_across_processes(manager.runtime, "run_q95_shape")
     del shuffle_ids
     sales, returns = _q95_tables(
         manager.runtime.num_partitions, sales_rows_per_device,
@@ -398,17 +401,31 @@ def _star_plans(manager: ShuffleManager, fact: np.ndarray, dims,
 
 def _star_expect(fact: np.ndarray, dims) -> Tuple[dict, dict]:
     """numpy's grouped sums of value by a1: over rows whose a2 < 5
-    (q_star_rev) and over all rows (q_star_all)."""
+    (q_star_rev) and over all rows (q_star_all). One pass over the fact
+    bins its values and rows by (dim1 key, dim2 key); the small tables
+    of those bins then go through the attributes (sums of integers in
+    float64, exact, so the same groups and sums as binning every row by
+    its attributes)."""
     attr = []
     for t in dims:
         a = np.zeros(int(t[:, 1].max()) + 1, np.int64)
         live = t[:, 1] != 0
         a[t[live, 1]] = t[live, 2]
         attr.append(a)
-    a1 = attr[0][fact[:, 1]]
-    a2 = attr[1][fact[:, 2]]
-    rev = a2 < 5
-    return (_grouped(a1[rev], fact[rev, 4]), _grouped(a1, fact[:, 4]))
+    n1, n2 = len(attr[0]), len(attr[1])
+    pair = fact[:, 1].astype(np.int64) * n2 + fact[:, 2]
+    sums = np.bincount(pair, weights=fact[:, 4],
+                       minlength=n1 * n2).reshape(n1, n2)
+    rows = np.bincount(pair, minlength=n1 * n2).reshape(n1, n2)
+    del pair
+    rev = attr[1] < 5
+
+    def grouped(cols) -> Dict[int, int]:
+        keys = attr[0][attr[0] != 0]
+        s = np.bincount(keys, weights=sums[attr[0] != 0][:, cols].sum(1))
+        n = np.bincount(keys, weights=rows[attr[0] != 0][:, cols].sum(1))
+        return {int(k): int(s[k]) for k in np.flatnonzero(n)}
+    return grouped(rev), grouped(slice(None))
 
 
 def run_star_suite(
@@ -441,6 +458,7 @@ def run_star_suite(
       after join 3 (key_from=3, attr_to=1): key=a1,  p=(a2, a3, value, a1)
 
     Both queries are checked against numpy."""
+    refuse_across_processes(manager.runtime, "run_star_suite")
     if manager.conf.val_words != 4:
         raise ValueError(
             f"run_star_suite needs val_words=4 (W=6) for the 3-join "

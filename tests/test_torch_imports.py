@@ -104,6 +104,23 @@ def test_telemetry_and_service_modules_scanned(rel):
     assert not [n for _, n in _imports(path) if _forbidden(n)]
 
 
+@pytest.mark.parametrize("rel", [
+    "runtime/distributed.py", "exchange/hierarchical.py"])
+def test_multi_process_modules_scanned(rel):
+    """The bootstrap and the hierarchical transport are the port's own
+    (``torch.distributed`` where the reference calls ``jax.distributed``
+    and ``lax.all_to_all``), and the package exports the bootstrap."""
+    import sparkrdma_tpu_torch
+    from sparkrdma_tpu_torch import runtime
+
+    path = REPO / "sparkrdma_tpu_torch" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+    assert "initialize_distributed" in sparkrdma_tpu_torch.__all__
+    assert runtime.initialize_distributed is \
+        sparkrdma_tpu_torch.initialize_distributed
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):
