@@ -213,13 +213,30 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
                   run's; where the machine has two cards the same over
                   ``"cpu:gloo,cuda:nccl"``, a card a process (else the
                   line says ``"nccl": "needs 2 cards"``);
+     U            the ``Dataset`` verbs across the same two workers:
+                  leg K's records (16,777,216 × 100 B, seed 7, Zipf(1.1)
+                  keys), each worker building them from the seed, on
+                  ``"xla"`` with leg B's conf (the merge-path tail);
+                  ``from_host_rows``, ``sort_by_key``, ``reduce_by_key``,
+                  ``distinct``, ``count_by_key`` and ``filter(w2 == 0)``
+                  then ``repartition()``, each timed once after a
+                  warm-up of the first; per verb the slower worker's
+                  seconds, each worker's seconds in
+                  ``all_to_all_single``, merge-path launches and peak
+                  memory, and each partition's totals and digest equal
+                  to the one-process run's;
      distributed  2^20 records: TeraSort outputs bit-exact against one
                   process on ``"xla"`` and ``"hierarchical"`` at H = 1,
                   2 and 4; ``repartition(16)``; a sharded checkpoint
                   (each process writes only its ``proc{p}`` shards),
-                  resumed by fresh managers; the refusals of
-                  ``pallas_ring`` (ROADMAP B.1) and of the one-process
-                  entry points (A.12);
+                  resumed by fresh managers; ``InputStreamer`` and
+                  ``run_streaming_terasort`` (the fold) at 2^22 records
+                  in 4 chunks, each worker's chunks its own columns and
+                  the fold's sums equal on both workers, to one process
+                  and to numpy; the refusals of ``pallas_ring`` (ROADMAP
+                  B.1) and of the entry points the reference cannot run
+                  across processes either (A.12, each message naming
+                  the reference's line), and of those not ported yet;
    then the ring kernel at every send shape legs B-S launched it at
    (recorded while each leg ran), each against its plain version and
    timed (cold only where a send/out pair is 1 MiB or more);
@@ -2030,24 +2047,29 @@ def join_tables(rows_per_part: int, key_range: int, seed: int):
     return gen(rows_per_part), gen(rows_per_part)
 
 
-def join_codes_expect(xa: np.ndarray, xb: np.ndarray) -> np.ndarray:
+def join_codes_expect(xa: np.ndarray, xb: np.ndarray) -> tuple:
     """Every joined row of ``xa ⋈ xb`` on word 1, as the sorted codes
     ``key << 20 | a_payload << 10 | b_payload`` (lossless: keys below
-    2^24, payloads below 2^10)."""
-    # the codes are sorted at the end, so the order among equal keys
-    # does not matter: the default sort, not a stable one
+    2^24, payloads below 2^10), with the match count and the sum of
+    payload products (exact: integers below 2^53 in float64)."""
+    # the codes are sorted at the end, so neither side's order matters:
+    # both sides key-sorted (the default sort), the A side's lookups
+    # then walk the B side in order
     kb_order = np.argsort(xb[:, 1])
     kb, pb = xb[kb_order, 1], xb[kb_order, 2].astype(np.uint64)
-    lo = np.searchsorted(kb, xa[:, 1], side="left")
-    hi = np.searchsorted(kb, xa[:, 1], side="right")
+    ka_order = np.argsort(xa[:, 1])
+    ka, pa = xa[ka_order, 1], xa[ka_order, 2].astype(np.uint64)
+    lo = np.searchsorted(kb, ka, side="left")
+    hi = np.searchsorted(kb, ka, side="right")
     cnt = hi - lo
-    a_ix = np.repeat(np.arange(len(xa)), cnt)
+    a_ix = np.repeat(np.arange(len(ka)), cnt)
     starts = np.cumsum(cnt) - cnt
     b_ix = lo[a_ix] + (np.arange(len(a_ix)) - starts[a_ix])
-    codes = (xa[a_ix, 1].astype(np.uint64) << np.uint64(20)) \
-        | (xa[a_ix, 2].astype(np.uint64) << np.uint64(10)) | pb[b_ix]
+    pa, pb = pa[a_ix], pb[b_ix]
+    codes = (ka[a_ix].astype(np.uint64) << np.uint64(20)) \
+        | (pa << np.uint64(10)) | pb
     codes.sort()
-    return codes
+    return codes, len(codes), float((pa * pb).sum())
 
 
 def join_codes_got(joined: torch.Tensor, totals) -> tuple:
@@ -2074,8 +2096,7 @@ def leg_j() -> dict:
     [0, 2^24), then ``Dataset.join`` on the same rows, its joined rows
     held against a numpy join as a sorted multiset, exactly."""
     from sparkrdma_tpu_torch.api.dataset import Dataset
-    from sparkrdma_tpu_torch.workloads.join import (_numpy_reference_join,
-                                                    run_hash_join)
+    from sparkrdma_tpu_torch.workloads.join import run_hash_join
 
     m = terasort_manager("cuda")
     kernels = zeroed_counters()
@@ -2084,7 +2105,7 @@ def leg_j() -> dict:
         m, J_ROWS, J_ROWS, key_range=J_KEY_RANGE, seed=0, verify=False))
     xa, xb = join_tables(J_ROWS, J_KEY_RANGE, seed=0)
     t0 = time.perf_counter()
-    ref_count, ref_sum = _numpy_reference_join(xa, xb)
+    want_codes, ref_count, ref_sum = join_codes_expect(xa, xb)
     ref_s = time.perf_counter() - t0
     da = Dataset.from_host_rows(m, xa)
     db = Dataset.from_host_rows(m, xb)
@@ -2092,7 +2113,6 @@ def leg_j() -> dict:
     launches = {k: v.launches for k, v in kernels.items()}
     got_codes, zero = join_codes_got(joined, totals)
     del joined, da, db
-    want_codes = join_codes_expect(xa, xb)
     rows_equal = bool(zero and np.array_equal(got_codes, want_codes))
     rel_err = abs(res.sum_products - ref_sum) / max(1.0, abs(ref_sum))
     line = {"leg": "J", "workload": "run_hash_join + Dataset.join",
@@ -2125,26 +2145,46 @@ def leg_j() -> dict:
     return line
 
 
-def k_rows(total: int, seed: int) -> np.ndarray:
+#: leg K's rows kept for leg U's one-process run (``k_rows(keep=True)``)
+_K_ROWS = {}
+
+
+def k_rows(total: int, seed: int, keep: bool = False) -> np.ndarray:
     """Leg K's 100-byte records: key ``(0, id)`` with ids Zipf(1.1) folded
     into 2^22, word 2 in [0, 4), words 3..24 a fixed function of (id,
-    word 2), so rows sharing both are duplicates (``distinct`` has work)."""
+    word 2), so rows sharing both are duplicates (``distinct`` has work).
+    ``keep`` keeps the array for the next call with the same arguments,
+    which takes it (nothing writes into it in between)."""
+    kept = _K_ROWS.pop((total, seed), None)
+    if kept is not None:
+        return kept
     rng = np.random.default_rng(seed)
     rows = np.zeros((total, KEY_WORDS + VAL_WORDS), np.uint32)
     rows[:, 1] = rng.zipf(1.1, size=total) % K_KEY_IDS
     rows[:, 2] = rng.integers(0, 4, size=total)
-    rows[:, 3:] = k_derived(rows[:, 1], rows[:, 2])
+    k_derived(rows[:, 1], rows[:, 2], out=rows[:, 3:])
+    if keep:
+        _K_ROWS[total, seed] = rows
     return rows
 
 
-def k_derived(ids: np.ndarray, w2: np.ndarray) -> np.ndarray:
-    h = ids.astype(np.uint64) * np.uint64(0x9E3779B1) \
-        + w2.astype(np.uint64) * np.uint64(0x85EBCA6B)
-    j = np.arange(3, KEY_WORDS + VAL_WORDS, dtype=np.uint64)
-    mixed = (h[:, None] + j[None] * np.uint64(0xC2B2AE35)) \
-        * np.uint64(0x27D4EB2F)
-    return ((mixed >> np.uint64(17)) & np.uint64(0xFFFFFFFF)).astype(
-        np.uint32)
+def k_derived(ids: np.ndarray, w2: np.ndarray, out=None) -> np.ndarray:
+    """Words 3..24 of leg K's rows: ``((h + j*C) * M >> 17) mod 2^32``
+    with ``h`` a mix of (id, word 2), in uint64 arithmetic, a block of
+    rows at a time (into ``out`` if given)."""
+    if out is None:
+        out = np.empty((len(ids), KEY_WORDS + VAL_WORDS - 3), np.uint32)
+    j = np.arange(3, KEY_WORDS + VAL_WORDS, dtype=np.uint64) \
+        * np.uint64(0xC2B2AE35)
+    block = 1 << 14          # a [block, 22] uint64 temporary stays in cache
+    for lo in range(0, len(ids), block):
+        h = ids[lo:lo + block].astype(np.uint64) * np.uint64(0x9E3779B1)
+        h += w2[lo:lo + block].astype(np.uint64) * np.uint64(0x85EBCA6B)
+        mixed = h[:, None] + j[None]
+        mixed *= np.uint64(0x27D4EB2F)
+        mixed >>= np.uint64(17)
+        out[lo:lo + block] = mixed          # the low 32 bits
+    return out
 
 
 def group_expect(ids: np.ndarray):
@@ -2205,12 +2245,20 @@ def check_cogroup(c, ids_a: np.ndarray, ids_b: np.ndarray) -> bool:
 
 
 def sums_expect(rows: np.ndarray):
-    """Unique ids and every payload word summed per id mod 2^32."""
-    order = np.argsort(rows[:, 1], kind="stable")
-    ids = rows[order, 1]
+    """Unique ids and every payload word summed per id mod 2^32. A row's
+    payload is a function of its (id, word 2) pair (``k_rows``), so the
+    sums are each pair's count times its payload, summed per id."""
+    pairs, count = np.unique(rows[:, 1].astype(np.uint64) << np.uint64(2)
+                             | rows[:, 2], return_counts=True)
+    ids = (pairs >> np.uint64(2)).astype(np.uint32)
+    w2 = (pairs & np.uint64(3)).astype(np.uint32)
+    vals = np.empty((len(pairs), VAL_WORDS), np.uint64)
+    vals[:, 0] = w2
+    vals[:, 1:] = k_derived(ids, w2)
+    vals *= count.astype(np.uint64)[:, None]
     starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
-    sums = np.add.reduceat(rows[order, 2:].astype(np.uint64), starts, axis=0)
-    return ids[starts], (sums & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    sums = np.add.reduceat(vals, starts, axis=0)
+    return ids[starts], sums.astype(np.uint32)
 
 
 def by_key(rows: np.ndarray, words: int = 1) -> np.ndarray:
@@ -2231,7 +2279,7 @@ def leg_k() -> dict:
     from sparkrdma_tpu_torch.workloads.terasort import (_sums,
                                                         device_verify_sort)
 
-    rows = k_rows(K_RECORDS, seed=7)
+    rows = k_rows(K_RECORDS, seed=7, keep=True)
     rows_b = k_rows(K_RECORDS // 4, seed=8)
     m = terasort_manager("cuda")
     kernels = zeroed_counters()
@@ -4792,6 +4840,36 @@ DIST_HOSTS = (1, 2, 4)
 DIST_SEED, DIST_CKPT_SID = 5, 97
 #: a worker pair past this is killed and fails the smoke
 DIST_WORKER_S = 600
+#: leg U's verbs, in order (the first one is also the warm-up)
+U_VERBS = ("from_host_rows", "sort_by_key", "reduce_by_key", "distinct",
+           "count_by_key", "filter_repartition")
+#: phase: distributed's input feed: 2^22 records in 4 chunks
+DIST_STREAM_RECORDS, DIST_STREAM_CHUNKS = 1 << 22, 4
+#: the entry points the reference cannot run across processes either:
+#: the line where it reads a global array on the host
+DIST_REFERENCE_LINES = {
+    "count": "sparkrdma_tpu/api/dataset.py:575",
+    "to_host_rows": "sparkrdma_tpu/api/dataset.py:531",
+    "collect_rows": "sparkrdma_tpu/api/dataset.py:1165",
+    "group_by_key": "sparkrdma_tpu/api/dataset.py:1015",
+    "cogroup": "sparkrdma_tpu/api/dataset.py:1064",
+    "join_count": "sparkrdma_tpu/api/dataset.py:1086",
+    "join": "sparkrdma_tpu/api/dataset.py:1122",
+    "sort_by_key of an exchange's output": "sparkrdma_tpu/api/dataset.py:660",
+    "to_host_payloads of an exchange's output":
+        "sparkrdma_tpu/api/pipeline.py:245",
+    "run_streaming_terasort with spill_dir":
+        "sparkrdma_tpu/workloads/streaming.py:139",
+    "run_tiered_terasort": "sparkrdma_tpu/workloads/streaming.py:331",
+    "run_pagerank": "sparkrdma_tpu/workloads/pagerank.py:207",
+    "run_hash_join": "sparkrdma_tpu/workloads/join.py:254",
+    "run_als": "sparkrdma_tpu/workloads/als.py:272",
+    "run_q64_shape": "sparkrdma_tpu/api/dataset.py:531",
+    "run_q95_shape": "sparkrdma_tpu/workloads/tpcds.py:312",
+    "run_star_suite": "sparkrdma_tpu/api/dataset.py:531",
+    "read_partition": "sparkrdma_tpu/api/shuffle_manager.py:552",
+    "read_view": "sparkrdma_tpu/api/shuffle_manager.py:582",
+}
 
 
 def part_digests(out: torch.Tensor, totals: torch.Tensor, cap: int) -> list:
@@ -4823,14 +4901,16 @@ def dist_transports() -> list:
 
 def dist_refusals(m) -> dict:
     """The entry points that run in one process only, each driven with a
-    runtime across processes: the message each raised (ROADMAP A.12;
-    the ring transport names B.1)."""
+    runtime across processes: whether each raised as it should. Those
+    the reference cannot run there either (``DIST_REFERENCE_LINES``)
+    name ROADMAP A.12 and the reference's line, the rest (not ported
+    yet) A.12; the ring transport names B.1."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.api.serde import payload_words
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
-    from sparkrdma_tpu_torch.hbm.input_stream import (ArrayChunkSource,
-                                                      InputStreamer)
+    from sparkrdma_tpu_torch.hbm.input_stream import ArrayChunkSource
     from sparkrdma_tpu_torch.plan import PlanExecutor
     from sparkrdma_tpu_torch.service.daemon import ShuffleService
     from sparkrdma_tpu_torch.workloads import (als, join, pagerank,
@@ -4839,14 +4919,43 @@ def dist_refusals(m) -> dict:
     cols = np.zeros((4, 64), np.uint32)
     rt = m.runtime
     h = m.register_shuffle(DIST_CKPT_SID + 1, PARTS, hash_partitioner(PARTS))
+    rows = np.ones((PARTS * 2, m.conf.record_words), np.uint32)
+    spill = os.path.join(tempfile.gettempdir(), "never-written")
+
+    def ds():
+        return Dataset.from_host_rows(m, rows)
+
+    def exchanged(d):
+        d.exchanged = True       # as a verb marks its result
+        return d
+
+    def payloads():
+        mp = ShuffleManager(MeshRuntime(
+            dist_conf("xla").replace(val_words=payload_words(8)), PARTS,
+            device="cuda"))
+        try:
+            return exchanged(Dataset.from_host_payloads(
+                mp, rows[:, :KEY_WORDS], [b"x"] * len(rows),
+                8)).to_host_payloads()
+        finally:
+            mp.stop()
+
     calls = {
         "pallas_ring": lambda: ShuffleManager(MeshRuntime(
             leg_b_conf(), PARTS, device="cuda")),
-        "Dataset": lambda: Dataset(m, rt.shard_records(
-            np.ones((PARTS * 2, m.conf.record_words), np.uint32))),
+        "count": lambda: ds().count,
+        "to_host_rows": lambda: ds().to_host_rows(),
+        "collect_rows": lambda: Dataset.collect_rows(ds().records,
+                                                     ds().totals),
+        "group_by_key": lambda: ds().group_by_key(),
+        "cogroup": lambda: ds().cogroup(ds()),
+        "join_count": lambda: ds().join_count(ds()),
+        "join": lambda: ds().join(ds()),
+        "sort_by_key of an exchange's output":
+            lambda: exchanged(ds()).sort_by_key(),
+        "to_host_payloads of an exchange's output": payloads,
         "PlanExecutor": lambda: PlanExecutor(m),
         "ShuffleService": lambda: ShuffleService(runtime=rt),
-        "InputStreamer": lambda: InputStreamer(rt, ArrayChunkSource(cols, 32)),
         "run_pagerank": lambda: pagerank.run_pagerank(
             rt, np.zeros((8, 2), np.int64), 8),
         "run_hash_join": lambda: join.run_hash_join(m, 8, 8),
@@ -4854,8 +4963,9 @@ def dist_refusals(m) -> dict:
         "run_q64_shape": lambda: tpcds.run_q64_shape(m),
         "run_q95_shape": lambda: tpcds.run_q95_shape(m),
         "run_star_suite": lambda: tpcds.run_star_suite(m),
-        "run_streaming_terasort": lambda: streaming.run_streaming_terasort(
-            m, ArrayChunkSource(cols, 32)),
+        "run_streaming_terasort with spill_dir":
+            lambda: streaming.run_streaming_terasort(
+                m, ArrayChunkSource(cols, 32), spill_dir=spill),
         "run_tiered_terasort": lambda: streaming.run_tiered_terasort(
             m, cols, 32),
         "checkpoint_segments": lambda: m.checkpoint_segments(1, [], None, 8),
@@ -4865,12 +4975,15 @@ def dist_refusals(m) -> dict:
     }
     said = {}
     for name, call in calls.items():
-        want = (ValueError, "B.1") if name == "pallas_ring" else \
-            (NotImplementedError, "A.12")
+        ref = DIST_REFERENCE_LINES.get(name)
+        want = (ValueError, ["B.1"]) if name == "pallas_ring" else (
+            NotImplementedError,
+            ["A.12", f"as the reference: `{ref}`" if ref
+             else "not ported yet"])
         try:
             call()
         except want[0] as e:
-            said[name] = want[1] in str(e)
+            said[name] = all(w in str(e) for w in want[1])
         else:
             said[name] = False
     m.unregister_shuffle(DIST_CKPT_SID + 1)
@@ -4892,18 +5005,7 @@ def t_worker(rank: int, backend: str) -> dict:
                                                    make_sampler)
     from sparkrdma_tpu_torch.workloads.terasort import random_records
 
-    a2a_s = [0.0]
-    plain_a2a = dist.all_to_all_single
-
-    def timed_a2a(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = plain_a2a(*a, **kw)
-        torch.cuda.synchronize()
-        a2a_s[0] += time.perf_counter() - t0
-        return res
-
-    dist.all_to_all_single = timed_a2a
+    a2a_s = timed_all_to_all()
     per = RECORDS // PARTS
     out_lines = {}
     for name, conf in (("xla", dist_conf("xla")),
@@ -4947,8 +5049,118 @@ def t_worker(rank: int, backend: str) -> dict:
         del out, totals, records, reader
         m.stop()
         torch.cuda.empty_cache()
-    dist.all_to_all_single = plain_a2a
+    timed_all_to_all(off=True)
     return out_lines
+
+
+_PLAIN_A2A = []
+
+
+def timed_all_to_all(off: bool = False) -> list:
+    """Wrap ``torch.distributed.all_to_all_single`` so that each call's
+    seconds (the card idle before and after) add to the returned
+    one-element list; ``off`` puts the plain one back."""
+    import torch.distributed as dist
+
+    if not _PLAIN_A2A:
+        _PLAIN_A2A.append(dist.all_to_all_single)
+    plain = _PLAIN_A2A[0]
+    if off:
+        dist.all_to_all_single = plain
+        return []
+    spent = [0.0]
+
+    def timed_a2a(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plain(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return res
+
+    dist.all_to_all_single = timed_a2a
+    return spent
+
+
+def u_verbs(ds) -> dict:
+    """Leg U's verbs on a loaded dataset (``from_host_rows`` is the
+    loader's, called with the rows)."""
+    return {"sort_by_key": ds.sort_by_key,
+            "reduce_by_key": lambda: ds.reduce_by_key("sum"),
+            "distinct": ds.distinct,
+            "count_by_key": ds.count_by_key,
+            "filter_repartition": lambda: ds.filter(
+                lambda r: r[2] == 0, cache_key=("w2", 0)).repartition()}
+
+
+def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
+          warm: bool = True) -> dict:
+    """Leg U's verbs in order on manager ``m``: per verb its wall
+    seconds, merge-path launches, peak memory (and seconds in
+    ``all_to_all_single`` with ``a2a_s``), its stacked partitions'
+    totals and digests; ``sync`` runs before each verb (the processes'
+    barrier). With ``warm`` the first verb runs once more first, as the
+    warm-up."""
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+
+    out = {}
+    ds = None
+    for i, name in enumerate(("warm-up",) + U_VERBS):
+        if not (i or warm):
+            continue
+        kernels = zeroed_counters()
+        torch.cuda.reset_peak_memory_stats()
+        if a2a_s is not None:
+            a2a_s[0] = 0.0
+        if sync is not None:
+            sync()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i <= 1:
+            ds = None
+            res = ds = Dataset.from_host_rows(m, rows)
+        else:
+            res = u_verbs(ds)[name]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not i:
+            continue
+        cap = res.records.shape[1] // m.runtime.local_partitions
+        out[name] = {"wall_s": wall,
+                     "a2a_s": a2a_s[0] if a2a_s is not None else None,
+                     "merge_stage": kernels["merge_stage"].launches,
+                     "merge_splits": kernels["merge_splits"].launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "totals": res.totals.tolist(),
+                     "digests": part_digests(res.records, res.totals, cap)}
+        if res is not ds:
+            del res
+    del ds
+    return out
+
+
+def u_worker() -> dict:
+    """Leg U in one worker: leg K's records, built from the seed, and
+    leg U's verbs on ``"xla"`` (the processes meet at a barrier before
+    each verb)."""
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    rows = k_rows(K_RECORDS, seed=7)
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    a2a_s = timed_all_to_all()
+    try:
+        verbs = u_run(m, rows, sync=dist.barrier, a2a_s=a2a_s)
+    finally:
+        timed_all_to_all(off=True)
+    res = {"verbs": verbs, "local": list(m.runtime.local_device_indices())}
+    m.stop()
+    del rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def dist_phase_worker(rank: int, out_dir: str) -> dict:
@@ -4977,10 +5189,44 @@ def dist_phase_worker(rank: int, out_dir: str) -> dict:
     res["repartition"] = totals
     res["ckpt"] = dist_checkpoint(os.path.join(out_dir, "ckpt"), rank)
     m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    res["stream"] = dist_stream(m)
     res["refused"] = dist_refusals(m)
     m.stop()
     res["seconds"] = time.perf_counter() - res.pop("t0")
     return res
+
+
+def dist_stream_cols() -> np.ndarray:
+    """The phase's input feed: ``uint32[25, 2^22]`` from a seed."""
+    return np.random.default_rng(DIST_SEED + 1).integers(
+        0, 2**32, size=(KEY_WORDS + VAL_WORDS, DIST_STREAM_RECORDS),
+        dtype=np.uint32)
+
+
+def dist_stream(m) -> dict:
+    """``InputStreamer`` over the phase's chunks (whether each chunk on
+    the card is this process's columns of the host chunk), then
+    ``run_streaming_terasort`` without ``spill_dir``: its fold sums,
+    records and chunks."""
+    from sparkrdma_tpu_torch.hbm.input_stream import (ArrayChunkSource,
+                                                      InputStreamer)
+    from sparkrdma_tpu_torch.workloads.streaming import (
+        run_streaming_terasort)
+
+    cols = dist_stream_cols()
+    rt = m.runtime
+    chunk = DIST_STREAM_RECORDS // DIST_STREAM_CHUNKS
+    mine = chunk // rt.process_count
+    own = []
+    for j, dev in enumerate(InputStreamer(rt, ArrayChunkSource(cols,
+                                                               chunk))):
+        first = j * chunk + rt.process_index * mine
+        own.append(torch.equal(dev.cpu(), torch.from_numpy(np.ascontiguousarray(
+            cols[:, first:first + mine]).view(np.int32))))
+    res = run_streaming_terasort(m, ArrayChunkSource(cols, chunk))
+    return {"own_columns": own, "fold_sums": res.fold_sums.tolist(),
+            "records": res.records, "chunks": res.chunks,
+            "stream_s": res.stream_s}
 
 
 def dist_repartition(device: str):
@@ -5085,6 +5331,9 @@ def distributed_worker(args) -> int:
     t0 = time.perf_counter()
     res = {"T": t_worker(rank, backend), "T_s": time.perf_counter() - t0}
     if phase:
+        t0 = time.perf_counter()
+        res["U"] = u_worker()
+        res["U_s"] = time.perf_counter() - t0
         res["distributed"] = dist_phase_worker(rank, out_dir)
     res["jax_imported"] = "jax" in sys.modules
     with open(os.path.join(out_dir, f"worker-{rank}.json"), "w") as f:
@@ -5150,6 +5399,64 @@ def t_reference() -> dict:
     return line
 
 
+def u_reference() -> dict:
+    """Leg U's reference: the same records (leg K's, when it kept them),
+    conf and verbs in one process, on the stacked ``"xla"`` transport,
+    without a warm-up (the smoke's earlier legs have warmed the card)."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    rows = k_rows(K_RECORDS, seed=7)
+    m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
+    verbs = u_run(m, rows, warm=False)
+    m.stop()
+    return verbs
+
+
+def u_line(ref: dict, workers: list) -> dict:
+    """Leg U's line: per verb the slower worker's seconds beside one
+    process's, each worker's seconds in ``all_to_all_single``, launches
+    and peak memory; fails unless every partition equals the
+    one-process run's and the merge path ran in every worker's
+    ``sort_by_key``."""
+    checks, verbs = {}, {}
+    for name in U_VERBS:
+        per = [w["U"]["verbs"][name] for w in workers]
+        verbs[name] = {
+            "wall_s": max(p["wall_s"] for p in per),
+            "worker_s": [p["wall_s"] for p in per],
+            "one_process_s": ref[name]["wall_s"],
+            "a2a_s": [p["a2a_s"] for p in per],
+            "merge_stage": [p["merge_stage"] for p in per],
+            "one_process_merge_stage": ref[name]["merge_stage"],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "one_process_peak_gb": ref[name]["peak_gb"],
+            "partition_totals": sum((p["totals"] for p in per), []),
+            "partition_digests": sum((p["digests"] for p in per), [])}
+        for w, p in zip(workers, per):
+            lo, hi = w["U"]["local"][0], w["U"]["local"][-1] + 1
+            checks[f"{name} partitions {lo}-{hi - 1} equal"] = (
+                p["totals"] == ref[name]["totals"][lo:hi]
+                and p["digests"] == ref[name]["digests"][lo:hi])
+    checks["sort_by_key merge_stage launched in every worker"] = all(
+        n > 0 for n in verbs["sort_by_key"]["merge_stage"])
+    checks["no jax"] = not any(w["jax_imported"] for w in workers)
+    line = {"leg": "U", "workload": "Dataset verbs across processes",
+            "records": K_RECORDS,
+            "record_bytes": 4 * (KEY_WORDS + VAL_WORDS),
+            "keys": f"Zipf(1.1) folded into {K_KEY_IDS} ids, "
+                    "default_rng(7)",
+            "partitions": PARTS, "processes": T_WORKERS,
+            "transport": "xla", "backend": "gloo",
+            "worker_s": [w["U_s"] for w in workers],
+            "verbs": verbs, "checks": checks}
+    report(line)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail("leg U: " + ", ".join(bad))
+    return line
+
+
 def t_line(name: str, ref: dict, workers: list, seconds: float,
            **extra) -> dict:
     """Leg T's line for one backend (``extra`` added to it); fails unless
@@ -5202,7 +5509,8 @@ def leg_t() -> dict:
     from sparkrdma_tpu_torch.runtime.distributed import CARD_PER_PROCESS
 
     ref = t_reference()
-    ts_ref, rep_ref = dist_single_refs()
+    u_ref = u_reference()
+    ts_ref, rep_ref, stream_ref = dist_single_refs()
     ck_ref = dist_ckpt_single()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5215,22 +5523,30 @@ def leg_t() -> dict:
     else:
         nccl = "needs 2 cards"
     line = t_line("T", ref, workers, seconds, nccl=nccl)
-    dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref)
+    u = u_line(u_ref, workers)
+    dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref, stream_ref)
     launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
                 "ring_all_to_all": 0}
+    u_launches = dict(launches)
     for w in workers:
         for transport in ("xla", "hierarchical"):
             for r in w["T"][transport]["reads"]:
                 launches["merge_stage"] += r["merge_stage"]
                 launches["merge_splits"] += r["merge_splits"]
+        for v in w["U"]["verbs"].values():
+            u_launches["merge_stage"] += v["merge_stage"]
+            u_launches["merge_splits"] += v["merge_splits"]
     return {"leg": "T", "launches": launches, "gbps": {
         t: [r["gbps"] for r in line[t]["reads"]]
-        for t in ("xla", "hierarchical")}}
+        for t in ("xla", "hierarchical")},
+        "U": {"leg": "U", "launches": u_launches,
+              "verb_s": {k: v["wall_s"] for k, v in u["verbs"].items()}}}
 
 
 def dist_single_refs():
     """The phase's one-process runs: TeraSort's whole output on the
-    stacked ``"xla"`` transport, and ``repartition(16)``'s."""
+    stacked ``"xla"`` transport, ``repartition(16)``'s, and the input
+    feed's fold (with numpy's sums beside it)."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.workloads.terasort import run_terasort
@@ -5239,11 +5555,15 @@ def dist_single_refs():
     _, out, totals = run_terasort(m, DIST_RECORDS // PARTS, seed=DIST_SEED,
                                   verify=False, warmup=False, shuffle_id=2)
     ts = (out.cpu().numpy(), totals.tolist())
+    del out, totals
+    stream = dist_stream(m)
+    stream["numpy_sums"] = fold_expect(dist_stream_cols()).tolist()
     m.stop()
-    return ts, dist_repartition("cuda")
+    return ts, dist_repartition("cuda"), stream
 
 
-def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref) -> dict:
+def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
+                    stream_ref) -> dict:
     """``phase: distributed``'s line: every check of the workers' runs
     against the one-process runs; fails unless each holds."""
     checks = {}
@@ -5275,6 +5595,16 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref) -> dict:
     checks["checkpoint equal to one process"] = (
         sum((c["totals"] for c in ck), []) == ck_ref["totals"]
         and sum((c["digests"] for c in ck), []) == ck_ref["digests"])
+    st = [h["stream"] for h in halves]
+    checks["InputStreamer: each worker's chunks its own columns"] = all(
+        len(s["own_columns"]) == DIST_STREAM_CHUNKS and all(s["own_columns"])
+        for s in st)
+    checks["fold sums equal on every worker and to one process"] = all(
+        s["fold_sums"] == stream_ref["fold_sums"]
+        and (s["records"], s["chunks"]) == (DIST_STREAM_RECORDS,
+                                            DIST_STREAM_CHUNKS) for s in st)
+    checks["fold sums equal to numpy"] = (stream_ref["fold_sums"]
+                                          == stream_ref["numpy_sums"])
     for h in halves:
         for name, ok in h["refused"].items():
             checks[f"refuses {name}"] = checks.get(
@@ -5282,7 +5612,12 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref) -> dict:
     line = {"phase": "distributed", "records": DIST_RECORDS,
             "processes": T_WORKERS, "transports": [n for n, _ in
                                                    dist_transports()],
-            "worker_s": [h["seconds"] for h in halves], "checks": checks}
+            "worker_s": [h["seconds"] for h in halves],
+            "stream_records": DIST_STREAM_RECORDS,
+            "stream_chunks": DIST_STREAM_CHUNKS,
+            "stream_s": [s["stream_s"] for s in st],
+            "one_process_stream_s": stream_ref["stream_s"],
+            "checks": checks}
     report(line)
     shutil.rmtree(out_dir, ignore_errors=True)
     bad = [k for k, v in checks.items() if not v]
@@ -5359,6 +5694,7 @@ def main(argv=None) -> int:
                 run_leg(legs, shapes, name, fn)
         if "T" in only:
             run_leg(legs, shapes, "T", leg_t)
+            legs["U"] = legs["T"].pop("U")
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -5394,6 +5730,7 @@ def main(argv=None) -> int:
     for name, fn in SERVICE_LEGS:
         run_leg(legs, shapes, name, fn)
     run_leg(legs, shapes, "T", leg_t)
+    legs["U"] = legs["T"].pop("U")
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -5407,8 +5744,9 @@ def main(argv=None) -> int:
             fail(f"the ring kernel was not launched on leg {name}")
     if legs["P"]["launches"]["merge_stage"] <= 0:
         fail("merge_stage was not launched on leg P")
-    if legs["T"]["launches"]["merge_stage"] <= 0:
-        fail("merge_stage was not launched in leg T's workers")
+    for name in ("T", "U"):
+        if legs[name]["launches"]["merge_stage"] <= 0:
+            fail(f"merge_stage was not launched in leg {name}'s workers")
     for k, name in (("ring_exchange", "Q"), ("merge_stage", "Q"),
                     ("ring_exchange", "Q-small"), ("merge_stage", "Q-small"),
                     ("ring_all_to_all", "Q-small")):

@@ -11,6 +11,19 @@ The reference runs each per-device step as a ``shard_map`` program; here
 it is a function over the stacked partitions, looping over them where a
 step is per partition.
 
+ACROSS PROCESSES (a runtime spanning a ``torch.distributed`` group) a
+Dataset holds this process's partitions: records ``[W, L*cap]`` and
+totals ``(L,)``, ``L = runtime.local_partitions``, as the reader returns
+them. It runs what the reference runs there: the exchange verbs on a
+dataset loaded from the host (``filter`` / ``select`` views of it
+included), and ``to_host_payloads`` / ``to_host_columns`` of such a
+dataset, which give this process's rows. The rest raises
+``NotImplementedError`` at entry, naming the line where the reference
+reads a global array on the host (ROADMAP A.12): ``count``,
+``to_host_rows``, ``collect_rows``, the grouping and join verbs, and any
+verb on a dataset whose totals an exchange or the caller gave
+(:attr:`Dataset.exchanged`).
+
 RESERVED NULL KEY: the all-ones key (every key word 0xFFFFFFFF) is
 reserved by this layer. When a chained verb re-densifies a padded
 Dataset, filler rows carry the null key; ``to_host_rows``/``count``
@@ -68,6 +81,11 @@ _NULL = np.uint32(0xFFFFFFFF)
 _NULL_WORD = -1                 # the int32 bit-view of 0xFFFFFFFF
 _LOW = 0xFFFFFFFF
 
+#: where the reference fails across processes (it reads an array that
+#: spans other processes' devices on the host)
+_REF = "sparkrdma_tpu/api/dataset.py"
+_REF_CHAINED = f"{_REF}:660"            # _dense_records' totals
+
 
 def _parts(x: torch.Tensor, mesh: int) -> List[torch.Tensor]:
     """The per-partition column groups of a stacked batch (views)."""
@@ -116,7 +134,7 @@ def _join_counts(m: ShuffleManager, a: "Dataset", b: "Dataset",
     """Filler-stripped :func:`_local_join` of every partition: the
     per-partition match counts and the sum of payload products over all
     partitions (the reference's ``psum``)."""
-    mesh = m.runtime.num_partitions
+    mesh = m.runtime.local_partitions
     counts, sums = [], []
     for ra, ta, rb, tb in zip(_parts(a.records, mesh), a.totals.tolist(),
                               _parts(b.records, mesh), b.totals.tolist()):
@@ -134,7 +152,7 @@ def _join_rows(m: ShuffleManager, a: "Dataset", b: "Dataset",
                out_capacity: int, key_ix: int):
     """Filler-stripped :func:`_local_join_rows` of every partition:
     ``(joined [kw + 2*vw, D*out_capacity], counts int64[D])``."""
-    mesh = m.runtime.num_partitions
+    mesh = m.runtime.local_partitions
     kw, vw = m.conf.key_words, m.conf.val_words
     counts, pieces = [], []
     for ra, ta, rb, tb in zip(_parts(a.records, mesh), a.totals.tolist(),
@@ -252,11 +270,14 @@ class Dataset:
 
     def __init__(self, manager: ShuffleManager, records: torch.Tensor,
                  totals: Optional[torch.Tensor] = None, schema=None):
-        # the verbs read whole outputs on the host, as the reference's do
-        refuse_across_processes(manager.runtime, "Dataset")
         self.manager = manager
-        self.records = records          # columnar int32 [W, mesh * cap]
-        mesh = manager.runtime.num_partitions
+        self.records = records          # columnar int32 [W, local * cap]
+        #: the totals came from an exchange (a verb's result, a filter /
+        #: select view of one) or from the caller, not from a load: the
+        #: reference's are then a sharded array, which no verb reads
+        #: across processes
+        self.exchanged = totals is not None
+        mesh = manager.runtime.local_partitions
         if totals is None:
             totals = torch.full((mesh,), records.shape[1] // mesh,
                                 dtype=torch.int32, device=records.device)
@@ -278,6 +299,26 @@ class Dataset:
         #: content digest of the host rows this dataset was built from
         #: (:meth:`from_host_rows` only; derived datasets leave it empty)
         self.content_digest: str = ""
+
+    def _refuse(self, what: str, reference: str) -> None:
+        """Refuse ``what`` across processes, as the reference fails at
+        ``reference`` (ROADMAP A.12)."""
+        refuse_across_processes(self.manager.runtime, what, reference)
+
+    def _refuse_chained(self, what: str, reference: str = _REF_CHAINED
+                        ) -> None:
+        """Refuse ``what`` across processes on a dataset whose totals an
+        exchange or the caller gave (:attr:`exchanged`)."""
+        if self.exchanged:
+            self._refuse(f"{what} on the output of an exchange", reference)
+
+    def _view(self, records: torch.Tensor) -> "Dataset":
+        """A dataset over ``records`` that keeps this one's totals, schema
+        and :attr:`exchanged` mark (a filter, a select, their
+        materialization)."""
+        ds = Dataset(self.manager, records, self.totals, schema=self.schema)
+        ds.exchanged = self.exchanged
+        return ds
 
     # ------------------------------------------------------------------
     @classmethod
@@ -359,7 +400,10 @@ class Dataset:
         down while the one before decodes. With a bytes-only schema (and
         ``serde_schema_columnar``) the payloads are a lazy
         :class:`~sparkrdma_tpu_torch.api.serde.BytesColumn`, which
-        compares and iterates like a list of bytes."""
+        compares and iterates like a list of bytes. Across processes: this
+        process's partitions' rows, of a dataset loaded from the host."""
+        self._refuse_chained("to_host_payloads",
+                             "sparkrdma_tpu/api/pipeline.py:245")
         if self._pending_filter is not None or \
                 self._pending_select is not None:
             return self._materialize_pending().to_host_payloads(
@@ -378,7 +422,10 @@ class Dataset:
         """Decode through the dataset's schema: ``(keys uint32[N, kw],
         {name: column})``, filler rows dropped; fixed columns are numpy
         views over each partition's fetched window, the bytes column a
-        ``BytesColumn``."""
+        ``BytesColumn``. Across processes: this process's partitions'
+        rows, of a dataset loaded from the host."""
+        self._refuse_chained("to_host_columns",
+                             "sparkrdma_tpu/api/pipeline.py:479")
         if self._pending_filter is not None or \
                 self._pending_select is not None:
             return self._materialize_pending().to_host_columns(
@@ -396,6 +443,7 @@ class Dataset:
         """Valid records only, concatenated in partition order (filler
         rows filtered out); pending :meth:`filter` / :meth:`select` ops
         apply here."""
+        self._refuse("to_host_rows", f"{_REF}:531")
         if self._pending_filter is not None or \
                 self._pending_select is not None:
             return self._materialize_pending().to_host_rows()
@@ -411,10 +459,11 @@ class Dataset:
     @property
     def count(self) -> int:
         """Valid, non-filler record count, reduced on the device."""
+        self._refuse("count", f"{_REF}:575")
         if self._pending_filter is not None:
             return self._materialize_pending().count
         m = self.manager
-        mesh = m.runtime.num_partitions
+        mesh = m.runtime.local_partitions
         kw = m.conf.key_words
         return int(sum(_valid_nonfiller(r, t, kw).sum() for r, t in zip(
             _parts(self.records, mesh), self.totals.tolist())))
@@ -487,12 +536,14 @@ class Dataset:
         capacity shrinks to the fine size class of the largest
         partition's count; the tail carries the RESERVED null key, so
         every later verb can exclude it. Records never leave their
-        partition (moving them is the exchange's job)."""
+        partition (moving them is the exchange's job). Across processes
+        only a loaded dataset gets here, which is dense (every process
+        then writes the same width)."""
         tot = self.totals.tolist()
         if sum(tot) == self.records.shape[1]:
             return self.records
         m = self.manager
-        mesh = m.runtime.num_partitions
+        mesh = m.runtime.local_partitions
         cap = self.records.shape[1] // mesh
         kw = m.conf.key_words
         mode = m._exchange.sort_mode(self.records.shape[0])
@@ -527,8 +578,7 @@ class Dataset:
                 live[list(self.schema.keep_words(
                     sel, self.manager.conf.key_words))] = True
                 recs = torch.where(live, recs, 0)
-            res = Dataset(self.manager, recs, self.totals,
-                          schema=self.schema)
+            res = self._view(recs)
             if sel is not None:
                 res.projected = sel
             self._materialized = res
@@ -558,8 +608,7 @@ class Dataset:
             pred.cache_key = ("and",
                               getattr(old, "cache_key", None) or id(old),
                               getattr(new, "cache_key", None) or id(new))
-        ds = Dataset(self.manager, self.records, self.totals,
-                     schema=self.schema)
+        ds = self._view(self.records)
         ds._pending_filter = pred
         ds._pending_select = self._pending_select
         ds.projected = self.projected
@@ -586,8 +635,7 @@ class Dataset:
                 raise ValueError(
                     f"column(s) {gone} were already projected away by a "
                     f"previous select({list(self._pending_select)})")
-        ds = Dataset(self.manager, self.records, self.totals,
-                     schema=self.schema)
+        ds = self._view(self.records)
         ds._pending_filter = self._pending_filter
         ds._pending_select = names
         ds.projected = self.projected
@@ -595,6 +643,7 @@ class Dataset:
 
     def repartition(self, num_parts: Optional[int] = None) -> "Dataset":
         """Hash-repartition across the partitions (rdd.repartition)."""
+        self._refuse_chained("repartition")
         m = self.manager
         num_parts = num_parts or m.runtime.num_partitions
         part = hash_partitioner(num_parts, m.conf.key_words)
@@ -604,13 +653,17 @@ class Dataset:
         """Globally sort by the key words (rdd.sortByKey): sample ->
         range partition -> exchange -> the fused per-partition sort. A
         pending filter applies first, so the sample sees only survivors
-        (filtered rows become filler, which sorts to the tail)."""
+        (filtered rows become filler, which sorts to the tail). Across
+        processes every process computes the splitters from the
+        all-gathered sample."""
+        self._refuse_chained("sort_by_key")
         m = self.manager
         mesh = m.runtime.num_partitions
         kw = m.conf.key_words
         base = self._materialize_pending()
         records = base._dense_records()
-        samples = make_sampler(mesh, kw, samples_per_device)(records)
+        samples = make_sampler(mesh, kw, samples_per_device,
+                               runtime=m.runtime)(records)
         part = range_partitioner(compute_splitters(samples, mesh), kw)
         return Dataset(m, records, schema=base.schema)._exchange(
             part, mesh, key_ordering=True, op="sort_by_key")
@@ -622,6 +675,7 @@ class Dataset:
         co-partition and the reader's fused aggregator. ``combine_hint``
         is a hoisted combine-gate decision (``ShuffleExchange
         .plan_combine``); None keeps the sampling gate."""
+        self._refuse_chained("reduce_by_key")
         m = self.manager
         num_parts = m.runtime.num_partitions
         part = hash_partitioner(num_parts, m.conf.key_words)
@@ -634,6 +688,7 @@ class Dataset:
         """Unique FULL rows (rdd.distinct): a full-row hash exchange puts
         duplicates together, then each partition deduplicates with the
         combine-by-key machinery keyed on every word."""
+        self._refuse_chained("distinct")
         m = self.manager
         w = m.conf.record_words
         kw = m.conf.key_words
@@ -651,7 +706,8 @@ class Dataset:
         full_row_hash.cache_key = ("fullhash", num_parts, w)
         a = self._exchange(full_row_hash, num_parts, op="distinct")
         outs, totals = [], []
-        for r, t in zip(_parts(a.records, num_parts), a.totals.tolist()):
+        for r, t in zip(_parts(a.records, m.runtime.local_partitions),
+                        a.totals.tolist()):
             out, nuniq = combine_by_key_cols(r, _valid_nonfiller(r, t, kw),
                                              w, pack=pack)
             outs.append(out)
@@ -665,6 +721,7 @@ class Dataset:
         words, count, 0...)``, counts in the first payload word, summed
         across the partitions by the fused aggregator. A pending filter
         applies first (it sees full-width records, which this rewrites)."""
+        self._refuse_chained("count_by_key")
         m = self.manager
         if m.conf.val_words < 1:
             raise ValueError("count_by_key needs at least one payload "
@@ -675,6 +732,7 @@ class Dataset:
         ones[0] = 1
         counted = Dataset(m, torch.cat([base.records[:kw], ones]),
                           base.totals)
+        counted.exchanged = base.exchanged
         return counted.reduce_by_key("sum")
 
     def _grouped(self, a: "Dataset"):
@@ -683,7 +741,7 @@ class Dataset:
         m = self.manager
         kw = m.conf.key_words
         mode = m._exchange.sort_mode(m.conf.record_words)
-        mesh = m.runtime.num_partitions
+        mesh = m.runtime.local_partitions
         vals, grps, ngs, tots = [], [], [], []
         for r, t in zip(_parts(a.records, mesh), a.totals.tolist()):
             values, groups, n_groups, total = group_runs_cols(
@@ -701,6 +759,7 @@ class Dataset:
         """Materialize per-key value lists (rdd.groupByKey): full-key
         hash co-partition, then each partition key-sorts its records and
         emits the CSR ``(groups, values)`` pair."""
+        self._refuse("group_by_key", f"{_REF}:1015")
         m = self.manager
         num_parts = m.runtime.num_partitions
         part = hash_partitioner(num_parts, m.conf.key_words)
@@ -713,6 +772,7 @@ class Dataset:
         the union of keys, per key (A values, B values). Both sides take
         the same full-key hash partitioner, so equal keys meet on one
         partition."""
+        self._refuse("cogroup", f"{_REF}:1064")
         m = self.manager
         if m is not other.manager:
             raise ValueError("cogroup requires Datasets on the same "
@@ -720,13 +780,14 @@ class Dataset:
         kw = m.conf.key_words
         mesh = m.runtime.num_partitions
         part = hash_partitioner(mesh, kw)
+        local = m.runtime.local_partitions
         values_a, groups_a, na, _ = self._grouped(
             self._exchange(part, mesh, op="cogroup"))
         values_b, groups_b, nb, _ = self._grouped(
             other._exchange(part, mesh, op="cogroup"))
         tables, n_union = [], []
-        for ga, a_n, gb, b_n in zip(_parts(groups_a, mesh), na,
-                                    _parts(groups_b, mesh), nb):
+        for ga, a_n, gb, b_n in zip(_parts(groups_a, local), na,
+                                    _parts(groups_b, local), nb):
             table, n_u = cogroup_tables(ga, int(a_n), gb, int(b_n), kw)
             tables.append(table)
             n_union.append(n_u)
@@ -751,6 +812,7 @@ class Dataset:
         """Inner-join cardinality and sum of payload products against
         ``other`` on the LOW key word (the aggregate join of TPC-DS-style
         queries). The reserved null key never matches."""
+        self._refuse("join_count", f"{_REF}:1086")
         a, b, key_ix = self._co_partition(other)
         counts, sums = _join_counts(self.manager, a, b, key_ix)
         return int(counts.sum()), sums
@@ -767,6 +829,7 @@ class Dataset:
         ``out_capacity`` per partition: None runs a counting pass first
         and sizes it to the power-of-two class of the largest count; an
         explicit capacity below a partition's match count raises."""
+        self._refuse("join", f"{_REF}:1122")
         m = self.manager
         a, b, key_ix = self._co_partition(other)
         if out_capacity is None:
@@ -795,7 +858,9 @@ class Dataset:
     @staticmethod
     def collect_rows(cols: torch.Tensor, totals) -> np.ndarray:
         """Valid rows of a padded columnar result (e.g. :meth:`join`'s),
-        concatenated in partition order, as host ``uint32[n, W]``."""
+        concatenated in partition order, as host ``uint32[n, W]``. One
+        process only, as the reference (ROADMAP A.12)."""
+        refuse_across_processes(None, "collect_rows", f"{_REF}:1165")
         return np.ascontiguousarray(records_from_torch(torch.cat(
             _valid_prefixes(cols, np.asarray(totals).tolist()), dim=1)).T)
 

@@ -22,7 +22,10 @@ PLACEMENT: ``MeshRuntime.shard_records`` gives partition ``d`` the rows
 ``d*N/D .. (d+1)*N/D``, so each chunk takes the next slice of *every*
 partition's range, and the chunks are concatenated per partition on the
 device at the end. The result equals the single-shot ``encode ->
-shard_records`` layout bit for bit, with overlap on or off.
+shard_records`` layout bit for bit, with overlap on or off. Across
+processes each process encodes and stages only its own partitions'
+ranges (every process holds the whole host input, as the reference's
+caller does), and the loads always take the chunked path.
 
 :class:`HostPrefetcher` is the query planner's background encode of a
 deferred source (``plan/executor.py``).
@@ -94,8 +97,9 @@ def _chunk_rows(conf, mesh: int, chunk_records: Optional[int]) -> int:
     return max(mesh, (chunk // mesh) * mesh)
 
 
-def _ranges(per: int, lo: int, hi: int, mesh: int):
-    return [(d * per + lo, d * per + hi) for d in range(mesh)]
+def _ranges(per: int, lo: int, hi: int, parts) -> list:
+    """Rows ``lo:hi`` of each of partitions ``parts``' ranges."""
+    return [(d * per + lo, d * per + hi) for d in parts]
 
 
 class _Loader:
@@ -148,8 +152,8 @@ class _Loader:
             self._inflight.pop(0)[0].release()
 
     def finish(self, mesh: int) -> torch.Tensor:
-        """Concatenate every chunk's slice of partition ``d``, for each
-        ``d`` in turn: the single-shot layout."""
+        """Concatenate every chunk's slice of local partition ``d``, for
+        each ``d`` in turn: the single-shot layout."""
         try:
             pieces = []
             for d in range(mesh):
@@ -177,27 +181,29 @@ class _Loader:
 def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
                overlap: bool, encode_into: Callable, single: Callable
                ) -> torch.Tensor:
-    """Shared driver of the two loads. ``encode_into(lo, hi, out)``
-    encodes rows ``lo:hi`` of every partition's range into ``out``;
-    ``single()`` is the single-shot rows."""
+    """The loop both loads share. ``encode_into(lo, hi, parts,
+    out)`` encodes rows ``lo:hi`` of each of partitions ``parts``'
+    ranges into ``out``; ``single()`` is the single-shot rows."""
     rt = manager.runtime
     mesh = rt.num_partitions
     chunk = _chunk_rows(manager.conf, mesh, chunk_records)
-    if chunk == 0 or n <= chunk or n % mesh != 0:
+    if n == 0 or n % mesh != 0 or (rt.process_count == 1
+                                   and (chunk == 0 or n <= chunk)):
         # nothing to overlap (or rows that do not shard evenly, which
         # shard_records refuses as it always has)
         return rt.shard_records(single())
     per = n // mesh
-    cc = chunk // mesh
+    cc = chunk // mesh if 0 < chunk < n else per
     bounds = [(lo, min(per, lo + cc)) for lo in range(0, per, cc)]
+    parts = rt.local_device_indices()
     loader = _Loader(rt, manager.conf.use_native_staging)
 
     def encode_chunk(ci: int, lo: int, hi: int):
-        c = (hi - lo) * mesh
+        c = (hi - lo) * len(parts)
         buf, out = loader.lease(c, w)
         try:
             record_active("serde:encode", ph="B", chunk=ci, rows=c)
-            encode_into(lo, hi, out)
+            encode_into(lo, hi, parts, out)
             record_active("serde:encode", ph="E", chunk=ci)
         except BaseException:
             buf.release()
@@ -208,7 +214,7 @@ def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
         if not overlap:
             for ci, (lo, hi) in enumerate(bounds):
                 loader.put(*encode_chunk(ci, lo, hi), wait=True)
-            return loader.finish(mesh)
+            return loader.finish(len(parts))
         q: Queue = Queue(maxsize=_QUEUE_DEPTH)
         stop = threading.Event()
 
@@ -249,7 +255,7 @@ def _pipelined(manager, n: int, w: int, chunk_records: Optional[int],
                 if isinstance(item, tuple):
                     item[1].release()
             t.join()
-        return loader.finish(mesh)
+        return loader.finish(len(parts))
     finally:
         loader.release_all()
 
@@ -271,13 +277,12 @@ def encode_rows_to_device(manager, keys: np.ndarray, payloads: Sequence,
     n = keys.shape[0]
     if len(payloads) != n:
         raise ValueError(f"{n} keys but {len(payloads)} payloads")
-    mesh = manager.runtime.num_partitions
-    per = n // mesh
+    per = n // manager.runtime.num_partitions
     w = keys.shape[1] + payload_words(max_payload_bytes)
     codec = _codec_args(manager.conf)
 
-    def encode_into(lo, hi, out):
-        ranges = _ranges(per, lo, hi, mesh)
+    def encode_into(lo, hi, parts, out):
+        ranges = _ranges(per, lo, hi, parts)
         ck = np.concatenate([keys[a:b] for a, b in ranges])
         cp: list = []
         for a, b in ranges:
@@ -308,12 +313,11 @@ def encode_cols_to_device(manager, keys: np.ndarray, columns,
     if schema.var_name is not None:
         offsets, heap = _canon_varlen(columns[schema.var_name], n)
         canon[schema.var_name] = BytesColumn(offsets, heap)
-    mesh = manager.runtime.num_partitions
-    per = n // mesh
+    per = n // manager.runtime.num_partitions
     codec = _codec_args(manager.conf)
 
-    def encode_into(lo, hi, out):
-        ranges = _ranges(per, lo, hi, mesh)
+    def encode_into(lo, hi, parts, out):
+        ranges = _ranges(per, lo, hi, parts)
         cols = {fname: np.concatenate([arr[a:b] for a, b in ranges])
                 for fname, arr in fixed}
         if schema.var_name is not None:
@@ -341,7 +345,7 @@ def _unload(manager, records: torch.Tensor, totals, overlap: bool,
     in partition order; window d+1 is copied down on a worker thread
     while window d decodes."""
     kw = manager.conf.key_words
-    mesh = manager.runtime.num_partitions
+    mesh = manager.runtime.local_partitions
     cap = records.shape[1] // mesh
     if cap == 0:
         return []

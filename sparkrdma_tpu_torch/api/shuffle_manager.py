@@ -491,7 +491,8 @@ class ShuffleReader:
         partition ``p``'s records without another exchange; release every
         retained view and the base, and the pages go back to the pool.
         One process only (a partition's window may lie in another)."""
-        refuse_across_processes(self._m.runtime, "read_view")
+        refuse_across_processes(self._m.runtime, "read_view",
+                                "sparkrdma_tpu/api/shuffle_manager.py:582")
         return OutputView(self._m, self._h, *self._raw_read())
 
     def read_partition(self, partition: int) -> np.ndarray:
@@ -503,7 +504,8 @@ class ShuffleReader:
                 f"[{self.start_partition}, {self.end_partition})")
         # the reference's reads the whole output on the host, which no
         # process holds across processes: parity
-        refuse_across_processes(self._m.runtime, "read_partition")
+        refuse_across_processes(self._m.runtime, "read_partition",
+                                "sparkrdma_tpu/api/shuffle_manager.py:552")
         out, _, plan = self._raw_read()
         mesh = self._m.runtime.num_partitions
         cap = plan.out_capacity

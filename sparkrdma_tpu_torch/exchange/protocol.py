@@ -426,17 +426,26 @@ class ShuffleExchange:
         """Duplicate-key ratio estimate (``1 - unique/sample``) from the
         first ``conf.combine_sample_rows`` rows of stacked partition 0 —
         the rows the reference samples from its first addressable shard,
-        so both packages decide alike."""
+        so both packages decide alike. Across processes the estimate is
+        global partition 0's, broadcast from process 0 (CPU tensor,
+        gloo): every process takes the decision one process would."""
         k = self.conf.combine_sample_rows
         if k <= 0:
             return 1.0           # sampling disabled: assume duplicates
-        kw = self.conf.key_words
-        sample = self.runtime.partition(records, 0)[:kw, :k].cpu().numpy()
-        n = sample.shape[1]
-        if n == 0:
-            return 0.0
-        uniq = len({tuple(col) for col in sample.T.tolist()})
-        return 1.0 - uniq / n
+        ratio = 0.0
+        if self.runtime.process_index == 0:
+            kw = self.conf.key_words
+            sample = self.runtime.partition(records, 0)[:kw, :k]
+            sample = sample.cpu().numpy()
+            n = sample.shape[1]
+            if n:
+                uniq = len({tuple(col) for col in sample.T.tolist()})
+                ratio = 1.0 - uniq / n
+        if self.processes > 1:
+            shared = torch.tensor([ratio], dtype=torch.float64)
+            torch.distributed.broadcast(shared, 0)
+            ratio = float(shared[0])
+        return ratio
 
     def plan_combine(self, records: torch.Tensor,
                      aggregator: str) -> Tuple[bool, float]:

@@ -16,6 +16,13 @@ a time:
   runtime's device (the layout of ``MeshRuntime.shard_records``), with
   the copies of the next ``prefetch`` chunks already issued.
 
+Across processes (a runtime spanning a ``torch.distributed`` group) the
+sources stay per process: each process reads the whole chunk, as the
+reference's callers do, and the streamer stages and copies only its own
+partitions' columns, ``p*C/P .. (p+1)*C/P`` of a chunk ``[W, C]`` (the
+reference's ``make_array_from_callback`` places only the shards a
+process addresses), so it yields the local ``int32[W, C/P]``.
+
 On a CUDA runtime a copy from pageable memory would hold the host until
 it finished, so the streamer first copies each chunk into a page-locked
 lease of its own :class:`~sparkrdma_tpu_torch.hbm.host_staging
@@ -36,7 +43,6 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.hbm.host_staging import HostBufferPool, read_array
-from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 
 
 class ArrayChunkSource:
@@ -120,11 +126,12 @@ class InputStreamer:
     """Double-buffered host -> device chunk feed: iterating yields each
     chunk on the device, the copies of the next ``prefetch`` chunks
     already in flight. On a CUDA runtime ``host_pool`` is the page-locked
-    staging pool (None on the CPU), the C pool with ``use_native``."""
+    staging pool (None on the CPU), the C pool with ``use_native``. A
+    chunk whose width does not split evenly over the partitions raises
+    ``ValueError``."""
 
     def __init__(self, runtime, source, prefetch: int = 1,
                  use_native: bool = True):
-        refuse_across_processes(runtime, "InputStreamer")
         self._rt = runtime
         self._src = source
         self._prefetch = max(0, prefetch)
@@ -135,10 +142,23 @@ class InputStreamer:
     def __len__(self) -> int:
         return len(self._src)
 
+    def _local(self, cols: np.ndarray) -> np.ndarray:
+        """This process's columns of a chunk (all of it in one process)."""
+        rt = self._rt
+        c = cols.shape[1]
+        if c % rt.num_partitions:
+            raise ValueError(
+                f"chunk of {c} records does not split evenly over "
+                f"{rt.num_partitions} partitions")
+        if rt.process_count == 1:
+            return cols
+        per = c // rt.process_count
+        return cols[:, rt.process_index * per:(rt.process_index + 1) * per]
+
     def _put(self, cols: np.ndarray):
         """Start one chunk's trip to the device: ``(tensor, lease,
         event)``, the last two None on the CPU."""
-        cols = np.asarray(cols, dtype=np.uint32)
+        cols = self._local(np.asarray(cols, dtype=np.uint32))
         if not self._cuda:
             return torch.from_numpy(
                 np.array(cols, order="C").view(np.int32)), None, None

@@ -103,14 +103,25 @@ def initialize_distributed(
     ) from last_err
 
 
-def refuse_across_processes(runtime, what: str) -> None:
+def refuse_across_processes(runtime, what: str,
+                            reference: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` for an entry point that runs in one
-    process only, when ``runtime`` spans several (ROADMAP A.12)."""
-    if runtime.process_count > 1:
-        raise NotImplementedError(
-            f"{what} runs in one process only; across "
-            f"{runtime.process_count} processes it is not ported yet "
-            "(ROADMAP A.12)")
+    process only, when ``runtime`` spans several (ROADMAP A.12).
+
+    ``reference`` is the ``file:line`` where the JAX package fails on
+    the same call across processes (it reads an array that spans other
+    processes' devices on the host): the limit is the reference's own.
+    None marks an entry point the reference runs there and the port has
+    not ported yet. A ``runtime`` of None stands for the process group
+    (an entry point that is given no runtime)."""
+    procs = runtime.process_count if runtime is not None else group_rank()[1]
+    if procs <= 1:
+        return
+    why = (f"as the reference: `{reference}` reads a global array on "
+           "the host" if reference else "it is not ported yet")
+    raise NotImplementedError(
+        f"{what} runs in one process only; across {procs} processes it "
+        f"is refused, {why} (ROADMAP A.12)")
 
 
 __all__ = ["initialize_distributed", "group_rank", "refuse_across_processes",

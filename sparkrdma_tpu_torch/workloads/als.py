@@ -232,7 +232,8 @@ def run_als(
     ``slot_records`` and ``map_side_combine`` ("on"/"off") override the
     runtime's configuration. The initial item factors are the reference's
     for the same ``seed``."""
-    refuse_across_processes(runtime, "run_als")
+    refuse_across_processes(runtime, "run_als",
+                            "sparkrdma_tpu/workloads/als.py:272")
     mesh = runtime.num_partitions
     k = rank
     ratings = np.asarray(ratings, dtype=np.float64)

@@ -149,7 +149,8 @@ def run_hash_join(
     ``key_offset_b`` shifts B's key range (by ``key_range``: disjoint
     sides, the zero-match path). The reference caches its compiled join
     program per manager; torch compiles nothing, so there is no cache."""
-    refuse_across_processes(manager.runtime, "run_hash_join")
+    refuse_across_processes(manager.runtime, "run_hash_join",
+                            "sparkrdma_tpu/workloads/join.py:254")
     rt = manager.runtime
     mesh = rt.num_partitions
     conf = manager.conf

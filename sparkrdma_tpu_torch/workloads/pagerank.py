@@ -54,7 +54,8 @@ def run_pagerank(runtime: MeshRuntime, edges: np.ndarray, num_vertices: int,
                  map_side_combine: Optional[str] = None) -> PageRankResult:
     """``edges``: int ``[E, 2]`` (src, dst). ``slot_records`` and
     ``map_side_combine`` override the runtime's configuration."""
-    refuse_across_processes(runtime, "run_pagerank")
+    refuse_across_processes(runtime, "run_pagerank",
+                            "sparkrdma_tpu/workloads/pagerank.py:207")
     mesh = runtime.num_partitions
     conf = runtime.conf
     if slot_records is not None:

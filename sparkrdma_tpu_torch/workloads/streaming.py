@@ -18,6 +18,14 @@ is bounded by about one chunk whatever the dataset's size:
 The splitters come from a host sample of chunk 0 drawn with
 ``np.random.default_rng(0)``, as the reference draws it, so both
 packages give every partition the same records.
+
+Across processes the fold mode runs, as in the reference: every process
+holds the whole host chunk (so the same splitters, with no collective),
+streams its own partitions' columns, folds its partitions' reads, and
+all-reduces ``(count, per-word sums)`` on a CPU tensor at the end, so
+``fold_sums`` is the global one on every process. The spill mode and
+:func:`run_tiered_terasort` copy whole outputs to the host and refuse
+there, as the reference fails (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -100,8 +108,12 @@ def run_streaming_terasort(
     chunk's per-partition sorted run to ``run-<chunk>-dev<d>.bin``;
     None folds the conservation sums on the device instead. ``verify``
     (host, test scale) merges the spilled runs per partition and checks
-    that the result is sorted and a permutation of the input."""
-    refuse_across_processes(manager.runtime, "run_streaming_terasort")
+    that the result is sorted and a permutation of the input; without
+    ``spill_dir`` it does nothing, as in the reference."""
+    if spill_dir:
+        refuse_across_processes(manager.runtime,
+                                "run_streaming_terasort with spill_dir",
+                                "sparkrdma_tpu/workloads/streaming.py:139")
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words
@@ -125,7 +137,8 @@ def run_streaming_terasort(
     try:
         for j, chunk in enumerate(streamer):
             w = chunk.shape[0]
-            records += chunk.shape[1]
+            # the global chunk width: each process streams its share
+            records += chunk.shape[1] * rt.process_count
             sid = shuffle_id_base + j
             handle = manager.register_shuffle(sid, mesh, part)
             try:
@@ -155,6 +168,8 @@ def run_streaming_terasort(
             errors = spiller.drain()
             if errors:
                 raise OSError(f"{errors} spill writes failed")
+        elif rt.process_count > 1:
+            acc = _fold_across_processes(acc)
         else:
             barrier(acc)
     finally:
@@ -183,6 +198,15 @@ def _fold(acc: torch.Tensor, out: torch.Tensor,
     total = totals.sum(dtype=torch.int64).reshape(1)
     sums = out.sum(dim=1, dtype=torch.int64)
     return (acc + torch.cat([total, sums])) & _LOW
+
+
+def _fold_across_processes(acc: torch.Tensor) -> torch.Tensor:
+    """The group's sum of every process's fold, mod 2^32, on the CPU: an
+    int64 SUM all-reduce of values below 2^32 (an int32 one would
+    overflow), masked as :func:`_fold` masks."""
+    host = acc.cpu()
+    torch.distributed.all_reduce(host)
+    return host & _LOW
 
 
 @dataclasses.dataclass
@@ -219,12 +243,16 @@ class TieredSortResult:
 
 
 def _canon(rows: np.ndarray) -> np.ndarray:
-    """Full-record lexsort: the total order that makes a sorted output
-    unique, however it was chunked, spilled or fetched."""
+    """Full-record order of host rows ``uint32[n, W]``: the total order
+    that makes a sorted output unique, however it was chunked, spilled
+    or fetched. A row's big-endian bytes compare as its words do, most
+    significant first, so one sort of whole rows (a byte-wise compare)
+    gives the order of a lexsort over every word."""
     if rows.shape[0] == 0:
         return rows
-    return rows[np.lexsort(tuple(rows[:, c]
-                                 for c in range(rows.shape[1] - 1, -1, -1)))]
+    be = np.ascontiguousarray(rows, dtype=">u4")
+    whole = np.sort(be.view(np.dtype((np.void, 4 * be.shape[1]))).ravel())
+    return whole.view(">u4").reshape(rows.shape).astype(np.uint32)
 
 
 def run_tiered_terasort(
@@ -256,7 +284,8 @@ def run_tiered_terasort(
     device that holds it (conservation, order within each partition,
     ascending partition boundaries), at the cost of a few syncs a chunk.
     """
-    refuse_across_processes(manager.runtime, "run_tiered_terasort")
+    refuse_across_processes(manager.runtime, "run_tiered_terasort",
+                            "sparkrdma_tpu/workloads/streaming.py:331")
     rt = manager.runtime
     mesh = rt.num_partitions
     kw = manager.conf.key_words

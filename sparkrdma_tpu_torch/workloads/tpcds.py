@@ -162,7 +162,8 @@ def run_q64_shape(
     sums against numpy. ``shuffle_ids`` is accepted for the reference's
     signature (the planner draws Dataset-layer ids). Pass ``executor``
     to share a :class:`PlanExecutor`'s reuse memo across queries."""
-    refuse_across_processes(manager.runtime, "run_q64_shape")
+    refuse_across_processes(manager.runtime, "run_q64_shape",
+                            "sparkrdma_tpu/api/dataset.py:531")
     del shuffle_ids
     fact, item, store = _q64_tables(
         manager.runtime.num_partitions, fact_rows_per_device, n_items,
@@ -284,7 +285,8 @@ def run_q95_shape(
     are hash-repartitioned by the planner (two exchanges), then
     :func:`_q95_probe` runs on the co-partitioned tables. Checked
     against numpy: the count exactly, the float32 net at rtol 1e-6."""
-    refuse_across_processes(manager.runtime, "run_q95_shape")
+    refuse_across_processes(manager.runtime, "run_q95_shape",
+                            "sparkrdma_tpu/workloads/tpcds.py:312")
     del shuffle_ids
     sales, returns = _q95_tables(
         manager.runtime.num_partitions, sales_rows_per_device,
@@ -458,7 +460,8 @@ def run_star_suite(
       after join 3 (key_from=3, attr_to=1): key=a1,  p=(a2, a3, value, a1)
 
     Both queries are checked against numpy."""
-    refuse_across_processes(manager.runtime, "run_star_suite")
+    refuse_across_processes(manager.runtime, "run_star_suite",
+                            "sparkrdma_tpu/api/dataset.py:531")
     if manager.conf.val_words != 4:
         raise ValueError(
             f"run_star_suite needs val_words=4 (W=6) for the 3-join "
