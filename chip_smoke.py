@@ -97,7 +97,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      K-small  2^20 records through every verb, card against CPU, with
               ``fast_sort`` + ``"pow2"`` and ``ring_fused=False`` variants;
      L        ``run_als``, ``BASELINE.md`` config 4, at MovieLens-20M's
-              dimensions, held against ``_numpy_als``;
+              dimensions, held against ``_numpy_als``, which a child
+              process of the smoke computes from the smoke's start
+              (``--als-reference``), beside the legs before L;
      L-small  both ALS half-steps at 1/16 of that, card against CPU;
 7. the planner's TPC-DS queries and the serde round trip (the
    reference's default slots, ``"fine"`` classes, the ring kernel):
@@ -225,6 +227,24 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
                   ``all_to_all_single``, merge-path launches and peak
                   memory, and each partition's totals and digest equal
                   to the one-process run's;
+     V-plan       the query planner on U's loaded dataset in the same
+                  workers (``LogicalPlan.dataset``): ``filter`` (the low
+                  key word not 7 mod 8) then ``sort_by_key``;
+                  ``reduce_by_key("sum")`` (the combine hoist's decision
+                  equal to one process's); ``select`` of two payload
+                  columns then ``repartition(16)``; each through a fresh
+                  ``PlanExecutor.run``, reported as U's verbs are and
+                  held to the same plans in one process;
+     V-service    in the same workers, before U: a ``ShuffleService``
+                  each, with the live layer on as in leg S, leg S's two
+                  tenants in threads at once, each a TeraSort of
+                  8,388,608 × 100 B (leg B's conf on ``"xla"``) in a
+                  session with its own collective scope, a warm-up and 3
+                  reads; per tenant and read the GB/s of the slower
+                  worker, the aggregate, each tenant's seconds in
+                  ``all_to_all_single``, launches and peak memory; every
+                  partition of every read equal to the tenant's TeraSort
+                  alone in one process;
      distributed  2^20 records: TeraSort outputs bit-exact against one
                   process on ``"xla"`` and ``"hierarchical"`` at H = 1,
                   2 and 4; ``repartition(16)``; a sharded checkpoint
@@ -236,7 +256,12 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
                   and to numpy; the refusals of ``pallas_ring`` (ROADMAP
                   B.1) and of the entry points the reference cannot run
                   across processes either (A.12, each message naming
-                  the reference's line), and of those not ported yet;
+                  the reference's line: the Dataset's, a plan's reuse
+                  hit, sink, broadcast join and ``group_by_key``, a
+                  service with ``admission_slots > 0``); a segment
+                  checkpoint written and adopted by each worker in its
+                  own directory; an RPC client in each worker whose
+                  ``write`` runs and whose ``read`` refuses;
    then the ring kernel at every send shape legs B-S launched it at
    (recorded while each leg ran), each against its plain version and
    timed (cold only where a send/out pair is 1 MiB or more);
@@ -253,6 +278,7 @@ port is not beside it, or if any phase fails.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import itertools
@@ -2476,11 +2502,70 @@ def wire_reduction(ws: dict):
     return ws["combine_in_bytes"] / ws["combine_out_bytes"]
 
 
+#: leg L's check, ``_numpy_als`` (float64 sparse products; ~20 s in
+#: which scipy holds the GIL), runs in a child process of this script that
+#: the full run starts first, so that it overlaps the legs before L:
+#: ``(process, output path, its directory)``
+_ALS_CHILD = []
+
+
+def start_als_reference() -> None:
+    """Start leg L's check in a child process (``--als-reference PATH``)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_als_")
+    path = os.path.join(root, "als_reference.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--als-reference", path],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _ALS_CHILD.append((proc, path, root))
+    atexit.register(stop_als_reference)
+
+
+def stop_als_reference() -> None:
+    """Kill the child if it still runs, and drop its directory."""
+    for proc, _, root in _ALS_CHILD:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def als_reference_child(path: str) -> int:
+    """The child: ``_numpy_als`` on leg L's ratings from the item factors
+    ``run_als`` starts from (``default_rng(0)``), saved to ``path``."""
+    from sparkrdma_tpu_torch.workloads.als import _numpy_als
+
+    ratings = movielens_like(L_USERS, L_ITEMS, L_RATINGS, seed=20)
+    v0 = np.random.default_rng(0).standard_normal(
+        (L_ITEMS, L_RANK), dtype=np.float32) * 0.1
+    u, v = _numpy_als(ratings, L_USERS, L_ITEMS, L_RANK, L_ITERS, 0.1, v0)
+    np.savez(path, u=u, v=v)
+    return 0
+
+
+def als_reference():
+    """The child's ``(U, V)``, waited for (the smoke fails if the child
+    did)."""
+    proc, path, _ = _ALS_CHILD[0]
+    try:
+        out = proc.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        fail("leg L's numpy ALS child ran past 600 s")
+    if proc.returncode:
+        print(out[-4000:], file=sys.stderr)
+        fail(f"leg L's numpy ALS child exited {proc.returncode}")
+    ref = np.load(path)
+    return ref["u"], ref["v"]
+
+
 def leg_l() -> dict:
     """``BASELINE.md`` config 4: ALS at MovieLens-20M's dimensions (138,493
     users, 26,744 items, 20,000,263 ratings; generated, the file is not in
     the repository), rank 8, 5 iterations, checked against ``_numpy_als``
-    at the reference's rtol 2e-3, atol 2e-4."""
+    at the reference's rtol 2e-3, atol 2e-4 (computed by the child process
+    :func:`start_als_reference` started, from the same ratings and initial
+    factors)."""
     from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
     from sparkrdma_tpu_torch.workloads.als import run_als
 
@@ -2493,8 +2578,15 @@ def leg_l() -> dict:
     kernels = zeroed_counters()
     torch.cuda.reset_peak_memory_stats()
     res, wall = timed(lambda: run_als(rt, ratings, L_USERS, L_ITEMS,
-                                      rank=L_RANK, iterations=L_ITERS))
+                                      rank=L_RANK, iterations=L_ITERS,
+                                      verify=False))
     launches = {k: v.launches for k, v in kernels.items()}
+    t0 = time.perf_counter()
+    u_ref, v_ref = als_reference()
+    check_wait_s = time.perf_counter() - t0
+    verified = bool(
+        np.allclose(res.user_factors, u_ref, rtol=2e-3, atol=2e-4)
+        and np.allclose(res.item_factors, v_ref, rtol=2e-3, atol=2e-4))
     line = {"leg": "L", "workload": "run_als (BASELINE.md config 4)",
             "dataset": "MovieLens-20M dimensions, default_rng(20): users "
                        "uniform and sorted, items uniform, half-star "
@@ -2512,11 +2604,13 @@ def leg_l() -> dict:
             "wire_reduction_users": wire_reduction(res.wire["users"]),
             "wire_reduction_items": wire_reduction(res.wire["items"]),
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "verified": res.verified,
-            "check": "_numpy_als, rtol 2e-3 atol 2e-4",
+            "verified": verified,
+            "check": "_numpy_als (a child process since the smoke's "
+                     "start), rtol 2e-3 atol 2e-4",
+            "check_wait_s": check_wait_s,
             "launches": launches}
     report(line)
-    if not res.verified:
+    if not verified:
         fail("leg L: ALS disagrees with _numpy_als")
     rt.stop()
     return line
@@ -4845,8 +4939,18 @@ U_VERBS = ("from_host_rows", "sort_by_key", "reduce_by_key", "distinct",
            "count_by_key", "filter_repartition")
 #: phase: distributed's input feed: 2^22 records in 4 chunks
 DIST_STREAM_RECORDS, DIST_STREAM_CHUNKS = 1 << 22, 4
+#: leg V-service: S's two tenants (name, seed, shuffle id) at once in each
+#: of T's workers, each a warm-up and ``V_READS`` reads of its TeraSort
+V_TENANTS = (("tenant_a", 11, 41), ("tenant_b", 12, 42))
+V_READS = 3
+#: leg V-plan: the planner's plans on leg U's loaded dataset
+V_PLANS = ("filter_sort", "reduce_sum", "select_repartition16")
+#: phase: distributed's segment checkpoint and RPC shuffle ids
+DIST_SEG_SID, DIST_RPC_SID = 98, 99
+#: where the reference's RPC read fails across processes
+RPC_READ_LINE = "sparkrdma_tpu/service/rpc.py:478"
 #: the entry points the reference cannot run across processes either:
-#: the line where it reads a global array on the host
+#: the line where it fails there (most read a global array on the host)
 DIST_REFERENCE_LINES = {
     "count": "sparkrdma_tpu/api/dataset.py:575",
     "to_host_rows": "sparkrdma_tpu/api/dataset.py:531",
@@ -4869,6 +4973,12 @@ DIST_REFERENCE_LINES = {
     "run_star_suite": "sparkrdma_tpu/api/dataset.py:531",
     "read_partition": "sparkrdma_tpu/api/shuffle_manager.py:552",
     "read_view": "sparkrdma_tpu/api/shuffle_manager.py:582",
+    "a plan's reuse hit": "sparkrdma_tpu/plan/executor.py:307",
+    "a plan's sink": "sparkrdma_tpu/api/dataset.py:531",
+    "a plan's broadcast join": "sparkrdma_tpu/api/dataset.py:531",
+    "a plan's group_by_key": "sparkrdma_tpu/api/dataset.py:1015",
+    "ShuffleService with admission_slots > 0":
+        "sparkrdma_tpu/service/admission.py:79",
 }
 
 
@@ -4903,15 +5013,15 @@ def dist_refusals(m) -> dict:
     """The entry points that run in one process only, each driven with a
     runtime across processes: whether each raised as it should. Those
     the reference cannot run there either (``DIST_REFERENCE_LINES``)
-    name ROADMAP A.12 and the reference's line, the rest (not ported
-    yet) A.12; the ring transport names B.1."""
+    name ROADMAP A.12 and the reference's line; the ring transport
+    names B.1."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.dataset import Dataset
     from sparkrdma_tpu_torch.api.serde import payload_words
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
     from sparkrdma_tpu_torch.hbm.input_stream import ArrayChunkSource
-    from sparkrdma_tpu_torch.plan import PlanExecutor
+    from sparkrdma_tpu_torch.plan import LogicalPlan, PlanExecutor
     from sparkrdma_tpu_torch.service.daemon import ShuffleService
     from sparkrdma_tpu_torch.workloads import (als, join, pagerank,
                                                streaming, tpcds)
@@ -4940,6 +5050,15 @@ def dist_refusals(m) -> dict:
         finally:
             mp.stop()
 
+    def memo_hit():
+        ex = PlanExecutor(m)
+        plan = LogicalPlan.dataset(ds()).repartition()
+        ex.run(plan)
+        ex.run(plan)
+
+    def plan_of(build):
+        return lambda: PlanExecutor(m).run(build(LogicalPlan.dataset(ds())))
+
     calls = {
         "pallas_ring": lambda: ShuffleManager(MeshRuntime(
             leg_b_conf(), PARTS, device="cuda")),
@@ -4954,8 +5073,6 @@ def dist_refusals(m) -> dict:
         "sort_by_key of an exchange's output":
             lambda: exchanged(ds()).sort_by_key(),
         "to_host_payloads of an exchange's output": payloads,
-        "PlanExecutor": lambda: PlanExecutor(m),
-        "ShuffleService": lambda: ShuffleService(runtime=rt),
         "run_pagerank": lambda: pagerank.run_pagerank(
             rt, np.zeros((8, 2), np.int64), 8),
         "run_hash_join": lambda: join.run_hash_join(m, 8, 8),
@@ -4968,18 +5085,21 @@ def dist_refusals(m) -> dict:
                 m, ArrayChunkSource(cols, 32), spill_dir=spill),
         "run_tiered_terasort": lambda: streaming.run_tiered_terasort(
             m, cols, 32),
-        "checkpoint_segments": lambda: m.checkpoint_segments(1, [], None, 8),
-        "resume_segments": lambda: m.resume_segments(1),
         "read_partition": lambda: m.get_reader(h).read_partition(0),
         "read_view": lambda: m.get_reader(h).read_view(),
+        "a plan's reuse hit": memo_hit,
+        "a plan's sink": plan_of(lambda p: p.repartition().sink()),
+        "a plan's broadcast join": plan_of(
+            lambda p: p.join(LogicalPlan.dataset(ds()))),
+        "a plan's group_by_key": plan_of(lambda p: p.group_by_key()),
+        "ShuffleService with admission_slots > 0": lambda: ShuffleService(
+            conf=dist_conf("xla", admission_slots=1), device="cuda"),
     }
     said = {}
     for name, call in calls.items():
-        ref = DIST_REFERENCE_LINES.get(name)
         want = (ValueError, ["B.1"]) if name == "pallas_ring" else (
             NotImplementedError,
-            ["A.12", f"as the reference: `{ref}`" if ref
-             else "not ported yet"])
+            ["A.12", f"as the reference: `{DIST_REFERENCE_LINES[name]}`"])
         try:
             call()
         except want[0] as e:
@@ -5025,7 +5145,7 @@ def t_worker(rank: int, backend: str) -> dict:
         for i in range(T_READS + 1):
             kernels = zeroed_counters()
             torch.cuda.reset_peak_memory_stats()
-            a2a_s[0] = 0.0
+            a2a_s.clear()
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5034,7 +5154,7 @@ def t_worker(rank: int, backend: str) -> dict:
             wall = time.perf_counter() - t0
             if i:      # the first read is the warm-up
                 reads.append({
-                    "wall_s": wall, "a2a_s": a2a_s[0],
+                    "wall_s": wall, "a2a_s": a2a_s[None],
                     "merge_stage": kernels["merge_stage"].launches,
                     "merge_splits": kernels["merge_splits"].launches,
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -5056,29 +5176,33 @@ def t_worker(rank: int, backend: str) -> dict:
 _PLAIN_A2A = []
 
 
-def timed_all_to_all(off: bool = False) -> list:
-    """Wrap ``torch.distributed.all_to_all_single`` so that each call's
-    seconds (the card idle before and after) add to the returned
-    one-element list; ``off`` puts the plain one back."""
-    import torch.distributed as dist
+def timed_all_to_all(off: bool = False) -> dict:
+    """Wrap the moves across processes (``Collectives.all_to_all_single``,
+    the default group's and a session's scope's alike) so that each
+    call's seconds (the card idle before and after) add to the returned
+    dict under the scope's name (None: the default group's); ``off`` puts
+    the plain one back."""
+    import collections
+
+    from sparkrdma_tpu_torch.runtime.distributed import Collectives
 
     if not _PLAIN_A2A:
-        _PLAIN_A2A.append(dist.all_to_all_single)
+        _PLAIN_A2A.append(Collectives.all_to_all_single)
     plain = _PLAIN_A2A[0]
     if off:
-        dist.all_to_all_single = plain
-        return []
-    spent = [0.0]
+        Collectives.all_to_all_single = plain
+        return {}
+    spent = collections.defaultdict(float)
 
-    def timed_a2a(*a, **kw):
+    def timed_a2a(self, *a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = plain(*a, **kw)
+        res = plain(self, *a, **kw)
         torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t0
+        spent[self.name] += time.perf_counter() - t0
         return res
 
-    dist.all_to_all_single = timed_a2a
+    Collectives.all_to_all_single = timed_a2a
     return spent
 
 
@@ -5100,7 +5224,8 @@ def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
     ``all_to_all_single`` with ``a2a_s``), its stacked partitions'
     totals and digests; ``sync`` runs before each verb (the processes'
     barrier). With ``warm`` the first verb runs once more first, as the
-    warm-up."""
+    warm-up. Then leg V-plan's plans on the loaded dataset, the same
+    for each (under ``"plans"``)."""
     from sparkrdma_tpu_torch.api.dataset import Dataset
 
     out = {}
@@ -5111,7 +5236,7 @@ def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
         kernels = zeroed_counters()
         torch.cuda.reset_peak_memory_stats()
         if a2a_s is not None:
-            a2a_s[0] = 0.0
+            a2a_s.clear()
         if sync is not None:
             sync()
         torch.cuda.synchronize()
@@ -5127,7 +5252,7 @@ def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
             continue
         cap = res.records.shape[1] // m.runtime.local_partitions
         out[name] = {"wall_s": wall,
-                     "a2a_s": a2a_s[0] if a2a_s is not None else None,
+                     "a2a_s": a2a_s[None] if a2a_s is not None else None,
                      "merge_stage": kernels["merge_stage"].launches,
                      "merge_splits": kernels["merge_splits"].launches,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5135,8 +5260,153 @@ def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
                      "digests": part_digests(res.records, res.totals, cap)}
         if res is not ds:
             del res
+    out["plans"] = v_plan_run(m, ds, sync, a2a_s)
     del ds
     return out
+
+
+def v_plans(m, ds) -> dict:
+    """Leg V-plan's plans over leg U's loaded dataset ``ds`` (nothing is
+    loaded again): ``filter`` (the low key word not 7 mod 8) then
+    ``sort_by_key``; ``reduce_by_key("sum")`` (the combine hoist); and,
+    over the same records under a schema of 23 ``uint32`` payload
+    columns, ``select`` of two then ``repartition(16)``."""
+    from sparkrdma_tpu_torch.api.dataset import Dataset
+    from sparkrdma_tpu_torch.api.serde import RowSchema
+    from sparkrdma_tpu_torch.plan import LogicalPlan
+
+    schema = RowSchema([(f"w{j}", "uint32") for j in range(VAL_WORDS)])
+    cols = Dataset(m, ds.records, schema=schema)
+    src = LogicalPlan.dataset(ds)
+    # the filter's filler rows all sort to the last partition: a filter
+    # that drops few rows keeps that partition, and the padded send of
+    # every pair, near the others' (half the rows, as an even-id filter
+    # drops under these keys, took 37.7 GB a worker on the H100)
+    return {"filter_sort": src.filter(lambda r: (r[1] & 7) != 7,
+                                      cache_key=("w1", "not 7 mod 8"))
+            .sort_by_key(),
+            "reduce_sum": src.reduce_by_key("sum"),
+            "select_repartition16": LogicalPlan.dataset(cols).select(
+                "w0", "w1").repartition(16)}
+
+
+def v_plan_run(m, ds, sync=None, a2a_s=None) -> dict:
+    """Leg V-plan's plans, each through a fresh ``PlanExecutor.run``: as
+    :func:`u_run` keeps each verb, and the combine hoist's plan lines."""
+    from sparkrdma_tpu_torch.plan import PlanExecutor
+
+    lines = []
+    emit = m.journal.emit_raw
+    m.journal.emit_raw = lambda line: (lines.append(line), emit(line))
+    out = {}
+    try:
+        for name, plan in v_plans(m, ds).items():
+            kernels = zeroed_counters()
+            torch.cuda.reset_peak_memory_stats()
+            if a2a_s is not None:
+                a2a_s.clear()
+            if sync is not None:
+                sync()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = PlanExecutor(m).run(plan, job_name=f"v_{name}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cap = res.records.shape[1] // m.runtime.local_partitions
+            out[name] = {
+                "wall_s": wall,
+                "a2a_s": a2a_s[None] if a2a_s is not None else None,
+                "merge_stage": kernels["merge_stage"].launches,
+                "merge_splits": kernels["merge_splits"].launches,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "totals": res.totals.tolist(),
+                "digests": part_digests(res.records, res.totals, cap)}
+            del res
+    finally:
+        m.journal.emit_raw = emit
+    out["hoist"] = [ln["detail"] for ln in lines
+                    if ln.get("rewrite") == "combine_hoist"]
+    return out
+
+
+def v_service_worker(out_dir: str, rank: int) -> dict:
+    """Leg V-service in one worker: one ``ShuffleService`` on the card
+    with the live layer on (leg S's knobs), over leg B's conf on
+    ``"xla"``; S's two tenants in threads at once, each in its session
+    (its own collective scope), each its TeraSort of ``S_RECORDS``
+    (this process's share): the sample, the map stage, a warm-up and
+    ``V_READS`` reads, each read's wall seconds and its partitions'
+    totals and digests; per tenant the seconds in ``all_to_all_single``
+    (the card synced around each call); the worker's merge-path launches
+    and peak memory."""
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
+    from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
+                                                   make_sampler)
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.workloads.terasort import random_records
+
+    sink = os.path.join(out_dir, f"v-service-{rank}.jsonl")
+    conf = dist_conf("xla", metrics_sink=sink, heartbeat_s=1.0,
+                     telemetry_window_s=1.0, alert_eval_s=1.0, probe_port=0)
+    per = S_RECORDS // PARTS
+
+    def tenant(seed, sid):
+        def fn(m):
+            rt = m.runtime
+            first = rt.local_device_indices()[0] * per
+            records = random_records(S_RECORDS, conf.record_words, seed,
+                                     rt.device)[
+                :, first:first + rt.local_partitions * per].clone()
+            spl = compute_splitters(make_sampler(
+                PARTS, KEY_WORDS, 256, seed, runtime=rt,
+                collectives=m.collectives)(records), PARTS)
+            h = m.register_shuffle(sid, PARTS,
+                                   range_partitioner(spl, KEY_WORDS))
+            plan = m.get_writer(h).write(records).stop()
+            del records
+            reader = m.get_reader(h, key_ordering=True)
+            reads = []
+            for i in range(V_READS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, totals = reader.read()
+                torch.cuda.synchronize()
+                reads.append({"wall_s": time.perf_counter() - t0,
+                              "warm_up": i == 0,
+                              "totals": totals.tolist(),
+                              "digests": part_digests(out, totals,
+                                                      plan.out_capacity)})
+                del out, totals
+            m.unregister_shuffle(sid)
+            return {"reads": reads, "scope": m.collectives.name}
+        return fn
+
+    a2a_s = timed_all_to_all()
+    kernels = zeroed_counters()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    svc = ShuffleService(conf=conf, device="cuda")
+    try:
+        runs = tenant_threads(svc, {name: tenant(seed, sid)
+                                    for name, seed, sid in V_TENANTS})
+    finally:
+        svc.stop()
+        timed_all_to_all(off=True)
+    e2e = time.perf_counter() - t0
+    for name, run in runs.items():
+        run["a2a_s"] = a2a_s[run["scope"]]
+    kinds = journal_kinds(sink)
+    res = {"tenants": runs, "e2e_s": e2e,
+           "merge_stage": kernels["merge_stage"].launches,
+           "merge_splits": kernels["merge_splits"].launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "journal_lines": {k: len(v) for k, v in sorted(kinds.items())}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def u_worker() -> dict:
@@ -5167,7 +5437,8 @@ def dist_phase_worker(rank: int, out_dir: str) -> dict:
     """``phase: distributed`` in one worker, at ``DIST_RECORDS``: TeraSort
     on each transport of :func:`dist_transports` (outputs saved whole),
     ``repartition(16)``, a sharded checkpoint resumed by a fresh
-    manager, and the refusals."""
+    manager, a segment checkpoint in the worker's own directory, an RPC
+    client's write and read, and the refusals."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.workloads.terasort import run_terasort
@@ -5188,6 +5459,8 @@ def dist_phase_worker(rank: int, out_dir: str) -> dict:
     np.save(os.path.join(out_dir, f"repart-{rank}.npy"), out)
     res["repartition"] = totals
     res["ckpt"] = dist_checkpoint(os.path.join(out_dir, "ckpt"), rank)
+    res["segments"] = dist_segments(out_dir, rank)
+    res["rpc"] = dist_rpc(rank)
     m = ShuffleManager(MeshRuntime(dist_conf("xla"), PARTS, device="cuda"))
     res["stream"] = dist_stream(m)
     res["refused"] = dist_refusals(m)
@@ -5291,6 +5564,56 @@ def dist_checkpoint(root: str, rank: int) -> dict:
                                     // len(local))}
 
 
+def dist_segments(out_dir: str, rank: int) -> dict:
+    """A segment checkpoint written into this worker's own ``spill_dir``
+    and adopted by a fresh manager: the adopted keys, whether the array
+    came back, and the directory's entries."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
+
+    conf = dist_conf("xla", spill_dir=os.path.join(out_dir, f"seg{rank}"))
+    mine = np.random.default_rng(DIST_SEED + 10 + rank).integers(
+        0, 2**32, size=(KEY_WORDS + VAL_WORDS, 1 << 16), dtype=np.uint32)
+    m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    m.checkpoint_segments(DIST_SEG_SID, [(f"seg{rank}", mine)], None, PARTS)
+    m.stop()
+    m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
+    adopted = m.resume_segments(DIST_SEG_SID)
+    back = np.array_equal(np.asarray(m.tiered.get(f"seg{rank}")), mine)
+    m.stop()
+    return {"adopted": adopted, "equal": bool(back),
+            "entries": sorted(os.listdir(conf.spill_dir))}
+
+
+def dist_rpc(rank: int) -> dict:
+    """A client of this worker's daemon (``rpc_port=0``): ``write`` of
+    ``SVC_RPC_PER_PART`` 100-byte rows a partition (the exchange runs
+    in the session's scope), then ``read``, which must refuse."""
+    from sparkrdma_tpu_torch.service import ShuffleService
+    from sparkrdma_tpu_torch.service.client import RpcCallError, RpcClient
+
+    rows = np.random.default_rng(DIST_SEED + 20).integers(
+        0, 2**32, size=(SVC_RPC_PER_PART * PARTS, KEY_WORDS + VAL_WORDS),
+        dtype=np.uint32)
+    svc = ShuffleService(conf=dist_conf("xla", rpc_port=0), device="cuda")
+    said = ""
+    try:
+        with RpcClient(port=svc.rpc.port, client_id=f"worker{rank}") as c:
+            c.hello()
+            sess = c.open_session("rpc")
+            c.register_shuffle(sess, DIST_RPC_SID, 0)
+            written = c.write(sess, DIST_RPC_SID, rows.tolist())
+            try:
+                c.read(sess, DIST_RPC_SID)
+            except RpcCallError as e:
+                said = str(e)
+    finally:
+        svc.stop()
+    return {"written": written,
+            "read_refused": "NotImplementedError" in said and "A.12" in said
+            and f"`{RPC_READ_LINE}`" in said}
+
+
 def dist_ckpt_single() -> dict:
     """The checkpoint scenario's read in this (one) process."""
     from sparkrdma_tpu_torch import MeshRuntime
@@ -5331,6 +5654,9 @@ def distributed_worker(args) -> int:
     t0 = time.perf_counter()
     res = {"T": t_worker(rank, backend), "T_s": time.perf_counter() - t0}
     if phase:
+        t0 = time.perf_counter()
+        res["V"] = v_service_worker(out_dir, rank)
+        res["V_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         res["U"] = u_worker()
         res["U_s"] = time.perf_counter() - t0
@@ -5411,6 +5737,130 @@ def u_reference() -> dict:
     verbs = u_run(m, rows, warm=False)
     m.stop()
     return verbs
+
+
+def v_service_reference() -> dict:
+    """Leg V-service's reference: each tenant's TeraSort alone in one
+    process (leg B's conf on ``"xla"``): its partitions' totals and
+    digests, and the read's seconds."""
+    ref = {}
+    for name, seed, sid in V_TENANTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, totals = solo_terasort(dist_conf("xla"), seed, sid,
+                                    S_RECORDS // PARTS)
+        torch.cuda.synchronize()
+        ref[name] = {"totals": totals.tolist(),
+                     "digests": part_digests(out, totals,
+                                             out.shape[1] // PARTS),
+                     "run_wall_s": time.perf_counter() - t0}
+        del out, totals
+        torch.cuda.empty_cache()
+    return ref
+
+
+def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
+    """Leg V's lines: ``V-plan`` (per plan the slower worker's seconds
+    beside one process's, each worker's seconds in
+    ``all_to_all_single``, launches and peak memory; the hoist's
+    decision) and ``V-service`` (per tenant and read the GB/s of the
+    slower worker, the aggregate, ``a2a_s``, launches, peak memory).
+    Fails unless every partition of every plan and every read equals
+    the one-process run's, and the merge path ran in every worker."""
+    checks, plans = {}, {}
+    for name in V_PLANS:
+        per = [w["U"]["verbs"]["plans"][name] for w in workers]
+        plans[name] = {
+            "wall_s": max(p["wall_s"] for p in per),
+            "worker_s": [p["wall_s"] for p in per],
+            "one_process_s": plan_ref[name]["wall_s"],
+            "a2a_s": [p["a2a_s"] for p in per],
+            "merge_stage": [p["merge_stage"] for p in per],
+            "one_process_merge_stage": plan_ref[name]["merge_stage"],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "one_process_peak_gb": plan_ref[name]["peak_gb"],
+            "partition_totals": sum((p["totals"] for p in per), []),
+            "partition_digests": sum((p["digests"] for p in per), [])}
+        for w, p in zip(workers, per):
+            lo, hi = w["U"]["local"][0], w["U"]["local"][-1] + 1
+            checks[f"plan {name} partitions {lo}-{hi - 1} equal"] = (
+                p["totals"] == plan_ref[name]["totals"][lo:hi]
+                and p["digests"] == plan_ref[name]["digests"][lo:hi])
+    hoists = [w["U"]["verbs"]["plans"]["hoist"] for w in workers]
+    checks["combine_hoist decided as in one process"] = all(
+        h == plan_ref["hoist"] and len(h) == 1 for h in hoists)
+    checks["plan filter_sort merge_stage launched in every worker"] = all(
+        n > 0 for n in plans["filter_sort"]["merge_stage"])
+    plan_line = {"leg": "V-plan", "workload": "PlanExecutor across "
+                 "processes on leg U's loaded dataset",
+                 "records": K_RECORDS,
+                 "record_bytes": 4 * (KEY_WORDS + VAL_WORDS),
+                 "partitions": PARTS, "processes": T_WORKERS,
+                 "transport": "xla", "backend": "gloo",
+                 "plans": plans, "combine_hoist": hoists[0],
+                 "checks": checks}
+    report(plan_line)
+    checks_s, tenants = {}, {}
+    nbytes = S_RECORDS * (KEY_WORDS + VAL_WORDS) * 4
+    for name, _, _ in V_TENANTS:
+        runs = [w["V"]["tenants"][name] for w in workers]
+        ref = service_ref[name]
+        timed_reads = []
+        for i in range(V_READS + 1):
+            walls = [r["reads"][i]["wall_s"] for r in runs]
+            if i:
+                timed_reads.append({"gbps": nbytes / max(walls) / 1e9,
+                                    "wall_s": walls})
+            for w, r in zip(workers, runs):
+                lo, hi = w["U"]["local"][0], w["U"]["local"][-1] + 1
+                checks_s[f"{name} read {i} partitions {lo}-{hi - 1} "
+                         "equal"] = (
+                    r["reads"][i]["totals"] == ref["totals"][lo:hi]
+                    and r["reads"][i]["digests"] == ref["digests"][lo:hi])
+        tenants[name] = {
+            "gbps": statistics.median(r["gbps"] for r in timed_reads),
+            "reads": timed_reads, "a2a_s": [r["a2a_s"] for r in runs],
+            "scope": runs[0]["scope"],
+            "one_process_run_wall_s": ref["run_wall_s"]}
+    checks_s["each tenant's own collective scope"] = all(
+        len({w["V"]["tenants"][n]["scope"] for w in workers}) == 1
+        for n, _, _ in V_TENANTS) and len(
+            {workers[0]["V"]["tenants"][n]["scope"]
+             for n, _, _ in V_TENANTS}) == len(V_TENANTS)
+    checks_s["merge_stage launched in every worker"] = all(
+        w["V"]["merge_stage"] > 0 for w in workers)
+    checks_s["spans journaled"] = all(
+        w["V"]["journal_lines"].get("span", 0) >= len(V_TENANTS) * V_READS
+        for w in workers)
+    service_line = {
+        "leg": "V-service", "tenants": len(V_TENANTS),
+        "records_per_tenant": S_RECORDS, "record_bytes": 100,
+        "partitions": PARTS, "processes": T_WORKERS, "transport": "xla",
+        "backend": "gloo",
+        "conf": "leg B's (fast_sort, pow2, pack/wide off) on xla; the "
+                "live layer on as leg S",
+        "per_tenant_gbps": {n: t["gbps"] for n, t in tenants.items()},
+        "aggregate_gbps": sum(t["gbps"] for t in tenants.values()),
+        "tenants_detail": tenants,
+        "e2e_s": [w["V"]["e2e_s"] for w in workers],
+        "worker_s": [w["V_s"] for w in workers],
+        "merge_stage": [w["V"]["merge_stage"] for w in workers],
+        "peak_gb": [w["V"]["peak_gb"] for w in workers],
+        "journal_lines": [w["V"]["journal_lines"] for w in workers],
+        "checks": checks_s}
+    report(service_line)
+    bad = [k for k, v in {**checks, **checks_s}.items() if not v]
+    if bad:
+        fail("leg V: " + ", ".join(bad))
+    launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
+                "ring_all_to_all": 0}
+    for w in workers:
+        for k in ("merge_stage", "merge_splits"):
+            launches[k] += w["V"][k] + sum(
+                w["U"]["verbs"]["plans"][n][k] for n in V_PLANS)
+    return {"leg": "V", "launches": launches,
+            "plan_s": {n: p["wall_s"] for n, p in plans.items()},
+            "per_tenant_gbps": service_line["per_tenant_gbps"]}
 
 
 def u_line(ref: dict, workers: list) -> dict:
@@ -5510,6 +5960,7 @@ def leg_t() -> dict:
 
     ref = t_reference()
     u_ref = u_reference()
+    v_ref = v_service_reference()
     ts_ref, rep_ref, stream_ref = dist_single_refs()
     ck_ref = dist_ckpt_single()
     gc.collect()
@@ -5524,6 +5975,7 @@ def leg_t() -> dict:
         nccl = "needs 2 cards"
     line = t_line("T", ref, workers, seconds, nccl=nccl)
     u = u_line(u_ref, workers)
+    v = v_lines(v_ref, u_ref["plans"], workers)
     dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref, stream_ref)
     launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
                 "ring_all_to_all": 0}
@@ -5533,14 +5985,16 @@ def leg_t() -> dict:
             for r in w["T"][transport]["reads"]:
                 launches["merge_stage"] += r["merge_stage"]
                 launches["merge_splits"] += r["merge_splits"]
-        for v in w["U"]["verbs"].values():
-            u_launches["merge_stage"] += v["merge_stage"]
-            u_launches["merge_splits"] += v["merge_splits"]
+        for name in U_VERBS:
+            u_launches["merge_stage"] += w["U"]["verbs"][name]["merge_stage"]
+            u_launches["merge_splits"] += w["U"]["verbs"][name][
+                "merge_splits"]
     return {"leg": "T", "launches": launches, "gbps": {
         t: [r["gbps"] for r in line[t]["reads"]]
         for t in ("xla", "hierarchical")},
         "U": {"leg": "U", "launches": u_launches,
-              "verb_s": {k: v["wall_s"] for k, v in u["verbs"].items()}}}
+              "verb_s": {k: v["wall_s"] for k, v in u["verbs"].items()}},
+        "V": v}
 
 
 def dist_single_refs():
@@ -5605,6 +6059,14 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
                                             DIST_STREAM_CHUNKS) for s in st)
     checks["fold sums equal to numpy"] = (stream_ref["fold_sums"]
                                           == stream_ref["numpy_sums"])
+    checks["segment checkpoint: each worker adopted its own"] = all(
+        h["segments"]["adopted"] == [f"seg{r}"] and h["segments"]["equal"]
+        and h["segments"]["entries"] == [f"shuffle_{DIST_SEG_SID}"]
+        for r, h in enumerate(halves))
+    checks["rpc write"] = all(h["rpc"]["written"] == SVC_RPC_PER_PART * PARTS
+                              for h in halves)
+    checks["refuses the rpc read"] = all(h["rpc"]["read_refused"]
+                                         for h in halves)
     for h in halves:
         for name, ok in h["refused"].items():
             checks[f"refuses {name}"] = checks.get(
@@ -5638,7 +6100,8 @@ def main(argv=None) -> int:
     for those phases; T brings ``phase: distributed``) and prints the ring
     shapes they launched, without the kernel phases or the table check:
     a quick run while a leg is brought up. ``--launch-failure-child`` is
-    leg Q-small's child process, ``--distributed-worker`` leg T's."""
+    leg Q-small's child process, ``--distributed-worker`` leg T's,
+    ``--als-reference`` leg L's check."""
     args = sys.argv[1:] if argv is None else argv
     only = args[1].split(",") if args[:1] == ["--legs"] else None
     t_smoke = time.perf_counter()
@@ -5653,6 +6116,8 @@ def main(argv=None) -> int:
         fail("no CUDA device (torch.cuda.is_available() is false)")
     if args[:1] == ["--distributed-worker"]:
         return distributed_worker(args[1:])
+    if args[:1] == ["--als-reference"]:
+        return als_reference_child(args[1])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5695,12 +6160,14 @@ def main(argv=None) -> int:
         if "T" in only:
             run_leg(legs, shapes, "T", leg_t)
             legs["U"] = legs["T"].pop("U")
+            legs["V"] = legs["T"].pop("V")
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
             for leg_name, counts in shapes.items()
             for (shape, a2a), n in counts.items())})
         return 0
+    start_als_reference()
     merge = merge_phase()
     ring_host_phase()
     ring = ring_phase()
@@ -5731,6 +6198,7 @@ def main(argv=None) -> int:
         run_leg(legs, shapes, name, fn)
     run_leg(legs, shapes, "T", leg_t)
     legs["U"] = legs["T"].pop("U")
+    legs["V"] = legs["T"].pop("V")
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -5744,7 +6212,7 @@ def main(argv=None) -> int:
             fail(f"the ring kernel was not launched on leg {name}")
     if legs["P"]["launches"]["merge_stage"] <= 0:
         fail("merge_stage was not launched on leg P")
-    for name in ("T", "U"):
+    for name in ("T", "U", "V"):
         if legs[name]["launches"]["merge_stage"] <= 0:
             fail(f"merge_stage was not launched in leg {name}'s workers")
     for k, name in (("ring_exchange", "Q"), ("merge_stage", "Q"),

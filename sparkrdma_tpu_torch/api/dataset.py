@@ -663,7 +663,8 @@ class Dataset:
         base = self._materialize_pending()
         records = base._dense_records()
         samples = make_sampler(mesh, kw, samples_per_device,
-                               runtime=m.runtime)(records)
+                               runtime=m.runtime,
+                               collectives=m.collectives)(records)
         part = range_partitioner(compute_splitters(samples, mesh), kw)
         return Dataset(m, records, schema=base.schema)._exchange(
             part, mesh, key_ordering=True, op="sort_by_key")

@@ -90,6 +90,11 @@ process-wide, so one tenant's fault schedule cannot fire inside another
 tenant's read. Its pooled buffers and store segments are charged to the
 tenant's account, each read waits for the admission controller at a
 cost of its plan's rounds, and ``stop`` drops only its tenant's segments.
+Across processes a session also has its own collective scope
+(``collectives``, :func:`~sparkrdma_tpu_torch.runtime.distributed
+.collective_scope`): its plan counts, samples, combine-gate broadcast,
+moves and folds never meet another session's in one collective. A
+manager given none uses the default group's.
 """
 
 from __future__ import annotations
@@ -132,7 +137,8 @@ from sparkrdma_tpu_torch.obs.timeline import (EventTimeline, scoped_active,
 from sparkrdma_tpu_torch.obs.tsdb import NULL_TELEMETRY, TelemetryStore
 from sparkrdma_tpu_torch.obs.watchdog import (StallWatchdog,
                                               install_state_dump)
-from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
+from sparkrdma_tpu_torch.runtime.distributed import (WORLD, Collectives,
+                                                      refuse_across_processes)
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.utils.profiling import annotate, annotate_span
 from sparkrdma_tpu_torch.utils.stats import (ExchangeRecord,
@@ -568,10 +574,14 @@ class ShuffleManager:
                  num_partitions: int = 8, device="cuda", tenant: str = "",
                  tiered: Optional[TieredStore] = None,
                  journal: Optional[ExchangeJournal] = None,
-                 admission=None, account=None, telemetry=None):
+                 admission=None, account=None, telemetry=None,
+                 collectives: Optional[Collectives] = None):
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
         self.conf = conf or self.runtime.conf
+        #: the scope of this manager's collectives across processes (a
+        #: service session's own, else the default group's)
+        self.collectives = collectives if collectives is not None else WORLD
         # service mode (module docstring): the daemon's tiered store,
         # journal and telemetry; per-tenant plane and timeline per call
         self.tenant = tenant
@@ -719,7 +729,8 @@ class ShuffleManager:
             journal=self.journal, rollup=self.rollup,
             identity=(self.runtime.process_index,
                       self.runtime.process_count),
-            tenant=self.tenant, account=self.account)
+            tenant=self.tenant, account=self.account,
+            collectives=self.collectives)
         ids = tuple(self.runtime.manager_id(i)
                     for i in range(self.runtime.num_partitions))
         self._registry = MapOutputRegistry(ids, metrics=self.metrics)
@@ -898,8 +909,8 @@ class ShuffleManager:
         """Persist chunked map output (``[(key, array), ...]``) as
         independent CRC-framed segment files and a manifest
         (:meth:`MapOutputStore.save_segments`), for
-        :meth:`resume_segments`. One process only."""
-        refuse_across_processes(self.runtime, "checkpoint_segments")
+        :meth:`resume_segments`. Host only: across processes each
+        process writes what it is given under its own ``spill_dir``."""
         self._require_store().save_segments(shuffle_id, segments, plan,
                                             num_parts, extra_meta=extra_meta)
 
@@ -907,8 +918,8 @@ class ShuffleManager:
         """Adopt a segment checkpoint into the tiered store, only the
         segments missing from it, and without reading them (the
         prefetcher brings them in as they are consumed). Returns the
-        adopted keys. One process only."""
-        refuse_across_processes(self.runtime, "resume_segments")
+        adopted keys. Host only: across processes each process adopts
+        what its own ``spill_dir`` holds."""
         meta = self._require_store().load_segment_meta(shuffle_id)
         adopted = []
         for key, entry in meta["segments"].items():
@@ -1025,6 +1036,8 @@ class ShuffleManager:
             self.rollup.flush()
         self._exchange.release_all()
         self._writers.clear()
+        if self.collectives is not WORLD:
+            self.collectives.close()
         if self._service_mode:
             self.tiered.delete_tenant(self.tenant)
             return

@@ -49,9 +49,9 @@ from typing import Callable
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+from sparkrdma_tpu_torch.runtime.distributed import WORLD
 
 
 def hierarchy_for(runtime, hosts: int = 0) -> int:
@@ -98,7 +98,10 @@ class _Route:
             # everything stays here: one gather straight from the send
             self.local_idx = self.send_idx[self.place]
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, coll=WORLD) -> torch.Tensor:
+        """Route ``x``; a move across processes goes through the
+        :class:`~sparkrdma_tpu_torch.runtime.distributed.Collectives`
+        scope ``coll``."""
         shape = x.shape
         flat = x.reshape((shape[0] * shape[1],) + tuple(shape[2:]))
         dev = x.device
@@ -107,7 +110,7 @@ class _Route:
                 shape)
         send = flat.index_select(0, self.send_idx.to(dev))
         recv = send.new_empty((sum(self.recv_splits),) + send.shape[1:])
-        dist.all_to_all_single(recv, send, self.recv_splits,
+        coll.all_to_all_single(recv, send, self.recv_splits,
                                self.send_splits)
         return recv.index_select(0, self.place.to(dev)).reshape(shape)
 
@@ -127,18 +130,21 @@ def _route(size: int, procs: int, me: int, hosts: int, stage: int) -> _Route:
     return _Route(size, procs, me, dest)
 
 
-def make_flat_all_to_all(runtime) -> Callable:
+def make_flat_all_to_all(runtime, coll=WORLD) -> Callable:
     """The flat move ``[L_src, D_dst, ...] -> [L_dst, D_src, ...]``
-    across the group's processes: one ``all_to_all_single``."""
-    return _route(runtime.num_partitions, runtime.process_count,
-                  runtime.process_index, 1, 0)
+    across the group's processes: one ``all_to_all_single`` in the
+    collective scope ``coll``."""
+    route = _route(runtime.num_partitions, runtime.process_count,
+                   runtime.process_index, 1, 0)
+    return lambda send: route(send, coll)
 
 
 def make_hierarchical_all_to_all(runtime, hosts: int = 0,
-                                 metrics=None) -> Callable:
+                                 metrics=None, coll=WORLD) -> Callable:
     """The two-stage move with the flat transport's contract: this
     process's dest-major ``[L, D, ...]`` in, source-major ``[L, D, ...]``
-    out. Counts ``transport.hier.staged_exchanges`` per call, or
+    out, its moves across processes in the collective scope ``coll``.
+    Counts ``transport.hier.staged_exchanges`` per call, or
     ``transport.hier.flat_fallbacks`` where the hierarchy is degenerate
     (one host, or one partition a host), which runs the flat move."""
     if metrics is None:
@@ -148,7 +154,7 @@ def make_hierarchical_all_to_all(runtime, hosts: int = 0,
     procs, me = runtime.process_count, runtime.process_index
     if h == 1 or size // h == 1:
         # degenerate hierarchy: the flat exchange IS the algorithm
-        flat = (make_flat_all_to_all(runtime) if procs > 1
+        flat = (make_flat_all_to_all(runtime, coll) if procs > 1
                 else lambda send: send.transpose(0, 1).contiguous())
 
         def flat_a2a(send: torch.Tensor) -> torch.Tensor:
@@ -160,7 +166,7 @@ def make_hierarchical_all_to_all(runtime, hosts: int = 0,
 
     def a2a(send: torch.Tensor) -> torch.Tensor:
         metrics.counter("transport.hier.staged_exchanges").inc()
-        return stage2(stage1(send))
+        return stage2(stage1(send, coll), coll)
     return a2a
 
 

@@ -129,6 +129,7 @@ from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.obs.stats import ExchangeRecord, ShuffleReadStats
 from sparkrdma_tpu_torch.obs.timeline import NULL_TIMELINE, EventTimeline
 from sparkrdma_tpu_torch.obs.watchdog import StallWatchdog
+from sparkrdma_tpu_torch.runtime.distributed import WORLD
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 
 
@@ -184,8 +185,11 @@ class ShuffleExchange:
                  timeline: Optional[EventTimeline] = None,
                  watchdog: Optional[StallWatchdog] = None, journal=None,
                  identity: Tuple[int, int] = (0, 1), rollup=None,
-                 tenant: str = "", account=None):
+                 tenant: str = "", account=None, collectives=None):
         self.runtime = runtime
+        #: the scope of this exchange's collectives across processes: a
+        #: service session's own, else the default group's
+        self.collectives = collectives if collectives is not None else WORLD
         #: the service tenant this exchange runs for ("" standalone): its
         #: spans carry it, and ``account`` meters its pooled buffers
         self.tenant = tenant
@@ -343,7 +347,7 @@ class ShuffleExchange:
                 counts = counts.to(torch.int64)
                 rows = [torch.empty_like(counts)
                         for _ in range(self.processes)]
-                torch.distributed.all_gather(rows, counts)
+                self.collectives.all_gather(rows, counts)
                 counts = torch.cat(rows)
             counts = counts.numpy().astype(np.int64)
             if int(counts.sum()) != n_global:
@@ -394,9 +398,10 @@ class ShuffleExchange:
             return make_ring_all_to_all(self.mesh_size, self.metrics)
         if self.transport() == "hierarchical":
             return make_hierarchical_all_to_all(
-                self.runtime, self.conf.hierarchy_hosts, self.metrics)
+                self.runtime, self.conf.hierarchy_hosts, self.metrics,
+                self.collectives)
         if self.processes > 1:
-            return make_flat_all_to_all(self.runtime)
+            return make_flat_all_to_all(self.runtime, self.collectives)
         return lambda send: send.transpose(0, 1).contiguous()
 
     def _uses_fast_sort(self, out_capacity: int, sort_key_words: int,
@@ -443,7 +448,7 @@ class ShuffleExchange:
                 ratio = 1.0 - uniq / n
         if self.processes > 1:
             shared = torch.tensor([ratio], dtype=torch.float64)
-            torch.distributed.broadcast(shared, 0)
+            self.collectives.broadcast(shared, 0)
             ratio = float(shared[0])
         return ratio
 

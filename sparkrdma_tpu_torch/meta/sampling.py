@@ -9,8 +9,9 @@ to the reference's on the same samples.
 Across processes (a ``runtime`` spanning a ``torch.distributed`` group)
 each process samples its own partitions, each with the generator the
 one-process sampler gives that partition, and the samples are
-all-gathered on CPU tensors, so every process computes the same
-splitters (the reference's ``all_gather`` of its samples).
+all-gathered on CPU tensors (in the caller's collective scope), so every
+process computes the same splitters (the reference's ``all_gather`` of
+its samples).
 """
 
 from __future__ import annotations
@@ -21,15 +22,17 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.kernels.sort import lexsort_records
+from sparkrdma_tpu_torch.runtime.distributed import WORLD
 
 
 def make_sampler(num_partitions: int, key_words: int,
                  samples_per_device: int, seed: int = 0,
-                 runtime=None) -> Callable:
+                 runtime=None, collectives=WORLD) -> Callable:
     """``records [W, D*n] -> uint32[D * samples_per_device, key_words]``
     (host array, partition-major). With a ``runtime`` that spans
     processes, ``records`` is the local batch ``[W, L*n]`` and the
-    result is still every partition's sample."""
+    result is still every partition's sample, gathered in the
+    ``collectives`` scope (a manager's ``collectives``)."""
     local = range(num_partitions)
     procs = 1
     if runtime is not None:
@@ -50,7 +53,7 @@ def make_sampler(num_partitions: int, key_words: int,
         rows = torch.cat(parts).cpu().contiguous()
         if procs > 1:
             gathered = [torch.empty_like(rows) for _ in range(procs)]
-            torch.distributed.all_gather(gathered, rows)
+            collectives.all_gather(gathered, rows)
             rows = torch.cat(gathered)
         return rows.numpy().view(np.uint32)
 

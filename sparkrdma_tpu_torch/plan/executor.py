@@ -37,6 +37,21 @@ Per rewrite gate:
 The lookup join of each partition is ``torch.sort(stable=True)`` of the
 dim's keys and ``torch.searchsorted`` into them. Every rewrite is
 bit-identical on and off at the ``to_host_rows`` level.
+
+Across processes (a runtime that spans a ``torch.distributed`` group)
+the executor runs what the reference runs there: plans whose exchanges
+read nothing on the host — sources, ``filter`` and ``select``, then one
+``repartition``, ``sort_by_key`` or ``reduce_by_key`` (the combine
+hoist included), or a shuffle join of two such sides — with or without
+pushdown, through ``run`` and ``run_inline``; a resume hit adopts this
+process's partitions of the checkpoint. What the reference fails on
+refuses with ``NotImplementedError`` naming its line (ROADMAP A.12),
+at the node's entry, before any background encode starts: a memo hit
+(``sparkrdma_tpu/plan/executor.py:307``), ``sink`` and the broadcast
+join (``sparkrdma_tpu/api/dataset.py:531``), a join over an exchange's
+output (``:660``) and ``group_by_key`` (``:1015``). ``_persist`` writes
+nothing there and logs the reference's warning (its
+``sparkrdma_tpu/plan/executor.py:343`` fails and is caught).
 """
 
 from __future__ import annotations
@@ -56,8 +71,8 @@ from sparkrdma_tpu_torch.interop import records_from_torch
 from sparkrdma_tpu_torch.kernels.sort import as_unsigned
 from sparkrdma_tpu_torch.obs import trace as _trace
 from sparkrdma_tpu_torch.obs.journal import SCHEMA_VERSION
-from sparkrdma_tpu_torch.plan.nodes import (LogicalPlan, PlanNode,
-                                            fingerprint_hex)
+from sparkrdma_tpu_torch.plan.nodes import (EXCHANGE_OPS, LogicalPlan,
+                                            PlanNode, fingerprint_hex)
 from sparkrdma_tpu_torch.plan.optimizer import Decision, optimize
 from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 
@@ -71,6 +86,10 @@ _REUSE_ID_BASE = 1 << 24
 _REUSE_ID_SPAN = 1 << 44
 
 _PAD_KEY = 0xFFFFFFFF
+
+#: where the reference fails across processes, by refused plan node
+_REF_EXECUTOR = "sparkrdma_tpu/plan/executor.py"
+_REF_DATASET = "sparkrdma_tpu/api/dataset.py"
 
 #: the frozen field set of every ``{"kind": "plan"}`` journal line (the
 #: reference's; the CLIs read these keys)
@@ -122,7 +141,6 @@ class PlanExecutor:
     """Executes optimized :class:`LogicalPlan` DAGs on one manager."""
 
     def __init__(self, manager):
-        refuse_across_processes(manager.runtime, "PlanExecutor")
         self.manager = manager
         #: exchange-reuse memo: fingerprint -> (records, totals, schema,
         #: projected); spans run() calls
@@ -190,9 +208,12 @@ class PlanExecutor:
             ds = self._exec(node.children[0])
             return self._eager(ds.select(*node.columns))
         if op == "sink":
+            self._refuse("a plan's sink", f"{_REF_DATASET}:531")
             return self._exec(node.children[0]).to_host_rows()
         if op == "join":
             return self._exec_join(node)
+        if op == "group_by_key":
+            self._refuse("a plan's group_by_key", f"{_REF_DATASET}:1015")
         ds = self._exec(node.children[0])
         with self._maybe_stage(node.stage):
             if op == "repartition":
@@ -213,6 +234,11 @@ class PlanExecutor:
                 # a CSR result, not memoized (the memo holds Datasets)
                 return ds.group_by_key()
         raise ValueError(f"unknown plan op {op!r}")
+
+    def _refuse(self, what: str, reference: str) -> None:
+        """Refuse ``what`` across processes, as the reference fails at
+        ``reference`` (ROADMAP A.12)."""
+        refuse_across_processes(self.manager.runtime, what, reference)
 
     @staticmethod
     def _maybe_stage(name: str):
@@ -265,12 +291,16 @@ class PlanExecutor:
             return run()
         hit = self._memo.get(fp)
         via = "memo"
-        if hit is None and m.store is not None:
+        if hit is not None:
+            self._refuse("a plan's reuse hit", f"{_REF_EXECUTOR}:307")
+            rows = int(hit[1].sum())
+        elif m.store is not None:
             hit = self._try_resume(fp, node)
             via = "resume_segments"
+            if hit is not None:
+                rows, hit = hit[0], hit[1:]
         if hit is not None:
             records, totals, schema, projected = hit
-            rows = int(totals.sum())
             m.metrics.counter("plan.reuse_hits").inc()
             m.journal.emit_raw(plan_line(
                 node.label, node.op, "reuse", fp, rows=rows,
@@ -288,6 +318,15 @@ class PlanExecutor:
 
     def _persist(self, fp: str, ds: Dataset) -> None:
         m = self.manager
+        if m.runtime.process_count > 1:
+            # the reference's write reads the whole output on the host,
+            # fails, and its cache-write guard logs and goes on
+            log.warning(
+                "plan reuse persist of %s failed: across %d processes the "
+                "reference's `%s:343` reads a global array on the host "
+                "(ROADMAP A.12)", fp, m.runtime.process_count,
+                _REF_EXECUTOR)
+            return
         sid = reuse_shuffle_id(fp)
         try:
             existing = m.store.load_segment_meta(sid)
@@ -308,8 +347,11 @@ class PlanExecutor:
             extra_meta={"plan_fp": fp})
 
     def _try_resume(self, fp: str, node: PlanNode) -> Optional[Tuple]:
-        """Cross-restart adoption: segment checkpoint -> tiered store. A
-        manifest without OUR full fingerprint is a miss."""
+        """Cross-restart adoption: segment checkpoint -> tiered store, as
+        ``(rows, records, totals, schema, projected)`` with ``rows`` the
+        checkpoint's whole count. A manifest without OUR full
+        fingerprint is a miss. Across processes the checkpoint (which a
+        one-process run wrote) gives this process its partitions."""
         m = self.manager
         sid = reuse_shuffle_id(fp)
         try:
@@ -324,9 +366,10 @@ class PlanExecutor:
             totals = m.tiered.get(f"plan{fp}:totals")
         except KeyError:
             return None
+        totals = np.asarray(totals, np.int32)
         records = m.runtime.shard_records(np.ascontiguousarray(cols).T)
-        return (records, torch.from_numpy(np.asarray(totals, np.int32)).to(
-            m.runtime.device), self._subtree_schema(node), None)
+        return (int(totals.sum()), records, m.runtime.shard_rows(totals),
+                self._subtree_schema(node), None)
 
     @staticmethod
     def _subtree_schema(node: PlanNode):
@@ -343,6 +386,13 @@ class PlanExecutor:
     # ------------------------------------------------------------------
     def _exec_join(self, node: PlanNode) -> Dataset:
         left_node, dim_node = node.children
+        # across processes a join the reference cannot run refuses here,
+        # before the dim side's background encode could start
+        if node.broadcast and self.manager.conf.plan_broadcast_join:
+            self._refuse("a plan's broadcast join", f"{_REF_DATASET}:531")
+        if _reads_exchange(left_node) or _reads_exchange(dim_node):
+            self._refuse("a plan's join of an exchange's output",
+                         f"{_REF_DATASET}:660")
         self._maybe_prefetch(dim_node)
         left = self._exec(left_node)
         with self._maybe_stage(node.stage):
@@ -379,6 +429,7 @@ class PlanExecutor:
         partition's primary-key lookup."""
         m = self.manager
         mesh = m.runtime.num_partitions
+        local = m.runtime.local_partitions
         key_ix = m.conf.key_words - 1
         part = _low_word_hash(mesh, key_ix)
         fp_l = fingerprint_hex(("xjoin_left", node.children[0].fp,
@@ -391,10 +442,10 @@ class PlanExecutor:
             fp_d, node, lambda: dim._exchange(part, mesh, op="join"))
         kw = m.conf.key_words
         out = torch.empty_like(l2.records)
-        for lc, lt, dc, dt, o in zip(_parts(l2.records, mesh),
+        for lc, lt, dc, dt, o in zip(_parts(l2.records, local),
                                      l2.totals.tolist(),
-                                     _parts(d2.records, mesh),
-                                     d2.totals.tolist(), _parts(out, mesh)):
+                                     _parts(d2.records, local),
+                                     d2.totals.tolist(), _parts(out, local)):
             vd = _valid_nonfiller(dc, dt, kw)
             dk = torch.where(vd, as_unsigned(dc[key_ix]), _PAD_KEY)
             sd, order = torch.sort(dk, stable=True)
@@ -496,6 +547,15 @@ class PlanExecutor:
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+
+
+def _reads_exchange(node: PlanNode) -> bool:
+    """Does the subtree at ``node`` run an exchange, or read a dataset
+    an exchange made?"""
+    if node.op in EXCHANGE_OPS or (node.dataset is not None
+                                   and node.dataset.exchanged):
+        return True
+    return any(_reads_exchange(c) for c in node.children)
 
 
 __all__ = ["PlanExecutor", "PLAN_FIELDS", "plan_line", "reuse_shuffle_id",

@@ -168,11 +168,18 @@ def _all_nodes(root: PlanNode) -> List[PlanNode]:
 def estimate_rows(node: PlanNode) -> Optional[int]:
     """Plan-time row-count estimate: exact for sources, pass-through
     upper bound across row-preserving ops, unknown past aggregates and
-    joins (conservative — broadcast selection then declines)."""
+    joins (conservative — broadcast selection then declines). Across
+    processes a loaded dataset holds an even share of its rows, and an
+    exchange's output is unknown (its global count would take a
+    collective), so every process decides alike."""
     if node.op == "source":
         if node.rows is not None:
             return int(node.rows.shape[0])
-        return int(node.dataset.totals.sum())
+        ds = node.dataset
+        procs = ds.manager.runtime.process_count
+        if procs > 1 and ds.exchanged:
+            return None
+        return int(ds.totals.sum()) * procs
     if node.op in ("filter", "select", "repartition",
                    "sort_by_key") and node.children:
         return estimate_rows(node.children[0])

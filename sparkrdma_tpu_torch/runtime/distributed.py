@@ -13,6 +13,11 @@ when each process has a card of its own (the host-side metadata, plan
 counts and samples, goes over gloo on CPU tensors, the data over NCCL);
 ``"gloo"`` when processes share one card or run on the CPU (NCCL refuses
 two ranks on one card).
+
+Collectives go through a :class:`Collectives` scope: :data:`WORLD`, the
+default group, or a scope keyed by a name (:func:`collective_scope`), which
+the service gives each tenant session so that two sessions' collectives,
+issued at once from two threads of each process, never meet in one op.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import threading
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,6 +36,10 @@ log = logging.getLogger("sparkrdma_tpu_torch.runtime")
 
 #: the backend of a process that has a card of its own
 CARD_PER_PROCESS = "cpu:gloo,cuda:nccl"
+
+#: the timeout ``initialize_distributed`` gave the group (None: torch's),
+#: which the scopes' own groups take too
+_TIMEOUT: Optional[datetime.timedelta] = None
 
 
 def group_rank() -> Tuple[int, int]:
@@ -85,6 +95,8 @@ def initialize_distributed(
     kw = {}
     if timeout_s is not None:
         kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+        global _TIMEOUT
+        _TIMEOUT = kw["timeout"]
     last_err: Optional[Exception] = None
     for attempt in range(1, max_attempts + 1):
         try:
@@ -103,26 +115,144 @@ def initialize_distributed(
     ) from last_err
 
 
-def refuse_across_processes(runtime, what: str,
-                            reference: Optional[str] = None) -> None:
+def refuse_across_processes(runtime, what: str, reference: str,
+                            why: str = "reads a global array on the host"
+                            ) -> None:
     """Raise ``NotImplementedError`` for an entry point that runs in one
     process only, when ``runtime`` spans several (ROADMAP A.12).
 
     ``reference`` is the ``file:line`` where the JAX package fails on
-    the same call across processes (it reads an array that spans other
-    processes' devices on the host): the limit is the reference's own.
-    None marks an entry point the reference runs there and the port has
-    not ported yet. A ``runtime`` of None stands for the process group
-    (an entry point that is given no runtime)."""
+    the same call across processes, and ``why`` what it does there
+    (most often it reads an array that spans other processes' devices
+    on the host): the limit is the reference's own. A ``runtime`` of
+    None stands for the process group (an entry point that is given no
+    runtime)."""
     procs = runtime.process_count if runtime is not None else group_rank()[1]
     if procs <= 1:
         return
-    why = (f"as the reference: `{reference}` reads a global array on "
-           "the host" if reference else "it is not ported yet")
     raise NotImplementedError(
         f"{what} runs in one process only; across {procs} processes it "
-        f"is refused, {why} (ROADMAP A.12)")
+        f"is refused, as the reference: `{reference}` {why} "
+        "(ROADMAP A.12)")
+
+
+class Collectives:
+    """The collectives of one scope: the default group's (``name`` None,
+    :data:`WORLD`: ``torch.distributed``'s calls, looked up at each
+    call) or a group of their own, keyed by ``name``.
+
+    A keyed scope's group is a ``ProcessGroupGloo`` over a
+    ``PrefixStore`` of the default group's store, with the name as the
+    prefix: its members meet under keys that only the name fixes, so
+    the processes may create their scopes in any order, from any
+    thread. ``dist.new_group`` does not serve: it names its store
+    prefix by a counter of the groups made so far, so every process
+    must call it in the same order, and it is collective over the
+    default group. The constructors of ``ProcessGroupGloo`` and
+    ``ProcessGroupNCCL`` over a store are public in torch 2.x; such a
+    group is not registered with ``torch.distributed``, so its
+    collectives are called on the group itself (``allgather``,
+    ``broadcast``, ``allreduce``, ``alltoall_base``, each waited on).
+    Where the default group's backend carries NCCL
+    (:data:`CARD_PER_PROCESS`), CUDA tensors go over a
+    ``ProcessGroupNCCL`` of the same prefix and CPU tensors over gloo.
+
+    A group connects at its first collective, which blocks until every
+    process has reached the same scope's first collective: creating the
+    scope never blocks, so two processes may open scopes in different
+    orders."""
+
+    def __init__(self, name: Optional[str] = None):
+        self.name = name
+        self._lock = threading.Lock()
+        self._groups = {}            # guarded-by: _lock
+
+    def _group(self, t: torch.Tensor):
+        """The scope's group for ``t``'s device (None: the default)."""
+        if self.name is None:
+            return None
+        nccl = t.is_cuda and "nccl" in str(dist.get_backend())
+        kind = "nccl" if nccl else "gloo"
+        with self._lock:
+            pg = self._groups.get(kind)
+            if pg is None:
+                from torch.distributed import distributed_c10d as c10d
+
+                store = dist.PrefixStore(f"sparkrdma/scope/{self.name}/{kind}",
+                                         c10d._get_default_store())
+                rank, world = group_rank()
+                timeout = _TIMEOUT or dist.default_pg_timeout
+                if nccl:
+                    opts = dist.ProcessGroupNCCL.Options()
+                    opts._timeout = timeout
+                    pg = dist.ProcessGroupNCCL(store, rank, world, opts)
+                else:
+                    pg = dist.ProcessGroupGloo(store, rank, world, timeout)
+                self._groups[kind] = pg
+        return pg
+
+    def all_gather(self, outs: List[torch.Tensor], t: torch.Tensor) -> None:
+        pg = self._group(t)
+        if pg is None:
+            dist.all_gather(outs, t)
+        else:
+            pg.allgather([outs], [t]).wait()
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> None:
+        pg = self._group(t)
+        if pg is None:
+            dist.broadcast(t, src)
+        else:
+            opts = dist.BroadcastOptions()
+            opts.rootRank = src
+            pg.broadcast([t], opts).wait()
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        """A SUM all-reduce of ``t`` in place."""
+        pg = self._group(t)
+        if pg is None:
+            dist.all_reduce(t)
+        else:
+            pg.allreduce([t]).wait()
+
+    def all_to_all_single(self, out: torch.Tensor, t: torch.Tensor,
+                          out_splits: List[int],
+                          in_splits: List[int]) -> None:
+        pg = self._group(t)
+        if pg is None:
+            dist.all_to_all_single(out, t, out_splits, in_splits)
+        else:
+            pg.alltoall_base(out, t, out_splits, in_splits,
+                             dist.AllToAllOptions()).wait()
+
+    def close(self) -> None:
+        """Drop the scope's groups (a closed session's)."""
+        with self._lock:
+            self._groups.clear()
+
+    def __repr__(self) -> str:
+        return f"Collectives({self.name!r})"
+
+
+#: the default group's scope: what a manager uses unless it is given one
+WORLD = Collectives()
+
+_SCOPE_LOCK = threading.Lock()
+#: scopes made in this process, by key: a name's store keys serve one
+#: group, so each ask gets a name of its own
+_SCOPES_MADE: dict = {}            # guarded-by: _SCOPE_LOCK
+
+
+def collective_scope(key: str) -> Collectives:
+    """The next scope of ``key`` in this process, named ``<key>#<n>``
+    for the n-th ask here (from 1). The scopes of one name form one
+    group, so processes that ask for one key's scopes in the same order
+    pair them up, whatever they ask for other keys in between."""
+    with _SCOPE_LOCK:
+        n = _SCOPES_MADE.get(key, 0) + 1
+        _SCOPES_MADE[key] = n
+    return Collectives(f"{key}#{n}")
 
 
 __all__ = ["initialize_distributed", "group_rank", "refuse_across_processes",
-           "CARD_PER_PROCESS"]
+           "CARD_PER_PROCESS", "Collectives", "WORLD", "collective_scope"]

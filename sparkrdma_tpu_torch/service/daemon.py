@@ -25,6 +25,18 @@ singletons, to that tenant's
 quotas) and to the shared deficit-round-robin
 :class:`~sparkrdma_tpu_torch.service.admission.AdmissionController`.
 
+Across processes (a runtime that spans a ``torch.distributed`` group)
+every process runs its own daemon, and each session gets a collective
+scope of its own (:func:`~sparkrdma_tpu_torch.runtime.distributed
+.collective_scope`) keyed by the tenant's name and how many sessions
+that tenant has opened in this process: when each process's tenant
+thread opens its sessions in the same order, the sessions of one key
+pair up, whatever the order between tenants, and concurrent tenants'
+collectives never meet in one op. Admission with slots
+(``admission_slots > 0``) is refused there: each process admits tenants
+in its own order, so a session's collective would wait on a peer its
+process has not admitted (the reference hangs or mixes outputs).
+
 Isolation: a tenant's fault schedule and retry state live in its
 session's plane, which reaches the module-level fault sites only through
 thread-local scoping (:func:`sparkrdma_tpu_torch.faults.scoped_plane`),
@@ -50,7 +62,8 @@ from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry, global_registry
 from sparkrdma_tpu_torch.obs.probe import ProbeServer
 from sparkrdma_tpu_torch.obs.rollup import HeartbeatEmitter
 from sparkrdma_tpu_torch.obs.tsdb import NULL_TELEMETRY, TelemetryStore
-from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
+from sparkrdma_tpu_torch.runtime.distributed import (collective_scope,
+                                                      refuse_across_processes)
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
 from sparkrdma_tpu_torch.service.admission import AdmissionController
 from sparkrdma_tpu_torch.service.rpc import RpcServer
@@ -68,8 +81,13 @@ class ShuffleService:
                  num_partitions: int = 8, device="cuda"):
         self.runtime = runtime or MeshRuntime(
             conf, num_partitions=num_partitions, device=device)
-        refuse_across_processes(self.runtime, "ShuffleService")
         self.conf = conf or self.runtime.conf
+        if self.conf.admission_slots > 0:
+            refuse_across_processes(
+                self.runtime, "ShuffleService with admission_slots > 0",
+                "sparkrdma_tpu/service/admission.py:79",
+                "admits tenants in each process's own order, so that "
+                "concurrent tenants hang or mix their outputs")
         # the reference's gate: the daemon's registry, and with it the
         # telemetry store and the alerts, is on with either knob
         self.metrics = MetricsRegistry(
@@ -222,7 +240,9 @@ class ShuffleService:
         and store segments, quota-enforced tier allocations, admission-
         controlled reads. ``conf`` lets a tenant bring its own knobs
         (fault schedule, transport, sort options); the partition count
-        and the card come from the shared runtime regardless.
+        and the card come from the shared runtime regardless. Across
+        processes the session gets its collective scope (module
+        docstring).
         """
         acct = self.tenants.get(tenant)
         if acct is None:
@@ -234,11 +254,13 @@ class ShuffleService:
         with self._lock:
             if self._closed:
                 raise RuntimeError("ShuffleService is stopped")
+        scope = (collective_scope(tenant) if self.runtime.process_count > 1
+                 else None)
         m = ShuffleManager(self.runtime, conf or self.conf,
                            tenant=tenant, tiered=self.tiered,
                            journal=self.journal,
                            admission=self.admission, account=acct,
-                           telemetry=self.telemetry)
+                           telemetry=self.telemetry, collectives=scope)
         with self._lock:
             self._sessions.append(m)
         self.metrics.counter("service.sessions_opened").inc()

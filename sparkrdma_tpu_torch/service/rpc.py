@@ -31,6 +31,10 @@ control socket, and the exchange runs on the daemon's card — adequate
 for the control-plane sizes this wire carries, and it keeps every torch
 and CUDA dependency on the server side.
 
+Across processes (each process a daemon over one group) ``write`` runs
+its exchange in the session's collective scope; ``read`` refuses, as the
+reference's fails on the whole output array (ROADMAP A.12).
+
 Leases are timed on :func:`_clock` (``time.monotonic``), which the tests
 replace to drive an expiry without sleeping.
 
@@ -51,6 +55,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from sparkrdma_tpu_torch.obs.journal import SCHEMA_VERSION
+from sparkrdma_tpu_torch.runtime.distributed import refuse_across_processes
 from sparkrdma_tpu_torch.service.wire import (LEASE_FIELDS, OPS,
                                         RPC_SCHEMA_VERSION, FrameError,
                                         recv_frame, send_frame)
@@ -482,6 +487,10 @@ class RpcServer:
         if handle is None:
             raise RpcError(f"shuffle {sid} not registered")
         m = sess.manager
+        # across processes the reply would carry only this process's
+        # partitions, where the reference fails on the whole array
+        refuse_across_processes(m.runtime, "the RPC read",
+                                "sparkrdma_tpu/service/rpc.py:478")
         records, totals = m.get_reader(handle).read()
         # the card's int32 word views as the reference's uint32 words
         cols = records.cpu().numpy().view(np.uint32)

@@ -169,7 +169,7 @@ def run_streaming_terasort(
             if errors:
                 raise OSError(f"{errors} spill writes failed")
         elif rt.process_count > 1:
-            acc = _fold_across_processes(acc)
+            acc = _fold_across_processes(acc, manager.collectives)
         else:
             barrier(acc)
     finally:
@@ -200,12 +200,13 @@ def _fold(acc: torch.Tensor, out: torch.Tensor,
     return (acc + torch.cat([total, sums])) & _LOW
 
 
-def _fold_across_processes(acc: torch.Tensor) -> torch.Tensor:
+def _fold_across_processes(acc: torch.Tensor, coll) -> torch.Tensor:
     """The group's sum of every process's fold, mod 2^32, on the CPU: an
     int64 SUM all-reduce of values below 2^32 (an int32 one would
-    overflow), masked as :func:`_fold` masks."""
+    overflow) in the manager's collective scope ``coll``, masked as
+    :func:`_fold` masks."""
     host = acc.cpu()
-    torch.distributed.all_reduce(host)
+    coll.all_reduce(host)
     return host & _LOW
 
 

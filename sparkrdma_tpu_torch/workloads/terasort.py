@@ -198,7 +198,7 @@ def run_terasort(manager: ShuffleManager, records_per_device: int,
 
     with Timer() as t_sample:
         sampler = make_sampler(mesh, kw, samples_per_device, seed,
-                               runtime=rt)
+                               runtime=rt, collectives=manager.collectives)
         splitters = compute_splitters(sampler(records), mesh)
 
     part = range_partitioner(splitters, kw)

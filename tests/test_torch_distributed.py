@@ -482,10 +482,10 @@ def test_ring_refused_across_processes(two_processes):
 
 def _refusals():
     """Each entry point that runs in one process only (ROADMAP A.12);
-    the Dataset's own are in ``tests/test_torch_distributed_dataset.py``."""
+    the Dataset's own are in ``tests/test_torch_distributed_dataset.py``,
+    the planner's and the service's in ``tests/test_torch_distributed_plan.py``
+    and ``tests/test_torch_distributed_service.py``."""
     from sparkrdma_tpu_torch.exchange.partitioners import hash_partitioner
-    from sparkrdma_tpu_torch.plan import PlanExecutor
-    from sparkrdma_tpu_torch.service.daemon import ShuffleService
     from sparkrdma_tpu_torch.workloads import (als, join, pagerank,
                                                streaming, tpcds)
 
@@ -496,8 +496,6 @@ def _refusals():
         return call(m.get_reader(h))
 
     return {
-        "PlanExecutor": lambda m: PlanExecutor(m),
-        "ShuffleService": lambda m: ShuffleService(runtime=m.runtime),
         "run_pagerank": lambda m: pagerank.run_pagerank(
             m.runtime, np.zeros((8, 2), np.int64), 8),
         "run_hash_join": lambda m: join.run_hash_join(m, 8, 8),
@@ -507,21 +505,18 @@ def _refusals():
         "run_star_suite": lambda m: tpcds.run_star_suite(m),
         "run_tiered_terasort": lambda m: streaming.run_tiered_terasort(
             m, cols, 32),
-        "checkpoint_segments": lambda m: m.checkpoint_segments(1, [], None, D),
-        "resume_segments": lambda m: m.resume_segments(1),
         "read_partition": lambda m: reader(m, lambda r: r.read_partition(0)),
         "read_view": lambda m: reader(m, lambda r: r.read_view()),
     }
 
 
-REFUSED = ("PlanExecutor", "ShuffleService", "run_pagerank",
-           "run_hash_join", "run_als", "run_q64_shape", "run_q95_shape",
-           "run_star_suite", "run_tiered_terasort", "checkpoint_segments",
-           "resume_segments", "read_partition", "read_view")
+REFUSED = ("run_pagerank", "run_hash_join", "run_als", "run_q64_shape",
+           "run_q95_shape", "run_star_suite", "run_tiered_terasort",
+           "read_partition", "read_view")
 
 
 #: where the reference itself fails across processes (it reads a global
-#: array on the host); the rest it runs, and the port has yet to port
+#: array on the host)
 REFERENCE_LINES = {
     "run_pagerank": "sparkrdma_tpu/workloads/pagerank.py:207",
     "run_hash_join": "sparkrdma_tpu/workloads/join.py:254",
@@ -546,10 +541,7 @@ def test_entry_point_refused_across_processes(two_processes, name):
         with pytest.raises(NotImplementedError, match="A.12") as err:
             _refusals()[name](m)
         said = str(err.value)
-        if name in REFERENCE_LINES:
-            assert f"as the reference: `{REFERENCE_LINES[name]}`" in said
-        else:
-            assert "not ported yet" in said
+        assert f"as the reference: `{REFERENCE_LINES[name]}`" in said
     finally:
         m.stop()
 
