@@ -199,18 +199,22 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
               (``spill_storm`` fired by a spilling out-of-core run and
               resolved, read by ``shuffle_report.py``);
 13. shuffles across processes (``runtime/distributed.py``,
-    ``exchange/hierarchical.py``): the smoke spawns two workers of itself
+    ``exchange/hierarchical.py``, the ring's push into registered
+    windows, ``exchange/windows.py``): the smoke spawns two workers of itself
     (``--distributed-worker``), both on this card over gloo, which meet
     through a ``file://`` rendezvous; the one-process references run
     first and the cached memory is freed before the spawn; a worker's
     non-zero exit or ``DIST_WORKER_S`` fails the smoke:
      T            leg B's records (seed 0) and conf, 4 partitions a
                   process, on ``"xla"`` (one ``all_to_all_single`` a
-                  round) then ``"hierarchical"`` (H = 2), a warm-up and
-                  3 reads each; per read the GB/s (the global bytes over
-                  the slower worker's wall time), each worker's seconds
-                  in ``all_to_all_single``, merge-path launches and peak
-                  memory; each partition's totals and in-order digest
+                  round), ``"hierarchical"`` (H = 2) and ``"pallas_ring"``
+                  (the push, CUDA IPC between the two workers), a
+                  warm-up and 3 reads each; per read the GB/s (the
+                  global bytes over the slower worker's wall time), each
+                  worker's seconds in ``all_to_all_single``, merge-path
+                  and push launches, the ring window's moves, handshake
+                  and push-wait seconds and size, and peak memory; each
+                  partition's totals and in-order digest
                   (``part_digests``) equal to the one-process ``"xla"``
                   run's; where the machine has two cards the same over
                   ``"cpu:gloo,cuda:nccl"``, a card a process (else the
@@ -238,31 +242,42 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      V-service    in the same workers, before U: a ``ShuffleService``
                   each, with the live layer on as in leg S, leg S's two
                   tenants in threads at once, each a TeraSort of
-                  8,388,608 × 100 B (leg B's conf on ``"xla"``) in a
-                  session with its own collective scope, a warm-up and 3
-                  reads; per tenant and read the GB/s of the slower
-                  worker, the aggregate, each tenant's seconds in
-                  ``all_to_all_single``, launches and peak memory; every
+                  8,388,608 × 100 B (leg B's conf; tenant_a on the
+                  ring, in its own window, tenant_b on ``"xla"``, its
+                  ``all_to_all_single`` on its own scope's group) in a
+                  session with its own collective scope, a
+                  warm-up and 3 reads; per tenant and read the GB/s of
+                  the slower worker, the aggregate, each tenant's
+                  seconds in ``all_to_all_single`` and window stats,
+                  launches and peak memory; every
                   partition of every read equal to the tenant's TeraSort
                   alone in one process;
      distributed  2^20 records: TeraSort outputs bit-exact against one
-                  process on ``"xla"`` and ``"hierarchical"`` at H = 1,
-                  2 and 4; ``repartition(16)``; a sharded checkpoint
+                  process on ``"xla"``, ``"hierarchical"`` at H = 1, 2
+                  and 4, and the ring fused and a push a round, each in
+                  the fused regime and streaming (``DIST_STREAM_KNOBS``);
+                  ``repartition(16)``; a sharded checkpoint
                   (each process writes only its ``proc{p}`` shards),
                   resumed by fresh managers; ``InputStreamer`` and
                   ``run_streaming_terasort`` (the fold) at 2^22 records
                   in 4 chunks, each worker's chunks its own columns and
                   the fold's sums equal on both workers, to one process
-                  and to numpy; the refusals of ``pallas_ring`` (ROADMAP
-                  B.1) and of the entry points the reference cannot run
-                  across processes either (A.12, each message naming
+                  and to numpy; the refusals of the entry points the
+                  reference cannot run across processes either (A.12,
+                  each message naming
                   the reference's line: the Dataset's, a plan's reuse
                   hit, sink, broadcast join and ``group_by_key``, a
                   service with ``admission_slots > 0``); a segment
                   checkpoint written and adopted by each worker in its
                   own directory; an RPC client in each worker whose
                   ``write`` runs and whose ``read`` refuses;
-   then the ring kernel at every send shape legs B-S launched it at
+     ring_push    in the same workers, the push at every shape T, V
+                  and the phase launched it at: the kernel's move
+                  against the plain push's and ``all_to_all_single``'s,
+                  bit for bit, then each timed (both workers at once,
+                  each alone, against the whole exchange's bound); and
+                  the handshake's host microseconds a move;
+   then the stacked ring kernel at every send shape legs B-S launched it at
    (recorded while each leg ran), each against its plain version and
    timed (cold only where a send/out pair is 1 MiB or more);
 14. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
@@ -558,6 +573,8 @@ def merge_phase() -> dict:
 #: kernel at, with the legs that launch each (what ``RingShapes`` recorded
 #: on an H100; ``ring_leg_phases`` fails if a run records another set);
 #: an a2a shape goes through ``ring_all_to_all`` as ``[D, D, ppd, W, C]``.
+#: The push shapes ``[L, R, D, ...]`` (``is_push``) are T's workers'; a
+#: push a round takes its send as ``[L, D, words]``.
 #: ``tests/test_torch_ring.py`` holds the kernel's launch plan and per-item
 #: copy at these, the phase shapes and the edge shapes;
 #: ``scripts/torch_ring_ab.py`` times these and the phase shapes.
@@ -620,6 +637,17 @@ RING_LEG_SHAPES = [
     ("M", (8, 2, 8, 97, 4, 4096), False),
     ("F-small", (8, 5, 8, 1, 25, 4097), False),
     ("F", (8, 34, 8, 2, 25, 4097), False),
+    # the push across T's two workers, [L, R, D, ...] a worker: leg T's
+    # ring reads, V-service's tenants, and phase: distributed's ring
+    # TeraSorts (fused; a push a round with the counts' [4, 8, 2] words;
+    # the streaming chunks)
+    ("distributed", (4, 1, 8, 2), True),
+    ("distributed", (4, 1, 8, 102400), True),
+    ("distributed", (4, 1, 8, 819200), True),
+    ("distributed", (4, 1, 8, 1, 25, 4096), False),
+    ("distributed", (4, 1, 8, 1, 25, 32769), False),
+    ("V-service", (4, 1, 8, 1, 25, 262145), False),
+    ("T", (4, 1, 8, 1, 25, 524289), False),
 ]
 #: the kernel phases' own shapes that no leg launches: ``ring_phase``'s
 #: R = 3 and ``ring_chunk_phase``'s fine class (29 words, not a multiple
@@ -1142,13 +1170,16 @@ def leg_e():
 def zeroed_counters():
     """The kernel wrappers, each launch count set to 0."""
     from sparkrdma_tpu_torch.exchange.ring import (ring_all_to_all,
-                                                   ring_exchange)
+                                                   ring_exchange, ring_push,
+                                                   ring_push_all_to_all)
     from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
                                                         merge_stage)
 
     kernels = {"merge_stage": merge_stage, "merge_splits": merge_splits,
                "ring_exchange": ring_exchange,
-               "ring_all_to_all": ring_all_to_all}
+               "ring_all_to_all": ring_all_to_all,
+               "ring_push": ring_push,
+               "ring_push_all_to_all": ring_push_all_to_all}
     for k in kernels.values():
         k.launches = 0
     return kernels
@@ -1703,28 +1734,35 @@ def ring_ooc_phase() -> dict:
 class RingShapes:
     """The send shapes the ring kernel is launched at while inside the
     ``with``, with their launch counts: ``exchange/ring.py``'s ``_launch``
-    is wrapped for the duration (the launch counts stay the wrappers'
-    own). Each shape is the canonical ``[D, R, D, ...]`` with a flag:
-    ``ring_all_to_all``'s ``[D, D, ...]`` is ``[D, 1, D, ...]``, a2a."""
+    (both forms' one launch path) is wrapped for the duration (the launch
+    counts stay the wrappers' own). Each shape is the canonical ``[D, R, D,
+    ...]`` (the push's ``[L, R, D, ...]``, ``L < D``: a push shape) with a
+    flag: the R = 1 forms' ``[D, D, ...]`` is ``[D, 1, D, ...]``, a2a."""
 
     def __enter__(self):
         from sparkrdma_tpu_torch.exchange import ring
 
         self.counts = {}
-        self._ring, self._launch = ring, ring._launch
+        self._ring = ring
+        self._launch = ring._launch
 
-        def launch(send, out, round_axis=True):
+        def launch(send, bases, rank, round_axis=True):
             shape = tuple(send.shape) if round_axis else \
                 (send.shape[0], 1) + tuple(send.shape[1:])
             key = (shape, not round_axis)
             self.counts[key] = self.counts.get(key, 0) + 1
-            return self._launch(send, out, round_axis)
+            return self._launch(send, bases, rank, round_axis)
 
         ring._launch = launch
         return self
 
     def __exit__(self, *exc):
         self._ring._launch = self._launch
+
+
+def is_push(shape) -> bool:
+    """A push shape ``[L, R, D, ...]`` (``L < D``: across processes)."""
+    return shape[0] != shape[2]
 
 
 def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
@@ -1742,7 +1780,8 @@ def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
 
 
 def ring_leg_phases(shapes: dict) -> list:
-    """The ring kernel at every send shape legs B-Q launched it at: random
+    """The ring kernel at every send shape legs B-Q launched it at (the
+    push shapes of T's workers are checked there): random
     words at each shape, bit-exact against its plain version, timed
     beside its bound and ``permute().contiguous()`` (CUDA events over
     20-launch batches below 0.5 ms of bound, and CUDA-graph replay). One
@@ -1759,6 +1798,8 @@ def ring_leg_phases(shapes: dict) -> list:
             by_shape.setdefault(key, {})[leg_name] = n
     lines = []
     for seed, ((shape, a2a), legs) in enumerate(sorted(by_shape.items())):
+        if is_push(shape):
+            continue     # checked in the workers that pushed it
         send = rand_words(shape, seed=100 + seed)
         if a2a:
             send = send.squeeze(1)
@@ -3257,6 +3298,7 @@ def launch_failure_child() -> int:
     then a launch that writes through an address the card has not
     mapped (``torch.AcceleratorError`` at the next sync, and at every
     CUDA call after it). Prints one JSON line and exits."""
+    from sparkrdma_tpu_torch import _build
     from sparkrdma_tpu_torch._build import KernelLaunchError
     from sparkrdma_tpu_torch.exchange import ring
     from sparkrdma_tpu_torch.exchange.errors import FetchFailedError
@@ -3295,8 +3337,8 @@ def launch_failure_child() -> int:
                 "message": str(e)[:300]}
 
     real_plan = ring.launch_plan
-    ring.launch_plan = lambda d, r, c: real_plan(d, r, c)._replace(
-        grid=real_plan(d, r, c).grid + 1)
+    ring.launch_plan = lambda *a: real_plan(*a)._replace(
+        grid=real_plan(*a).grid + 1)
     try:
         failing_read("refused_launch")
     finally:
@@ -3306,9 +3348,10 @@ def launch_failure_child() -> int:
         torch.equal(out, good) and torch.equal(totals, good_totals))
     real_kernel, calls = ring._kernel, [0]
 
-    def bad_address(send, recv, *rest):
+    def bad_address(send, windows, *rest):
         calls[0] += 1
-        return real_kernel(send, 0x10000 if calls[0] == 1 else recv, *rest)
+        return real_kernel(send, _build.PeerTable((0x10000,))
+                           if calls[0] == 1 else windows, *rest)
 
     ring._kernel = bad_address
     failing_read("illegal_address")
@@ -3711,7 +3754,7 @@ def native_codec_line() -> dict:
 def native_spill_line() -> dict:
     """Leg Q's records (16,777,216 × 100 B, 1.68 GB) through a
     ``SpillWriter`` on each path into two files (byte-identical), and
-    each file read back by ``read_array`` on both paths."""
+    one of them read back by ``read_array`` on both paths."""
     from sparkrdma_tpu_torch.hbm.host_staging import SpillWriter, read_array
     from sparkrdma_tpu_torch.workloads.terasort import random_records
 
@@ -3737,14 +3780,15 @@ def native_spill_line() -> dict:
         checks["files_byte_identical"] = bool(np.array_equal(a, b))
         file_bytes = int(a.size)
         del a, b
-        for tag in ("native", "numpy"):
-            for reader, native in (("native", True), ("numpy", False)):
-                got, secs["read", f"{tag}_file/{reader}"] = timed(
-                    lambda: read_array(paths[tag], np.uint32, recs.shape,
-                                       use_native=native))
-                checks[f"read_{tag}_file_{reader}_equal"] = bool(
-                    np.array_equal(got, recs))
-                del got
+        # the files are byte-identical (checked above): each reader
+        # reads the native path's once
+        for reader, native in (("native", True), ("numpy", False)):
+            got, secs["read", f"native_file/{reader}"] = timed(
+                lambda: read_array(paths["native"], np.uint32, recs.shape,
+                                   use_native=native))
+            checks[f"read_native_file_{reader}_equal"] = bool(
+                np.array_equal(got, recs))
+            del got
     line = {"phase": "native_staging", "part": "spill",
             "records_bytes": int(recs.nbytes), "file_bytes": file_bytes,
             "seconds": {f"{op}/{tag}": v for (op, tag), v in secs.items()},
@@ -3935,40 +3979,45 @@ def same_outputs(a, b) -> bool:
     return a == b
 
 
-def on_off_p_small() -> dict:
+def on_off_p_small() -> tuple:
+    """P-small's round trips with the knobs on and off: the checks, and
+    the run with them on (the fault line's control)."""
     on, on_ok = p_small_round_trip({})
     off, off_ok = p_small_round_trip(STAGING_OFF)
     return {"p_small_round_trips_correct": on_ok and off_ok,
-            "p_small_on_equals_off": same_outputs(on, off)}
+            "p_small_on_equals_off": same_outputs(on, off)}, on
 
 
 def native_on_off_line() -> dict:
     """On the card, ``use_native_staging`` and ``serde_native`` on (the
     defaults) against both off: outputs, spill files and checkpoints at
-    H-small's, Q-small's and a 2^16-record P-shaped size."""
+    H-small's, Q-small's and a 2^16-record P-shaped size. The line keeps
+    the P-shaped run with the knobs on under ``"_p_small_on"`` for
+    :func:`native_fault_line`."""
     checks = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_onoff_") as tmp:
         checks.update(on_off_h_small(tmp))
         checks.update(on_off_q_small(tmp))
-    checks.update(on_off_p_small())
+    p_checks, p_on = on_off_p_small()
+    checks.update(p_checks)
     line = {"phase": "native_staging", "part": "on_off",
             "h_small_records": H_CHUNKS * H_SMALL_CHUNK,
             "q_small_records": Q_SMALL, "p_small_records": NS_SMALL,
             "off": STAGING_OFF, "checks": checks}
     report(line)
-    return line
+    return {**line, "_p_small_on": p_on}
 
 
-def native_fault_line() -> dict:
+def native_fault_line(want) -> dict:
     """One ``serde.encode`` and one ``serde.decode`` failure injected on
     the native codec (``fault_spec``) in each manager of a 2^16-record
-    P-shaped round trip on the card: the rows equal a run without
-    faults, and the books balance (hard injections = recoveries, each
-    the ``serde_native`` one)."""
+    P-shaped round trip on the card: the rows equal ``want``, the same
+    round trip's without faults (the on-off line's), and the books
+    balance (hard injections = recoveries, each the ``serde_native``
+    one)."""
     from sparkrdma_tpu_torch import faults
 
     spec = "serde.encode:fail@attempt<1;serde.decode:fail@attempt<1"
-    want, _ = p_small_round_trip({})
     planes = []
     faults.reset_accounting()
     got, ok = p_small_round_trip({"fault_spec": spec}, planes=planes)
@@ -3997,8 +4046,9 @@ def native_staging_phase(build_s: float, legs: dict) -> list:
     lines.append(native_spill_line())
     gc.collect()
     torch.cuda.empty_cache()
-    lines += [native_pinned_line(legs.get("P")), native_on_off_line(),
-              native_fault_line()]
+    pinned = native_pinned_line(legs.get("P"))
+    on_off = native_on_off_line()
+    lines += [pinned, on_off, native_fault_line(on_off.pop("_p_small_on"))]
     gc.collect()
     torch.cuda.empty_cache()
     bad = [f"{ln['part']}: {k}" for ln in lines
@@ -4223,6 +4273,18 @@ def obs_cell(name: str, root: str) -> dict:
     return line
 
 
+def sleep_cycles_per_ms() -> float:
+    """The card's ``torch.cuda._sleep`` cycles per millisecond, from a
+    short sleep timed with CUDA events."""
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
 def obs_watchdog_line(root: str) -> dict:
     """The watchdog on a real wait: a 0.2 s watchdog armed around
     ``Event.synchronize()`` on an event recorded after a ~2 s
@@ -4232,14 +4294,7 @@ def obs_watchdog_line(root: str) -> dict:
     from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
     from sparkrdma_tpu_torch.obs.watchdog import StallWatchdog
 
-    # the card's sleep cycles per millisecond, from a short sleep
-    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
-    torch.cuda._sleep(1000)
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    end.synchronize()
-    cycles_per_ms = 20_000_000 / start.elapsed_time(end)
+    cycles_per_ms = sleep_cycles_per_ms()
     sink = os.path.join(root, "journal-watchdog.jsonl")
     reg = MetricsRegistry()
     wd = StallWatchdog(0.2, journal=ExchangeJournal(sink, metrics=reg),
@@ -4925,12 +4980,22 @@ def service_phase() -> dict:
 
 
 # --- leg T and phase: distributed (shuffles across processes) -----------
-#: leg T: leg B's records (seed 0) over two worker processes on one card
+#: leg T: leg B's records (seed 0) over two worker processes on one card,
+#: on each transport across processes
 T_WORKERS = 2
 T_READS = 3
+T_TRANSPORTS = ("xla", "hierarchical", "pallas_ring")
+#: what leg T's line gives of each read, worker by worker
+T_READ_KEYS = ("a2a_s", "merge_stage", "ring_push", "moves", "handshake_s",
+               "launch_wait_s", "window_gb", "peak_gb")
 #: phase: distributed: the records of its runs, and its hierarchies
 DIST_RECORDS = 1 << 20
 DIST_HOSTS = (1, 2, 4)
+#: phase: distributed's streaming geometry for the ring: 4096-record
+#: slots, one round in flight (a plan of 4-5 rounds streams)
+DIST_STREAM_KNOBS = dict(slot_records=4096, max_rounds_in_flight=1)
+#: moves timed for the handshake's host cost, at a tiny push shape
+PUSH_HANDSHAKE_MOVES = 200
 DIST_SEED, DIST_CKPT_SID = 5, 97
 #: a worker pair past this is killed and fails the smoke
 DIST_WORKER_S = 600
@@ -4942,6 +5007,9 @@ DIST_STREAM_RECORDS, DIST_STREAM_CHUNKS = 1 << 22, 4
 #: leg V-service: S's two tenants (name, seed, shuffle id) at once in each
 #: of T's workers, each a warm-up and ``V_READS`` reads of its TeraSort
 V_TENANTS = (("tenant_a", 11, 41), ("tenant_b", 12, 42))
+#: each tenant's transport: one on the ring (its own window), one on
+#: ``"xla"`` (``all_to_all_single`` on its own scope's gloo group)
+V_TRANSPORTS = {"tenant_a": "pallas_ring", "tenant_b": "xla"}
 V_READS = 3
 #: leg V-plan: the planner's plans on leg U's loaded dataset
 V_PLANS = ("filter_sort", "reduce_sum", "select_repartition16")
@@ -5003,18 +5071,24 @@ def dist_conf(transport: str, **kw):
 
 
 def dist_transports() -> list:
-    """``(name, conf kwargs)`` of the phase: the flat transport and the
-    hierarchy at each H."""
-    return [("xla", {})] + [(f"hierarchical{h}", {"hierarchy_hosts": h})
-                            for h in DIST_HOSTS]
+    """``(name, transport, conf kwargs)`` of the phase: the flat
+    transport, the hierarchy at each H, and the ring (fused, and a push a
+    round) in the fused regime and the streaming one."""
+    return ([("xla", "xla", {})]
+            + [(f"hierarchical{h}", "hierarchical", {"hierarchy_hosts": h})
+               for h in DIST_HOSTS]
+            + [(f"ring{'' if fused else '_per_round'}"
+                f"{'_stream' if stream else ''}", "pallas_ring",
+                {"ring_fused": fused, **(DIST_STREAM_KNOBS if stream
+                                         else {})})
+               for stream in (False, True) for fused in (True, False)])
 
 
 def dist_refusals(m) -> dict:
     """The entry points that run in one process only, each driven with a
-    runtime across processes: whether each raised as it should. Those
-    the reference cannot run there either (``DIST_REFERENCE_LINES``)
-    name ROADMAP A.12 and the reference's line; the ring transport
-    names B.1."""
+    runtime across processes: whether each raised as it should, naming
+    ROADMAP A.12 and the line where the reference cannot run it there
+    either (``DIST_REFERENCE_LINES``)."""
     from sparkrdma_tpu_torch import MeshRuntime
     from sparkrdma_tpu_torch.api.dataset import Dataset
     from sparkrdma_tpu_torch.api.serde import payload_words
@@ -5060,8 +5134,6 @@ def dist_refusals(m) -> dict:
         return lambda: PlanExecutor(m).run(build(LogicalPlan.dataset(ds())))
 
     calls = {
-        "pallas_ring": lambda: ShuffleManager(MeshRuntime(
-            leg_b_conf(), PARTS, device="cuda")),
         "count": lambda: ds().count,
         "to_host_rows": lambda: ds().to_host_rows(),
         "collect_rows": lambda: Dataset.collect_rows(ds().records,
@@ -5097,25 +5169,40 @@ def dist_refusals(m) -> dict:
     }
     said = {}
     for name, call in calls.items():
-        want = (ValueError, ["B.1"]) if name == "pallas_ring" else (
-            NotImplementedError,
-            ["A.12", f"as the reference: `{DIST_REFERENCE_LINES[name]}`"])
+        want = ["A.12", f"as the reference: `{DIST_REFERENCE_LINES[name]}`"]
         try:
             call()
-        except want[0] as e:
-            said[name] = all(w in str(e) for w in want[1])
+        except NotImplementedError as e:
+            said[name] = all(w in str(e) for w in want)
         else:
             said[name] = False
     m.unregister_shuffle(DIST_CKPT_SID + 1)
     return said
 
 
+def window_stats(coll=None) -> dict:
+    """The ring window of scope ``coll`` (None: the default group's) in
+    this process: its moves, the handshake's host seconds, the push
+    waits and its size; zeros where none is open."""
+    from sparkrdma_tpu_torch.exchange.windows import open_windows
+
+    name = None if coll is None else coll.name
+    for w in open_windows():
+        if w.coll.name == name:
+            return {"moves": w.moves, "handshake_s": w.handshake_s,
+                    "launch_wait_s": w.launch_wait_s,
+                    "window_gb": w.nbytes / 1e9}
+    return {"moves": 0, "handshake_s": 0.0, "launch_wait_s": 0.0,
+            "window_gb": 0.0}
+
+
 def t_worker(rank: int, backend: str) -> dict:
     """Leg T in one worker: for each transport, this process's share of
     leg B's records, a warm-up read and ``T_READS`` timed reads (the
     processes meet at a barrier before each), each with its wall time,
-    its seconds in ``all_to_all_single``, the merge-path launches and
-    the peak memory; then each local partition's totals and digest."""
+    its seconds in ``all_to_all_single``, the merge-path and push
+    launches, the ring window's moves and handshake seconds, and the
+    peak memory; then each local partition's totals and digest."""
     import torch.distributed as dist
 
     from sparkrdma_tpu_torch import MeshRuntime
@@ -5129,7 +5216,8 @@ def t_worker(rank: int, backend: str) -> dict:
     per = RECORDS // PARTS
     out_lines = {}
     for name, conf in (("xla", dist_conf("xla")),
-                       ("hierarchical", dist_conf("hierarchical"))):
+                       ("hierarchical", dist_conf("hierarchical")),
+                       ("pallas_ring", dist_conf("pallas_ring"))):
         m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
         rt = m.runtime
         records = random_records(RECORDS, conf.record_words, 0, rt.device)
@@ -5148,15 +5236,23 @@ def t_worker(rank: int, backend: str) -> dict:
             a2a_s.clear()
             dist.barrier()
             torch.cuda.synchronize()
+            w0 = window_stats()
             t0 = time.perf_counter()
             out, totals = reader.read()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            w1 = window_stats()
             if i:      # the first read is the warm-up
                 reads.append({
                     "wall_s": wall, "a2a_s": a2a_s[None],
                     "merge_stage": kernels["merge_stage"].launches,
                     "merge_splits": kernels["merge_splits"].launches,
+                    "ring_push": kernels["ring_push"].launches,
+                    "moves": w1["moves"] - w0["moves"],
+                    "handshake_s": w1["handshake_s"] - w0["handshake_s"],
+                    "launch_wait_s": (w1["launch_wait_s"]
+                                      - w0["launch_wait_s"]),
+                    "window_gb": w1["window_gb"],
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
         out_lines[name] = {
             "reads": reads, "rounds": plan.num_rounds,
@@ -5331,14 +5427,18 @@ def v_plan_run(m, ds, sync=None, a2a_s=None) -> dict:
 
 def v_service_worker(out_dir: str, rank: int) -> dict:
     """Leg V-service in one worker: one ``ShuffleService`` on the card
-    with the live layer on (leg S's knobs), over leg B's conf on
-    ``"xla"``; S's two tenants in threads at once, each in its session
-    (its own collective scope), each its TeraSort of ``S_RECORDS``
-    (this process's share): the sample, the map stage, a warm-up and
-    ``V_READS`` reads, each read's wall seconds and its partitions'
-    totals and digests; per tenant the seconds in ``all_to_all_single``
-    (the card synced around each call); the worker's merge-path launches
-    and peak memory."""
+    with the live layer on (leg S's knobs), over leg B's conf; S's two
+    tenants in threads at once, each in its session (its own collective
+    scope) on its transport of ``V_TRANSPORTS`` (the ring's tenant in
+    its own window, the other through ``all_to_all_single`` on its
+    scope's group), each its TeraSort of ``S_RECORDS`` (this process's
+    share): the
+    sample, the map stage, a warm-up and ``V_READS`` reads, each read's
+    wall seconds and its partitions' totals and digests; per tenant the
+    seconds in ``all_to_all_single`` (the card synced around each call;
+    the ring's moves go around it) and its window's moves and handshake
+    seconds; the worker's merge-path and push launches and peak
+    memory."""
     import torch.distributed as dist
 
     from sparkrdma_tpu_torch.exchange.partitioners import range_partitioner
@@ -5348,11 +5448,11 @@ def v_service_worker(out_dir: str, rank: int) -> dict:
     from sparkrdma_tpu_torch.workloads.terasort import random_records
 
     sink = os.path.join(out_dir, f"v-service-{rank}.jsonl")
-    conf = dist_conf("xla", metrics_sink=sink, heartbeat_s=1.0,
+    conf = dist_conf("pallas_ring", metrics_sink=sink, heartbeat_s=1.0,
                      telemetry_window_s=1.0, alert_eval_s=1.0, probe_port=0)
     per = S_RECORDS // PARTS
 
-    def tenant(seed, sid):
+    def tenant(name, seed, sid):
         def fn(m):
             rt = m.runtime
             first = rt.local_device_indices()[0] * per
@@ -5380,7 +5480,10 @@ def v_service_worker(out_dir: str, rank: int) -> dict:
                                                       plan.out_capacity)})
                 del out, totals
             m.unregister_shuffle(sid)
-            return {"reads": reads, "scope": m.collectives.name}
+            return {"reads": reads, "scope": m.collectives.name,
+                    "transport": m.conf.transport,
+                    "window": window_stats(m.collectives)}
+        fn.conf = conf.replace(transport=V_TRANSPORTS[name])
         return fn
 
     a2a_s = timed_all_to_all()
@@ -5390,7 +5493,7 @@ def v_service_worker(out_dir: str, rank: int) -> dict:
     t0 = time.perf_counter()
     svc = ShuffleService(conf=conf, device="cuda")
     try:
-        runs = tenant_threads(svc, {name: tenant(seed, sid)
+        runs = tenant_threads(svc, {name: tenant(name, seed, sid)
                                     for name, seed, sid in V_TENANTS})
     finally:
         svc.stop()
@@ -5402,6 +5505,7 @@ def v_service_worker(out_dir: str, rank: int) -> dict:
     res = {"tenants": runs, "e2e_s": e2e,
            "merge_stage": kernels["merge_stage"].launches,
            "merge_splits": kernels["merge_splits"].launches,
+           "ring_push": kernels["ring_push"].launches,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "journal_lines": {k: len(v) for k, v in sorted(kinds.items())}}
     gc.collect()
@@ -5445,15 +5549,23 @@ def dist_phase_worker(rank: int, out_dir: str) -> dict:
 
     res = {"t0": time.perf_counter()}
     per = DIST_RECORDS // PARTS
-    for name, kw in dist_transports():
-        conf = dist_conf("hierarchical" if kw else "xla", **kw)
+    for name, transport, kw in dist_transports():
+        conf = dist_conf(transport, **kw)
         m = ShuffleManager(MeshRuntime(conf, PARTS, device="cuda"))
-        _, out, totals = run_terasort(m, per, seed=DIST_SEED, verify=False,
-                                      warmup=False, shuffle_id=2)
+        kernels = zeroed_counters()
+        ts, out, totals = run_terasort(m, per, seed=DIST_SEED,
+                                       verify=False, warmup=False,
+                                       shuffle_id=2)
         np.save(os.path.join(out_dir, f"ts-{name}-{rank}.npy"),
                 out.cpu().numpy())
         res[name] = {"totals": totals.tolist(), "staged": m.metrics.counter(
-            "transport.hier.staged_exchanges").value}
+            "transport.hier.staged_exchanges").value,
+            "rounds": ts.plan.num_rounds,
+            "dispatches": m._exchange.last_dispatches,
+            "ring_push": kernels["ring_push"].launches,
+            "ring_push_all_to_all": kernels["ring_push_all_to_all"].launches,
+            "merge_stage": kernels["merge_stage"].launches,
+            "merge_splits": kernels["merge_splits"].launches}
         m.stop()
     out, totals = dist_repartition("cuda")
     np.save(os.path.join(out_dir, f"repart-{rank}.npy"), out)
@@ -5634,6 +5746,164 @@ def dist_ckpt_single() -> dict:
     return res
 
 
+def pair_ms(fn, n: int) -> float:
+    """Milliseconds a call of ``fn`` while every worker calls it at once:
+    the processes meet at a barrier, each makes ``n`` calls and syncs
+    its card, and the wall runs to the barrier after the slower one."""
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def pair_once(fn) -> tuple:
+    """One call of ``fn`` in every worker at once, between barriers:
+    ``(its result, milliseconds to the barrier after the slower)``."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def alone_ms(fn, n: int, rank: int) -> float:
+    """Device milliseconds of ``fn`` in this worker while the others wait
+    at a barrier (CUDA events, the workers in turn)."""
+    import torch.distributed as dist
+
+    ms = 0.0
+    for k in range(T_WORKERS):
+        dist.barrier()
+        if k == rank:
+            ms = time_ms(fn, reps=n)
+        dist.barrier()
+    return ms
+
+
+def push_checks(rank: int, keys) -> dict:
+    """The push kernel at each push shape ``keys`` (``(shape, a2a)``, the
+    same list in every worker) on random words: the move through the
+    kernel, the same handshake around the plain push (indexing copies
+    into the peers' windows mapped here) and ``all_to_all_single``, each
+    this worker's receive, bit for bit; then each one timed: the launch
+    alone without the handshake (``kernel_ms``, every worker at once;
+    ``worker_ms`` one worker alone, CUDA events), the plain push, and
+    ``all_to_all_single`` over gloo. Then the handshake's host cost per
+    move at a tiny shape."""
+    from sparkrdma_tpu_torch import MeshRuntime
+    from sparkrdma_tpu_torch.exchange import ring
+    from sparkrdma_tpu_torch.exchange.hierarchical import make_flat_all_to_all
+    from sparkrdma_tpu_torch.exchange.windows import close_scope, window_for
+    from sparkrdma_tpu_torch.runtime.distributed import WORLD
+
+    rt = MeshRuntime(dist_conf("pallas_ring"), PARTS, device="cuda")
+    flat = make_flat_all_to_all(rt)
+    lines = []
+    for shape, a2a in sorted(keys):
+        send = rand_words(shape, seed=zlib.crc32(repr(shape).encode()) + rank)
+        if a2a:
+            send = send.squeeze(1)
+        kernel = ring.ring_push_all_to_all if a2a else ring.ring_push
+        rounds = 1 if a2a else 0
+
+        def plain(s, w):
+            ring.ring_push_plain(s, w.views(), w.rank, rounds)
+
+        got = ring._CrossMove(rt, WORLD, kernel)(send, torch.empty_like(send))
+        want = ring._CrossMove(rt, WORLD, plain)(send, torch.empty_like(send))
+        send_t = send if a2a else send.transpose(1, 2).contiguous()
+        nbytes = send.numel() * 4
+        # gloo's call at a large shape takes ~1 s: the checked call is
+        # its one timing there
+        lib, lib_ms = pair_once(lambda: flat(send_t))
+        lib = lib if a2a else lib.transpose(1, 2)
+        err = max(max_abs_err(got, want), max_abs_err(got, lib))
+        del got, want, lib
+        win = window_for(WORLD, send.device, rt.process_index,
+                         rt.process_count)
+        n = 10 if nbytes < 1e9 else 5
+        launch = lambda: ring._launch(  # noqa: E731
+            send, tuple(win.bases()), win.rank, not a2a)
+        lines.append({
+            "shape": list(shape), "a2a": a2a, "max_abs_err": err,
+            "kernel_ms": pair_ms(launch, n),
+            "worker_ms": alone_ms(launch, n, rank),
+            "plain_ms": pair_ms(lambda: plain(send, win), n),
+            "library_ms": lib_ms if nbytes > 1e8 else pair_ms(
+                lambda: flat(send_t), 5),
+            "bound_ms": 2 * nbytes * T_WORKERS / MEM_RATE * 1e3,
+            "worker_bound_ms": 2 * nbytes / MEM_RATE * 1e3})
+        del send, send_t
+        torch.cuda.empty_cache()
+    slow = slow_read_check(rt, rank)
+    tiny = rand_words((rt.local_partitions, 1, PARTS, 4), seed=rank)
+    out = torch.empty_like(tiny)
+    move = ring._CrossMove(rt, WORLD, ring.ring_push)
+    move(tiny, out)
+    win = window_for(WORLD, tiny.device, rt.process_index, rt.process_count)
+    h0, w0 = win.handshake_s, win.launch_wait_s
+    t0 = time.perf_counter()
+    for _ in range(PUSH_HANDSHAKE_MOVES):
+        move(tiny, out)
+    wall = time.perf_counter() - t0
+    handshake = {"shape": list(tiny.shape), "moves": PUSH_HANDSHAKE_MOVES,
+                 "us_per_move": wall / PUSH_HANDSHAKE_MOVES * 1e6,
+                 "handshake_us_per_move": (win.handshake_s - h0)
+                 / PUSH_HANDSHAKE_MOVES * 1e6,
+                 "launch_wait_us_per_move": (win.launch_wait_s - w0)
+                 / PUSH_HANDSHAKE_MOVES * 1e6}
+    close_scope(WORLD)
+    return {"shapes": lines, "handshake": handshake, "slow_read": slow}
+
+
+#: the slow read's shape a worker (words) and its sleep before the read
+SLOW_READ_WORDS, SLOW_READ_MS = 4096, 200
+
+
+def slow_read_check(rt, rank: int) -> dict:
+    """Write after read on the card: two moves of different words back
+    to back through one window. The first move's receive is read by a
+    clone queued behind ``SLOW_READ_MS`` of ``torch.cuda._sleep``, and
+    the window released, before the second move; the next move's ready
+    step must wait for that read, so the clone holds the first move's
+    words bit for bit, and the second move's receive its own (each
+    against the plain push's move of the same send)."""
+    from sparkrdma_tpu_torch.exchange import ring
+    from sparkrdma_tpu_torch.runtime.distributed import WORLD
+
+    shape = (rt.local_partitions, 1, PARTS, SLOW_READ_WORDS)
+    sends = [rand_words(shape, seed=1000 + 10 * move + rank)
+             for move in range(2)]
+    plain = ring._CrossMove(rt, WORLD, lambda s, w: ring.ring_push_plain(
+        s, w.views(), w.rank))
+    want = [plain(s, torch.empty_like(s)) for s in sends]
+    cycles = int(sleep_cycles_per_ms() * SLOW_READ_MS)
+    move = ring._CrossMove(rt, WORLD, ring.ring_push)
+    t0 = time.perf_counter()
+    first = move(sends[0])              # the window itself
+    torch.cuda._sleep(cycles)
+    read = first.clone()
+    move.release()
+    second = move(sends[1], torch.empty_like(sends[1]))
+    torch.cuda.synchronize()
+    return {"shape": list(shape), "sleep_ms": SLOW_READ_MS,
+            "wall_s": time.perf_counter() - t0,
+            "first_equal": bool(torch.equal(read, want[0])),
+            "second_equal": bool(torch.equal(second, want[1])),
+            "moves_differ": not torch.equal(want[0], want[1])}
+
+
 def distributed_worker(args) -> int:
     """One process of leg T and ``phase: distributed``:
     ``--distributed-worker RANK WORLD INIT_FILE OUT_DIR BACKEND PHASE``
@@ -5652,15 +5922,30 @@ def distributed_worker(args) -> int:
                                   backend=backend, timeout_s=300):
         fail("no process group")
     t0 = time.perf_counter()
-    res = {"T": t_worker(rank, backend), "T_s": time.perf_counter() - t0}
+    seen = {}
+    with RingShapes() as seen["T"]:
+        res = {"T": t_worker(rank, backend)}
+    res["T_s"] = time.perf_counter() - t0
     if phase:
         t0 = time.perf_counter()
-        res["V"] = v_service_worker(out_dir, rank)
+        with RingShapes() as seen["V-service"]:
+            res["V"] = v_service_worker(out_dir, rank)
         res["V_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         res["U"] = u_worker()
         res["U_s"] = time.perf_counter() - t0
-        res["distributed"] = dist_phase_worker(rank, out_dir)
+        with RingShapes() as seen["distributed"]:
+            res["distributed"] = dist_phase_worker(rank, out_dir)
+    # the ring shapes each part launched at, and the push checked there
+    res["ring_shapes"] = {part: [[list(shape), a2a, n] for (shape, a2a), n
+                                 in sorted(rec.counts.items())]
+                          for part, rec in seen.items()}
+    if phase:
+        t0 = time.perf_counter()
+        res["push"] = push_checks(rank, {
+            key for rec in seen.values() for key in rec.counts
+            if is_push(key[0])})
+        res["push"]["seconds"] = time.perf_counter() - t0
     res["jax_imported"] = "jax" in sys.modules
     with open(os.path.join(out_dir, f"worker-{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -5820,7 +6105,9 @@ def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
         tenants[name] = {
             "gbps": statistics.median(r["gbps"] for r in timed_reads),
             "reads": timed_reads, "a2a_s": [r["a2a_s"] for r in runs],
+            "window": [r["window"] for r in runs],
             "scope": runs[0]["scope"],
+            "transport": [r["transport"] for r in runs],
             "one_process_run_wall_s": ref["run_wall_s"]}
     checks_s["each tenant's own collective scope"] = all(
         len({w["V"]["tenants"][n]["scope"] for w in workers}) == 1
@@ -5829,22 +6116,37 @@ def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
              for n, _, _ in V_TENANTS}) == len(V_TENANTS)
     checks_s["merge_stage launched in every worker"] = all(
         w["V"]["merge_stage"] > 0 for w in workers)
+    checks_s["ring_push launched in every worker"] = all(
+        w["V"]["ring_push"] > 0 for w in workers)
+    checks_s["each tenant on its transport"] = all(
+        w["V"]["tenants"][n]["transport"] == V_TRANSPORTS[n]
+        for w in workers for n, _, _ in V_TENANTS)
+    ring_tenants = [n for n, t in V_TRANSPORTS.items() if t == "pallas_ring"]
+    xla_tenants = [n for n, t in V_TRANSPORTS.items() if t == "xla"]
+    checks_s["the ring tenant's window its own"] = all(
+        w["V"]["tenants"][n]["window"]["moves"] > 0
+        for w in workers for n in ring_tenants)
+    checks_s["the xla tenant's all_to_all_single on its own scope"] = all(
+        w["V"]["tenants"][n]["a2a_s"] > 0
+        and w["V"]["tenants"][n]["window"]["moves"] == 0
+        for w in workers for n in xla_tenants)
     checks_s["spans journaled"] = all(
         w["V"]["journal_lines"].get("span", 0) >= len(V_TENANTS) * V_READS
         for w in workers)
     service_line = {
         "leg": "V-service", "tenants": len(V_TENANTS),
         "records_per_tenant": S_RECORDS, "record_bytes": 100,
-        "partitions": PARTS, "processes": T_WORKERS, "transport": "xla",
-        "backend": "gloo",
-        "conf": "leg B's (fast_sort, pow2, pack/wide off) on xla; the "
-                "live layer on as leg S",
+        "partitions": PARTS, "processes": T_WORKERS,
+        "transport": dict(V_TRANSPORTS), "backend": "gloo",
+        "conf": "leg B's (fast_sort, pow2, pack/wide off) on each tenant's "
+                "transport; the live layer on as leg S",
         "per_tenant_gbps": {n: t["gbps"] for n, t in tenants.items()},
         "aggregate_gbps": sum(t["gbps"] for t in tenants.values()),
         "tenants_detail": tenants,
         "e2e_s": [w["V"]["e2e_s"] for w in workers],
         "worker_s": [w["V_s"] for w in workers],
         "merge_stage": [w["V"]["merge_stage"] for w in workers],
+        "ring_push": [w["V"]["ring_push"] for w in workers],
         "peak_gb": [w["V"]["peak_gb"] for w in workers],
         "journal_lines": [w["V"]["journal_lines"] for w in workers],
         "checks": checks_s}
@@ -5852,12 +6154,12 @@ def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
     bad = [k for k, v in {**checks, **checks_s}.items() if not v]
     if bad:
         fail("leg V: " + ", ".join(bad))
-    launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
-                "ring_all_to_all": 0}
+    launches = dict.fromkeys(KERNEL_COUNTS, 0)
     for w in workers:
         for k in ("merge_stage", "merge_splits"):
             launches[k] += w["V"][k] + sum(
                 w["U"]["verbs"]["plans"][n][k] for n in V_PLANS)
+        launches["ring_push"] += w["V"]["ring_push"]
     return {"leg": "V", "launches": launches,
             "plan_s": {n: p["wall_s"] for n, p in plans.items()},
             "per_tenant_gbps": service_line["per_tenant_gbps"]}
@@ -5916,7 +6218,7 @@ def t_line(name: str, ref: dict, workers: list, seconds: float,
                 "backend"], "workers_s": seconds,
             "one_process_xla_read_s": ref["read_s"]}
     checks = {}
-    for transport in ("xla", "hierarchical"):
+    for transport in T_TRANSPORTS:
         per = [w["T"][transport] for w in workers]
         reads = []
         for i in range(T_READS):
@@ -5924,10 +6226,8 @@ def t_line(name: str, ref: dict, workers: list, seconds: float,
             reads.append({
                 "gbps": RECORDS * (KEY_WORDS + VAL_WORDS) * 4
                 / max(walls) / 1e9,
-                "wall_s": walls, "a2a_s": [p["reads"][i]["a2a_s"]
-                                           for p in per],
-                "merge_stage": [p["reads"][i]["merge_stage"] for p in per],
-                "peak_gb": [p["reads"][i]["peak_gb"] for p in per]})
+                "wall_s": walls, **{k: [p["reads"][i][k] for p in per]
+                                    for k in T_READ_KEYS}})
         line[transport] = {"rounds": per[0]["rounds"],
                            "out_capacity": per[0]["out_capacity"],
                            "staged_exchanges": [p["staged"] for p in per],
@@ -5940,6 +6240,8 @@ def t_line(name: str, ref: dict, workers: list, seconds: float,
         checks[f"{transport} merge_stage launched in every worker"] = all(
             r["merge_stage"][k] > 0 for r in reads
             for k in range(T_WORKERS))
+    checks["pallas_ring pushed in every worker and read"] = all(
+        n > 0 for r in line["pallas_ring"]["reads"] for n in r["ring_push"])
     checks["hierarchical staged"] = all(
         p["T"]["hierarchical"]["staged"] > 0 for p in workers)
     checks["no jax"] = not any(w["jax_imported"] for w in workers)
@@ -5976,25 +6278,89 @@ def leg_t() -> dict:
     line = t_line("T", ref, workers, seconds, nccl=nccl)
     u = u_line(u_ref, workers)
     v = v_lines(v_ref, u_ref["plans"], workers)
-    dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref, stream_ref)
-    launches = {"merge_stage": 0, "merge_splits": 0, "ring_exchange": 0,
-                "ring_all_to_all": 0}
+    phase = dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
+                            stream_ref)
+    push = push_lines(workers)
+    launches = dict.fromkeys(KERNEL_COUNTS, 0)
     u_launches = dict(launches)
     for w in workers:
-        for transport in ("xla", "hierarchical"):
+        for transport in T_TRANSPORTS:
             for r in w["T"][transport]["reads"]:
-                launches["merge_stage"] += r["merge_stage"]
-                launches["merge_splits"] += r["merge_splits"]
+                for k in ("merge_stage", "merge_splits", "ring_push"):
+                    launches[k] += r[k]
         for name in U_VERBS:
             u_launches["merge_stage"] += w["U"]["verbs"][name]["merge_stage"]
             u_launches["merge_splits"] += w["U"]["verbs"][name][
                 "merge_splits"]
+    # each part's ring shapes, recorded in the workers
+    shapes = {}
+    for w in workers:
+        for part, rows in w["ring_shapes"].items():
+            for shape, a2a, n in rows:
+                key = (tuple(shape), a2a)
+                counts = shapes.setdefault(part, {})
+                counts[key] = counts.get(key, 0) + n
     return {"leg": "T", "launches": launches, "gbps": {
-        t: [r["gbps"] for r in line[t]["reads"]]
-        for t in ("xla", "hierarchical")},
+        t: [r["gbps"] for r in line[t]["reads"]] for t in T_TRANSPORTS},
         "U": {"leg": "U", "launches": u_launches,
               "verb_s": {k: v["wall_s"] for k, v in u["verbs"].items()}},
-        "V": v}
+        "V": v, "distributed": {"leg": "distributed",
+                                "launches": phase["launches"]},
+        "push": push, "ring_shapes": shapes}
+
+
+#: the kernel wrappers whose launches the legs count
+KERNEL_COUNTS = ("merge_stage", "merge_splits", "ring_exchange",
+                 "ring_all_to_all", "ring_push", "ring_push_all_to_all")
+
+
+def push_lines(workers: list) -> dict:
+    """One ``phase: ring_push`` line per push shape the workers checked
+    (the workers' errors and times side by side) and one for the
+    handshake; fails unless the kernel agreed everywhere. Returns the
+    lines by ``(shape, a2a)`` and the handshake's."""
+    lines = {}
+    per = [w["push"]["shapes"] for w in workers]
+    for rows in zip(*per):
+        first = rows[0]
+        line = {"phase": "ring_push", "shape": first["shape"],
+                "a2a": first["a2a"], "processes": T_WORKERS,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{k: max(r[k] for r in rows)
+                   for k in ("kernel_ms", "plain_ms", "library_ms")},
+                "worker_ms": [r["worker_ms"] for r in rows],
+                "bound_ms": first["bound_ms"],
+                "worker_bound_ms": first["worker_bound_ms"],
+                "bound_by": "bytes",
+                "note": "kernel, plain and library ms: every worker at "
+                        "once (host wall over launches between barriers); "
+                        "worker_ms: one worker alone (CUDA events); "
+                        "bound: the whole exchange's bytes read and "
+                        "written over one HBM"}
+        report(line)
+        lines[(tuple(first["shape"]), first["a2a"])] = line
+        if line["max_abs_err"]:
+            fail(f"the push disagrees with its plain version or with "
+                 f"all_to_all_single at {first['shape']} (a2a "
+                 f"{first['a2a']}): {line['max_abs_err']}")
+    hs = [w["push"]["handshake"] for w in workers]
+    handshake = {"phase": "ring_push", "part": "handshake",
+                 "shape": hs[0]["shape"], "moves": hs[0]["moves"],
+                 **{k: [h[k] for h in hs]
+                    for k in ("us_per_move", "handshake_us_per_move",
+                              "launch_wait_us_per_move")},
+                 "seconds": [w["push"]["seconds"] for w in workers]}
+    report(handshake)
+    slow = {"phase": "ring_push", "part": "slow_read",
+            "workers": [w["push"]["slow_read"] for w in workers]}
+    report(slow)
+    if not all(r["first_equal"] and r["second_equal"] and r["moves_differ"]
+               for r in slow["workers"]):
+        fail("the ring's window was written before its last read was "
+             f"done: {slow['workers']}")
+    if not lines:
+        fail("the workers checked no push shape")
+    return {"lines": lines, "handshake": handshake}
 
 
 def dist_single_refs():
@@ -6027,13 +6393,26 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
         return np.concatenate([np.load(os.path.join(
             out_dir, f"{prefix}-{r}.npy")) for r in range(T_WORKERS)], axis=1)
 
-    for name, kw in dist_transports():
+    launches = dict.fromkeys(KERNEL_COUNTS, 0)
+    for name, transport, kw in dist_transports():
         checks[f"terasort {name} equal"] = (
             np.array_equal(joined(f"ts-{name}"), ts_ref[0])
             and sum((h[name]["totals"] for h in halves), []) == ts_ref[1])
         hosts = kw.get("hierarchy_hosts", 0)
         checks[f"terasort {name} moves"] = all(
             (h[name]["staged"] > 0) == (hosts > 1) for h in halves)
+        for h in halves:
+            for k in launches:
+                launches[k] += h[name].get(k, 0)
+        if transport == "pallas_ring":
+            pushed = "ring_push" if kw["ring_fused"] else \
+                "ring_push_all_to_all"
+            checks[f"terasort {name} {pushed} launched in every worker"] = \
+                all(h[name][pushed] > 0 for h in halves)
+            stream = "max_rounds_in_flight" in kw
+            checks[f"terasort {name} "
+                   f"{'streamed' if stream else 'fused'}"] = all(
+                (h[name]["dispatches"] > 1) == stream for h in halves)
     checks["repartition(16) equal"] = (
         np.array_equal(joined("repart"), rep_ref[0])
         and sum((h["repartition"] for h in halves), []) == rep_ref[1])
@@ -6072,8 +6451,13 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
             checks[f"refuses {name}"] = checks.get(
                 f"refuses {name}", True) and ok
     line = {"phase": "distributed", "records": DIST_RECORDS,
-            "processes": T_WORKERS, "transports": [n for n, _ in
+            "processes": T_WORKERS, "transports": [n for n, _, _ in
                                                    dist_transports()],
+            "rounds": {n: halves[0][n]["rounds"]
+                       for n, _, _ in dist_transports()},
+            "dispatches": {n: halves[0][n]["dispatches"]
+                           for n, _, _ in dist_transports()},
+            "launches": launches,
             "worker_s": [h["seconds"] for h in halves],
             "stream_records": DIST_STREAM_RECORDS,
             "stream_chunks": DIST_STREAM_CHUNKS,
@@ -6159,8 +6543,7 @@ def main(argv=None) -> int:
                 run_leg(legs, shapes, name, fn)
         if "T" in only:
             run_leg(legs, shapes, "T", leg_t)
-            legs["U"] = legs["T"].pop("U")
-            legs["V"] = legs["T"].pop("V")
+            split_leg_t(legs, shapes)
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -6197,8 +6580,7 @@ def main(argv=None) -> int:
     for name, fn in SERVICE_LEGS:
         run_leg(legs, shapes, name, fn)
     run_leg(legs, shapes, "T", leg_t)
-    legs["U"] = legs["T"].pop("U")
-    legs["V"] = legs["T"].pop("V")
+    push = split_leg_t(legs, shapes)
     ring_legs = ring_leg_phases(shapes)
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
@@ -6212,9 +6594,14 @@ def main(argv=None) -> int:
             fail(f"the ring kernel was not launched on leg {name}")
     if legs["P"]["launches"]["merge_stage"] <= 0:
         fail("merge_stage was not launched on leg P")
-    for name in ("T", "U", "V"):
+    for name in ("T", "U", "V", "distributed"):
         if legs[name]["launches"]["merge_stage"] <= 0:
             fail(f"merge_stage was not launched in leg {name}'s workers")
+    for k, name in (("ring_push", "T"), ("ring_push", "V"),
+                    ("ring_push", "distributed"),
+                    ("ring_push_all_to_all", "distributed")):
+        if legs[name]["launches"][k] <= 0:
+            fail(f"{k} was not launched in leg {name}'s workers")
     for k, name in (("ring_exchange", "Q"), ("merge_stage", "Q"),
                     ("ring_exchange", "Q-small"), ("merge_stage", "Q-small"),
                     ("ring_all_to_all", "Q-small")):
@@ -6222,10 +6609,10 @@ def main(argv=None) -> int:
             fail(f"{k} was not launched on leg {name}")
 
     def launches(k):
-        return sum(legs[n]["launches"][k] for n in legs)
+        return sum(legs[n]["launches"].get(k, 0) for n in legs)
 
     def by_leg(k):
-        return {n: legs[n]["launches"][k] for n in legs}
+        return {n: legs[n]["launches"].get(k, 0) for n in legs}
 
     def sub(phase, keys):
         return {k: phase[k] for k in keys}
@@ -6274,6 +6661,12 @@ def main(argv=None) -> int:
          "plain_ms": a2a["plain_ms"], "bound_ms": a2a["bound_ms"],
          "bound_by": "bytes", "library_ms": a2a["library_ms"],
          **sub(a2a, RING_DEVICE_KEYS)},
+        push_entry(push, "ring_push", "sparkrdma_tpu/exchange/ring.py:140",
+                   launches("ring_push"), by_leg("ring_push")),
+        push_entry(push, "ring_push_all_to_all",
+                   "sparkrdma_tpu/exchange/ring.py:87",
+                   launches("ring_push_all_to_all"),
+                   by_leg("ring_push_all_to_all")),
     ]
     report({"smoke_s": time.perf_counter() - t_smoke})
     report({"kernels": kernels})
@@ -6281,6 +6674,47 @@ def main(argv=None) -> int:
                                    "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}})
     return 0
+
+
+def split_leg_t(legs: dict, shapes: dict) -> dict:
+    """Leg T's result holds U's, V's and the phase's, and the ring shapes
+    its workers launched: give each its own entry. Returns the push
+    lines."""
+    for name in ("U", "V", "distributed"):
+        legs[name] = legs["T"].pop(name)
+    for part, counts in legs["T"].pop("ring_shapes").items():
+        mine = shapes.setdefault(part, {})
+        for key, n in counts.items():
+            mine[key] = mine.get(key, 0) + n
+    return legs["T"].pop("push")
+
+
+def push_entry(push: dict, name: str, replaces: str, launches: int,
+               by_leg: dict) -> dict:
+    """The ``kernels`` line's entry of a push wrapper: its numbers at the
+    largest shape it was checked at (leg T's read for ``ring_push``),
+    every shape's beside them."""
+    a2a = name == "ring_push_all_to_all"
+    lines = [v for (_, flag), v in sorted(push["lines"].items())
+             if flag == a2a]
+    if not lines:
+        fail(f"{name} was checked at no shape")
+    top = max(lines, key=lambda v: v["bound_ms"])
+    return {"name": name, "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_by_leg": by_leg, "shape": top["shape"],
+            "max_abs_err": max(v["max_abs_err"] for v in lines),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"],
+            "worker_ms": top["worker_ms"],
+            "worker_bound_ms": top["worker_bound_ms"],
+            "handshake_us_per_move": push["handshake"][
+                "handshake_us_per_move"],
+            "shapes": [{k: v[k] for k in ("shape", "max_abs_err",
+                                          "kernel_ms", "bound_ms")}
+                       for v in lines]}
 
 
 def earlier_legs(legs: dict, shapes: dict):

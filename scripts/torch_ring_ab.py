@@ -7,7 +7,8 @@ shape ``chip_smoke.py`` checks.
 Imports ``sparkrdma_tpu_torch`` from DIR (default: the checkout holding
 this script), builds its kernels there, and prints one JSON line per
 shape of ``chip_smoke.py``'s ``RING_LEG_SHAPES`` and ``RING_PHASE_SHAPES``
-(taken from the ``chip_smoke.py`` beside this script), each checked
+(taken from the ``chip_smoke.py`` beside this script; the push shapes,
+which need two processes, are left to its leg T), each checked
 bit-exact against ``ring_exchange_plain`` first. The timings are
 ``chip_smoke.ring_times``':
 
@@ -83,7 +84,9 @@ def main() -> int:
         line.update(label=label, card=card)
         print(json.dumps(line), flush=True)
 
-    shapes = smoke.RING_LEG_SHAPES + [
+    # the stacked kernel's shapes (the push shapes need two processes)
+    shapes = [row for row in smoke.RING_LEG_SHAPES
+              if not smoke.is_push(row[1])] + [
         (name, shape, False)
         for name, shape in smoke.RING_PHASE_SHAPES.items()]
     for seed, (where, shape, a2a) in enumerate(shapes):

@@ -37,15 +37,32 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+
+
+class PeerTable(ctypes.Structure):
+    """``sr_ring_push``'s table of window base pointers, passed by value:
+    one per process, at most 8 (the rest null); in one process, the
+    receive buffer."""
+
+    _fields_ = [("base", ctypes.c_void_p * 8)]
+
+
 #: C signatures: name -> (argtypes, restype)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "merge_path": {
         "sr_merge_splits": ([_P, _P, _I, _L, _L, _L, _I, _P], _I),
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
     },
     "ring_exchange": {
-        "sr_ring_exchange": ([_P, _P, _I, _I, _L, _I, _L, _L, _P], _I),
+        "sr_ring_push": ([_P, PeerTable, _I, _I, _I, _I, _L, _I, _I, _L,
+                          _L, _I, _P], _I),
+        "sr_window_alloc": ([_I, _L, _PP], _I),
+        "sr_window_free": ([_I, _P], _I),
+        "sr_ipc_export": ([_I, _P, _P], _I),
+        "sr_ipc_open": ([_I, _P, _PP], _I),
+        "sr_ipc_close": ([_I, _P], _I),
     },
 }
 
@@ -229,6 +246,6 @@ def stream_ptr(index: int) -> int:
 
 
 __all__ = ["build_all", "library", "check", "stream_ptr", "count_launch",
-           "BUILD_ROOT",
+           "BUILD_ROOT", "PeerTable",
            "KernelLaunchError", "build_native", "native_lib_path",
            "NATIVE_ROOT"]

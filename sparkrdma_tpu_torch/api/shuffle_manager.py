@@ -115,6 +115,7 @@ from sparkrdma_tpu_torch.config import ShuffleConf
 from sparkrdma_tpu_torch.exchange.errors import (FetchFailedError,
                                                  UnrecoverableShuffleError)
 from sparkrdma_tpu_torch.exchange.protocol import ShuffleExchange, ShufflePlan
+from sparkrdma_tpu_torch.exchange.windows import close_scope
 from sparkrdma_tpu_torch.hbm.slot_pool import Slot
 from sparkrdma_tpu_torch.hbm.tiered_store import TieredStore
 from sparkrdma_tpu_torch.kernels.aggregate import OPS
@@ -1036,6 +1037,9 @@ class ShuffleManager:
             self.rollup.flush()
         self._exchange.release_all()
         self._writers.clear()
+        # the ring's receive windows of this manager's scope (collective
+        # where one is mapped: every process stops alike)
+        close_scope(self.collectives)
         if self.collectives is not WORLD:
             self.collectives.close()
         if self._service_mode:

@@ -45,11 +45,14 @@ Across processes (a runtime that spans a ``torch.distributed`` group,
 ``runtime/mesh.py``) each process plans from the all-gathered counts
 (every process derives the same geometry), runs the map side of its own
 ``L`` source partitions and the reduce side of its own ``L``
-destinations, and moves its ``[L_src, D_dst, ...]`` sends through
-``exchange/hierarchical.py``: ``"xla"`` is one ``all_to_all_single``,
-``"hierarchical"`` the staged move; the counts ride the same move. The
-stacked ring kernel cannot reach another process's memory, so
-``"pallas_ring"`` is refused there (ROADMAP B.1). One process takes the
+destinations, and moves its ``[L_src, D_dst, ...]`` sends: ``"xla"`` is
+one ``all_to_all_single`` and ``"hierarchical"`` the staged move
+(``exchange/hierarchical.py``); ``"pallas_ring"`` is the ring kernel's
+push into every process's registered receive window
+(``exchange/ring.py``, ``exchange/windows.py``), fused or a launch per
+round as in one process, with the handshake on the host, and its
+compaction or fold reads the window in place. The counts ride the same
+move (round 0's prefix lane of the fused ring). One process takes the
 stacked path unchanged.
 
 Buffer reuse contract (``RdmaRegisteredBuffer`` semantics): when the
@@ -198,12 +201,6 @@ class ShuffleExchange:
         self.mesh_size = runtime.num_partitions
         #: processes of the runtime's group (1: the stacked path)
         self.processes = runtime.process_count
-        if self.processes > 1 and self.conf.transport == "pallas_ring":
-            raise ValueError(
-                "transport 'pallas_ring' runs in one process: the stacked "
-                "ring kernel cannot reach another process's memory (the "
-                "one-sided multi-card form is ROADMAP B.1); use 'xla' or "
-                "'hierarchical' across processes")
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
         # the in-span timeline and the stall watchdog default to no-ops,
@@ -395,7 +392,8 @@ class ShuffleExchange:
         -> ``[L_dst, D_src, ...]`` (one process: ``[D_src, D_dst, ...]``
         -> ``[D_dst, D_src, ...]``)."""
         if self.transport() == "pallas_ring":
-            return make_ring_all_to_all(self.mesh_size, self.metrics)
+            return make_ring_all_to_all(self.mesh_size, self.metrics,
+                                        self.runtime, self.collectives)
         if self.transport() == "hierarchical":
             return make_hierarchical_all_to_all(
                 self.runtime, self.conf.hierarchy_hosts, self.metrics,
@@ -789,12 +787,13 @@ class ShuffleExchange:
                                   device=dev)
             return out, totals, incoming
 
+        release = None
         if self._ring_fused_active():
             # dest-major fills written straight into the send buffer's
             # payload lanes; lane 0 of round 0 carries the size exchange
-            send = torch.zeros((mesh, num_rounds, mesh, ppd, w_eff,
+            send = torch.zeros((local, num_rounds, mesh, ppd, w_eff,
                                 capacity + 1), dtype=torch.int32, device=dev)
-            for s in range(mesh):
+            for s in range(local):
                 sr, counts, offs = map_side(s)
                 for r in range(num_rounds):
                     fill_round_slots_dest_major(
@@ -803,12 +802,18 @@ class ShuffleExchange:
                 send[s, 0, :, :, 0, 0] = _device_partition_counts(
                     counts, num_parts, mesh).to(torch.int32)
                 del sr
-            recv = make_ring_exchange(mesh, num_rounds, self.metrics)(send)
+            exchange = make_ring_exchange(mesh, num_rounds, self.metrics,
+                                          rt, self.collectives)
+            # across processes recv is this process's window: read in
+            # place below, then released
+            recv = exchange(send)
+            release = exchange.release
             del send
             # recv[d, r, s, q, w, 1 + c]
             incoming = recv[:, 0, :, :, 0, 0].clone()
             streams = [recv[d, :, :, :, :, 1:].permute(3, 2, 1, 0, 4)
-                       for d in range(mesh)]
+                       for d in range(local)]
+            del recv
         else:
             a2a = self._data_a2a()
             mapped = [map_side(s) for s in range(local)]
@@ -846,6 +851,8 @@ class ShuffleExchange:
                                           aggregator, float_payload, tight)
             out[rows, d * oc:(d + 1) * oc] = part
             totals[d] = total
+        if release is not None:
+            release()
         return out, totals, incoming
 
     # ------------------------------------------------------------------
@@ -904,7 +911,8 @@ class ShuffleExchange:
         unfused = (self.transport() == "pallas_ring"
                    and not self.conf.ring_fused)
         # the move of a hierarchical or multi-process exchange: [L_src,
-        # D_dst, ...] -> [L_dst, D_src, ...] (None: the stacked paths)
+        # D_dst, ...] -> [L_dst, D_src, ...] (None: the stacked paths);
+        # the ring's chunks take its own move below, its counts this one
         cross = (self._data_a2a() if self.transport() == "hierarchical"
                  or self.processes > 1 else None)
 
@@ -953,11 +961,16 @@ class ShuffleExchange:
         send = recv = None
         try:
             acc.zero_()     # a pooled buffer holds its last user's words
-            shape = ((f_in, mesh, mesh, ppd, w_eff, cap) if unfused
+            shape = ((f_in, local, mesh, ppd, w_eff, cap) if unfused
                      else (local, f_in, mesh, ppd, w_eff, cap))
-            move = (make_ring_all_to_all(mesh, m) if unfused
-                    else make_ring_exchange(mesh, f_in, m)
+            move = (make_ring_all_to_all(mesh, m, rt, self.collectives)
+                    if unfused
+                    else make_ring_exchange(mesh, f_in, m, rt,
+                                            self.collectives)
                     if self._ring_fused_active() else None)
+            # across processes the fused ring's receive is the window,
+            # which the fold reads in place
+            in_window = self.processes > 1 and self._ring_fused_active()
             in_flight = collections.deque()
             for j in range(n_chunks):
                 if faults.fire("exchange.stream_round") == "fail":
@@ -1000,7 +1013,11 @@ class ShuffleExchange:
                 send = self._get_buf(shape, dev)
                 torch.gather(src.expand(shape[:4] + src.shape), 5,
                              idx.unsqueeze(4).expand(shape), out=send)
-                if cross is not None:
+                if in_window:
+                    # [L_dst, F, D_src, ...]: a synchronous move, whose
+                    # ready step waits for the last chunk's fold
+                    view = move(send)
+                elif cross is not None and move is None:
                     # [L_src, D_dst, F, ...] -> [L_dst, D_src, F, ...]
                     view = cross(send.transpose(1, 2)).transpose(1, 2)
                 else:
@@ -1008,7 +1025,7 @@ class ShuffleExchange:
                     if unfused:
                         for f in range(f_in):
                             move(send[f], out=recv[f])
-                        view = recv.transpose(0, 1)  # [D, F, S, ppd, W, C]
+                        view = recv.transpose(0, 1)  # [L, F, S, ppd, W, C]
                     elif move is not None:
                         view = move(send, out=recv)
                     else:
@@ -1026,6 +1043,9 @@ class ShuffleExchange:
                 st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
                 acc[:, torch.where(col < ln, st + col, dump)] = \
                     view.permute(4, 0, 1, 2, 3, 5)
+                del view
+                if in_window:
+                    move.release()   # the fold that reads the window
                 if recv is not None:
                     self._put_buf(recv)  # read by the fold already queued
                 recv = None

@@ -225,6 +225,20 @@ class Collectives:
             pg.alltoall_base(out, t, out_splits, in_splits,
                              dist.AllToAllOptions()).wait()
 
+    def barrier(self) -> None:
+        """Return once every process of the scope has called it: the
+        default group's ``dist.barrier`` (a one-word all-reduce on the
+        CPU where the group also carries NCCL), or a one-word all-reduce
+        on the scope's own gloo group."""
+        word = torch.zeros(1)
+        pg = self._group(word)
+        if pg is not None:
+            pg.allreduce([word]).wait()
+        elif dist.get_backend() == "gloo":
+            dist.barrier()
+        else:
+            dist.all_reduce(word)
+
     def close(self) -> None:
         """Drop the scope's groups (a closed session's)."""
         with self._lock:

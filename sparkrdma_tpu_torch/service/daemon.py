@@ -325,7 +325,10 @@ class ShuffleService:
             if self._closed:
                 return
             self._closed = True
-            stragglers = list(self._sessions)
+            # in scope order, the same in every process: a session's
+            # stop closes its ring windows collectively in its scope
+            stragglers = sorted(self._sessions,
+                                key=lambda m: m.collectives.name or "")
             self._sessions.clear()
         for m in stragglers:
             m.stop()

@@ -22,6 +22,10 @@ reference on the conftest's 8-device CPU mesh:
 - the hierarchical transport, H = 1 (flat), 2 (= processes: stage 2
   crosses) and 4 (virtual hosts in each process), fused and streaming,
   against the flat transport;
+- the ring (``"pallas_ring"``, ``ring_fused`` True and False), fused and
+  streaming, its pushes into the processes' shared-memory windows
+  (``exchange/windows.py``) against the flat transport and the
+  reference's ring, and a merge-path TeraSort on the ring;
 - a sharded checkpoint (each process writes only its ``proc{p}`` shard
   files) resumed by fresh managers.
 
@@ -49,6 +53,9 @@ TS_PER, TS_SEED = 160, 11
 REPART_PER, REPART_SEED = 32, 3
 HIER_PER, HIER_SEED = 48, 5
 HOSTS = (1, 2, 4)
+#: the ring's two kernels: fused (every round in one push) and a push a
+#: round
+RING_FUSED = (True, False)
 #: fused (one round in flight covers the plan) and streaming geometries
 HIER_GEOMETRIES = {"fused": dict(slot_records=64),
                    "stream": dict(slot_records=4, max_rounds_in_flight=1)}
@@ -67,6 +74,7 @@ def scenarios(device: str = "cpu", spill_dir: str = "") -> dict:
     from sparkrdma_tpu_torch.api.shuffle_manager import ShuffleManager
     from sparkrdma_tpu_torch.exchange.partitioners import (hash_partitioner,
                                                            modulo_partitioner)
+    from sparkrdma_tpu_torch.exchange.windows import open_windows
     from sparkrdma_tpu_torch.interop import records_from_torch
     from sparkrdma_tpu_torch.meta.sampling import (compute_splitters,
                                                    make_sampler)
@@ -76,6 +84,11 @@ def scenarios(device: str = "cpu", spill_dir: str = "") -> dict:
                                                         run_terasort)
 
     res = {}
+
+    def ring_moves():
+        """Moves through this process's ring windows (0 in one process:
+        the stacked kernel needs none)."""
+        return sum(w.moves for w in open_windows())
 
     def manager(**kw):
         conf = ShuffleConf(**kw)
@@ -114,6 +127,14 @@ def scenarios(device: str = "cpu", spill_dir: str = "") -> dict:
         tres.plan.out_capacity, m.conf.key_words)])
     m.stop()
 
+    # the same TeraSort on the ring
+    m = manager(transport="pallas_ring", **TS_KNOBS)
+    _, out, totals = run_terasort(m, TS_PER, seed=TS_SEED, verify=False,
+                                  warmup=False, shuffle_id=2)
+    keep("terasort_ring", out, totals)
+    res["terasort_ring/moves"] = np.array([ring_moves()])
+    m.stop()
+
     # the hierarchical transport against the flat one
     x = _rows(HIER_PER, HIER_SEED)
     for geo, knobs in HIER_GEOMETRIES.items():
@@ -129,6 +150,17 @@ def scenarios(device: str = "cpu", spill_dir: str = "") -> dict:
                 f"transport.hier.{k}").value
                 for k in ("staged_exchanges", "flat_fallbacks")])
             m.stop()
+        # the ring against the flat transport
+        for fused in RING_FUSED:
+            m = manager(transport="pallas_ring", ring_fused=fused, **knobs)
+            h = m.register_shuffle(3, 16, hash_partitioner(16))
+            plan = m.get_writer(h).write(m.runtime.shard_records(x)).stop()
+            name = f"ring/{geo}/{'fused' if fused else 'per_round'}"
+            keep(name, *m.get_reader(h).read())
+            res[name + "/rounds"] = np.array([plan.num_rounds])
+            res[name + "/moves"] = np.array([ring_moves()])
+            m.stop()
+            res[name + "/closed"] = np.array([not open_windows()])
 
     # a sharded checkpoint, resumed by fresh managers
     if spill_dir:
@@ -263,6 +295,10 @@ def reference():
             res[f"hier/{geo}/{hosts}"] = read(
                 RefConf(transport="hierarchical", hierarchy_hosts=hosts,
                         **knobs), x, refp.hash_partitioner(16), 16)[:2]
+        for fused in RING_FUSED:
+            res[f"ring/{geo}/{fused}"] = read(
+                RefConf(transport="pallas_ring", ring_fused=fused, **knobs),
+                x, refp.hash_partitioner(16), 16)[:2]
     res["ckpt"] = read(RefConf(slot_records=64), _rows(CKPT_PER, CKPT_SEED),
                        refp.modulo_partitioner(D, key_word=1), D)[:2]
     return res
@@ -289,6 +325,8 @@ def _check(parts: list, single: dict, reference: dict, world: int) -> None:
     out_r, tot_r = reference["terasort"](single["terasort/splitters"])
     same("terasort/out", out_r)
     same("terasort/totals", tot_r)
+    same("terasort_ring/out", out_r)
+    same("terasort_ring/totals", tot_r)
     for geo in HIER_GEOMETRIES:
         flat = f"hier/{geo}/xla"
         for hosts in HOSTS:
@@ -305,6 +343,24 @@ def _check(parts: list, single: dict, reference: dict, world: int) -> None:
                 assert p[name + "/moves"].tolist() == want, name
         assert int(parts[0][f"hier/{geo}/xla/rounds"][0]) > (
             1 if geo == "stream" else 0)
+        for fused in RING_FUSED:
+            name = f"ring/{geo}/{'fused' if fused else 'per_round'}"
+            same(name + "/out", _joined(parts, flat + "/out"))
+            same(name + "/totals", _joined(parts, flat + "/totals"))
+            same(name + "/out", reference[f"ring/{geo}/{fused}"][0])
+            same(name + "/totals", reference[f"ring/{geo}/{fused}"][1])
+            rounds = int(parts[0][name + "/rounds"][0])
+            # fused: one push carries the counts and every round; a
+            # chunk of one round streaming, the counts' push first. A
+            # push a round: the counts' move, then one a round
+            want = (1 if geo == "fused" else 1 + rounds) if fused \
+                else 1 + rounds
+            for p in parts:
+                assert int(p[name + "/moves"][0]) == want, name
+                assert p[name + "/closed"][0], name
+            assert int(single[name + "/moves"][0]) == 0
+    for p in parts:
+        assert int(p["terasort_ring/moves"][0]) > 0
     for key in ("ckpt/live", "ckpt/resumed"):
         same(key + "/out", reference["ckpt"][0])
         same(key + "/totals", reference["ckpt"][1])
@@ -475,9 +531,19 @@ def _manager(**kw):
                                       device="cpu"))
 
 
-def test_ring_refused_across_processes(two_processes):
-    with pytest.raises(ValueError, match="B.1"):
-        _manager(transport="pallas_ring")
+def test_ring_runs_across_processes(two_processes):
+    """The ring builds across processes (it refused until its push form
+    came); the scenarios above run it. Without a group nothing is
+    mapped, so stopping closes nothing."""
+    from sparkrdma_tpu_torch.exchange.windows import open_windows
+
+    m = _manager(transport="pallas_ring", ring_fused=False)
+    try:
+        assert m._exchange.processes == 2
+        assert m._exchange.transport() == "pallas_ring"
+    finally:
+        m.stop()
+    assert not open_windows()
 
 
 def _refusals():

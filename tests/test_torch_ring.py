@@ -209,9 +209,21 @@ def _shape_label(shape, a2a):
 #: edge cases
 RING_SHAPES = {
     **{_shape_label(shape, a2a): shape
-       for _, shape, a2a in chip_smoke.RING_LEG_SHAPES},
+       for _, shape, a2a in chip_smoke.RING_LEG_SHAPES
+       if not chip_smoke.is_push(shape)},
     **chip_smoke.RING_PHASE_SHAPES,
     **chip_smoke.RING_EDGE_SHAPES,
+}
+#: push shapes [L, R, D, ...] across P = D / L processes: those leg T's
+#: workers launch the push at, and odd ones
+PUSH_SHAPES = {
+    **{_shape_label(shape, a2a): shape
+       for _, shape, a2a in chip_smoke.RING_LEG_SHAPES
+       if chip_smoke.is_push(shape)},
+    "P=2 chunk 3 mod 4": (4, 2, 8, 1, 3, 5),
+    "P=4 chunk < item": (2, 1, 8, 129),
+    "P=8 chunk = item + 1": (1, 3, 8, 4096 + 1),
+    "P=2 chunk 0": (4, 1, 8, 0),
 }
 #: (send, recv) base offsets in words: 4, 8 and 12 bytes
 PHASES = [(0, 0), (1, 0), (0, 2), (3, 1), (2, 3)]
@@ -291,12 +303,25 @@ def _emulate(send, d, r, chunk, plan, send_phase, recv_phase):
     """The kernel's copy, item by item, of the flat int32 ``send`` (its
     first word ``send_phase`` words past a 16-byte boundary) into a recv
     based ``recv_phase`` words past one. Returns recv and the write count
-    of each word; asserts that every 16-byte block read lies in send and
-    every vector store is aligned."""
+    of each word (:func:`_emulate_items`)."""
+    src, dst, ln = _items(d, r, chunk, plan)
+    return _emulate_items(send, src, dst, ln, send.size, send_phase,
+                          recv_phase)
+
+
+def _emulate_items(send, srcs, dsts, lens, total_out, send_phase,
+                   recv_phase):
+    """``copy_item`` of ``csrc/ring_exchange.cu`` for each item (source
+    offset, destination offset, length in words) of the flat int32
+    ``send`` into a fresh output of ``total_out`` words: scalar head,
+    16-byte body aligned or at a word shift, scalar tail, and the guard
+    that keeps the shifted body's reads inside send. Returns the output
+    and the write count of each word; asserts that every 16-byte block
+    read lies in send and every vector store is aligned."""
     total = send.size
-    recv = np.zeros_like(send)
-    writes = np.zeros(total, dtype=np.int64)
-    for src, dst, ln in zip(*_items(d, r, chunk, plan)):
+    recv = np.zeros(total_out, dtype=send.dtype)
+    writes = np.zeros(total_out, dtype=np.int64)
+    for src, dst, ln in zip(srcs, dsts, lens):
         src, dst, ln = int(src), int(dst), int(ln)
         head = min((4 - (recv_phase + dst) % 4) % 4, ln)
         shift = (send_phase + src + head) % 4
@@ -360,3 +385,116 @@ def test_cpu_wrappers_take_views_and_out(shape):
     a2a = send[:, 0]
     assert torch.equal(port.ring_all_to_all(a2a),
                        a2a.transpose(0, 1).contiguous())
+
+
+# --- the push form (across processes), held on the CPU alike -------------
+#
+# Each of P processes launches the push on its own send; together the
+# launches must write every word of every window once, each chunk where
+# ``push_targets`` (the plain push's indices) puts it, and the per-item
+# copy must give the plain push's windows.
+
+def _push_items(shape, rank, chunk=None):
+    """Process ``rank``'s items as the kernel computes them: (source
+    offset, window, destination offset in it, length), in words."""
+    local, r, d = shape[0], shape[1], shape[2]
+    if chunk is None:
+        chunk = int(np.prod(shape[3:], dtype=np.int64))
+    plan = port.launch_plan(d, r, chunk, local)
+    it = np.arange(plan.grid, dtype=np.int64)
+    c = it // plan.items_per_chunk
+    lo = (it - c * plan.items_per_chunk) * plan.item_words
+    dd, rr, ll = c % d, (c // d) % r, c // (r * d)
+    peer, dl = dd // local, dd % local
+    dst = ((dl * r + rr) * d + rank * local + ll) * chunk + lo
+    return (c * chunk + lo, peer, dst,
+            np.minimum(plan.item_words, chunk - lo), plan)
+
+
+@pytest.mark.parametrize("name", list(PUSH_SHAPES))
+def test_push_launch_plan_covers_every_window(name):
+    shape = PUSH_SHAPES[name]
+    local, r, d = shape[0], shape[1], shape[2]
+    procs = d // local
+    chunk = int(np.prod(shape[3:], dtype=np.int64))
+    window = local * r * d * chunk
+    starts, lengths = [], []
+    for rank in range(procs):
+        src, peer, dst, ln, plan = _push_items(shape, rank)
+        assert plan.grid == local * r * d * plan.items_per_chunk < 2**31
+        if chunk == 0:
+            assert plan.grid == 0
+            continue
+        assert _tiles(src, ln, window)            # its whole send, once
+        peers, index = port.push_targets(rank, procs, local, r)
+        c = src // chunk
+        np.testing.assert_array_equal(peer, peers[c])
+        np.testing.assert_array_equal(dst // chunk, index[c])
+        np.testing.assert_array_equal(src % chunk, dst % chunk)
+        starts.append(peer * window + dst)
+        lengths.append(ln)
+    if chunk:
+        assert _tiles(np.concatenate(starts), np.concatenate(lengths),
+                      procs * window)
+
+
+@pytest.mark.parametrize("phases", PHASES[:3],
+                         ids=[f"send+{4 * a}B-window+{4 * b}B"
+                              for a, b in PHASES[:3]])
+@pytest.mark.parametrize("name", list(PUSH_SHAPES))
+def test_push_item_copy_emulation_matches_plain(name, phases):
+    """The kernel's per-item copy (``copy_item``, emulated by
+    :func:`_emulate_items`) of every process's send gives the windows
+    of the plain push."""
+    shape = PUSH_SHAPES[name]
+    local, r, d = shape[0], shape[1], shape[2]
+    procs = d // local
+    chunk = _emulated_chunk((d, r, d) + tuple(shape[3:]))
+    rng = np.random.default_rng(zlib.crc32(repr((name, phases)).encode()))
+    window = local * r * d * chunk
+    want = [torch.zeros(window, dtype=torch.int32) for _ in range(procs)]
+    got = [np.zeros(window, np.int32) for _ in range(procs)]
+    writes = [np.zeros(window, np.int64) for _ in range(procs)]
+    send_phase, recv_phase = phases
+    for rank in range(procs):
+        send = rng.integers(-2**31, 2**31, size=(local, r, d, chunk),
+                            dtype=np.int64).astype(np.int32)
+        port.ring_push_plain(torch.from_numpy(send), want, rank)
+        flat = send.reshape(-1)
+        src, peer, dst, ln, _ = _push_items((local, r, d), rank, chunk)
+        for q in range(procs):
+            mine = peer == q
+            # the stacked emulation's item loop, on this window's items
+            out, w = _emulate_items(flat, src[mine], dst[mine], ln[mine],
+                                    window, send_phase, recv_phase)
+            touched = w > 0
+            got[q][touched] = out[touched]
+            writes[q] += w
+    for q in range(procs):
+        assert (writes[q] == 1).all()
+        np.testing.assert_array_equal(got[q], want[q].numpy())
+
+
+
+def test_signatures_declare_every_entry_point():
+    """``_build.SIGNATURES`` declares each ``extern "C"`` entry point of
+    ``csrc/ring_exchange.cu`` (the launch, stacked or across processes,
+    and the five window calls) with one argument type a parameter, and
+    nothing the source lacks: ctypes would pass an undeclared one
+    wrongly."""
+    import re
+
+    from sparkrdma_tpu_torch import _build
+
+    src = (_build.CSRC / "ring_exchange.cu").read_text()
+    entries = dict(re.findall(r"^int (sr_\w+)\(([^)]*)\)", src, re.M))
+    declared = _build.SIGNATURES["ring_exchange"]
+    assert set(entries) == set(declared) == {
+        "sr_ring_push", "sr_window_alloc",
+        "sr_window_free", "sr_ipc_export", "sr_ipc_open", "sr_ipc_close"}
+    for name, params in entries.items():
+        args, res = declared[name]
+        assert len(args) == len(params.split(",")), name
+        assert res is _build.ctypes.c_int
+    assert declared["sr_ring_push"][0][1] is _build.PeerTable
+    assert len(_build.PeerTable().base) == 8
