@@ -142,6 +142,11 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        # _lock holds the nvcc build on purpose: it runs once per
+        # process, concurrent first callers wait for it instead of
+        # compiling twice, and a built library is never rebuilt under
+        # it. Leaf lock by design.
+        # srlint: ignore[blocking-under-lock]
         paths = build_all()
         for lib_name, path in paths.items():
             if lib_name in _libs:

@@ -261,7 +261,12 @@ def load_native() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            # one build and dlopen per process: first callers wait here
+            # _lib_lock exists precisely to serialize this one-shot
+            # build+dlopen: concurrent first callers must block until
+            # the single build finishes, and the result is cached so
+            # the lock is never held for the build again. Leaf lock by
+            # design.
+            # srlint: ignore[blocking-under-lock]
             path = _build.build_native(native_flavor())
             try:
                 cdll = ctypes.CDLL(str(path))

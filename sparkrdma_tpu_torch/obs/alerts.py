@@ -186,6 +186,10 @@ def _journal_errors(ctx: EvalContext) -> List[Breach]:
     return []
 
 
+# kept for the reference's alert table, but nothing in the port writes
+# degrade.* (ROADMAP C.1.18: the port has no degradation rungs, C.1.6,
+# C.1.9), so obs/names.py declares no such family
+# srlint: ignore[alert-rule-sync]
 @alert_rule("degrade_rung", severity="warn", subsystem="faults",
             condition="burn_rate", metrics=("degrade.*",),
             description="the degradation ladder took a rung")

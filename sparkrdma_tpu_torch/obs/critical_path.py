@@ -45,14 +45,16 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, Optional, Tuple
 
 #: every key a span's ``phase_s`` dict may carry (lint-pinned: the
-#: CLIs' ``ph.get("...")`` reads are checked against this set)
+#: port's srlint rule ``journal-schema-sync``, ``lint/rules_sync.py``,
+#: checks the CLIs' ``ph.get("...")`` reads against this set)
 PHASES = frozenset({
     "plan", "combine", "encode", "h2d", "d2h", "decode", "dispatch",
     "queue_block", "fold", "spill", "admission_wait", "other",
 })
 
 #: every bottleneck verdict a span (or a report-side merge) may carry
-#: (lint-pinned: ``*-bound`` literals in the CLIs are checked)
+#: (lint-pinned: ``journal-schema-sync`` checks the ``*-bound``
+#: literals in the CLIs against this set)
 VERDICTS = frozenset({
     "codec-bound", "fabric-bound", "spill-bound", "admission-bound",
     "straggler-bound",

@@ -3,15 +3,19 @@ histogram and timeline counter-track that ``sparkrdma_tpu_torch`` emits.
 
 The port's own list, beside the reference's ``sparkrdma_tpu.obs.names``:
 the names are the contract the reference's CLIs read back out of
-journals and registry snapshots by string. ``tests/test_torch_obs.py``
-does for the port what srlint's ``counter-name-sync`` rule does for the
-reference: it scans the port's AST for ``.counter("...")`` /
-``.gauge("...")`` / ``.histogram("...")`` calls and fails when an
-emitted name is missing here or a name declared here has no emission
-site left. Dynamic families (``f"faults.{site}"``) are declared as
-wildcard patterns in :data:`WILDCARDS`.
+journals and registry snapshots by string. The port's srlint rule
+``counter-name-sync`` (``sparkrdma_tpu_torch/lint/rules_sync.py``, run by
+``scripts/torch_srlint.py`` and ``tests/test_torch_lint.py``) holds it
+both ways: every ``.counter("...")`` / ``.gauge("...")`` /
+``.histogram("...")`` name the port emits must be declared here, every
+name declared here must have an emission site, and every metric the
+CLIs read back must be declared. Dynamic families
+(``f"faults.{site}"``) are declared as wildcard patterns in
+:data:`WILDCARDS`; an f-string whose holes are parameters of a helper
+(``api/serde.py``'s ``_count``) is read with each caller's literals
+filled in. ``tests/test_torch_obs.py`` keeps its own AST scan as well.
 
-Stdlib only (``frozenset``), so the test can read it with ``ast``.
+Stdlib only (``frozenset``), so the lint can read it with ``ast``.
 """
 
 from __future__ import annotations

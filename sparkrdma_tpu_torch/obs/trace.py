@@ -63,7 +63,8 @@ from sparkrdma_tpu_torch.obs.journal import SCHEMA_VERSION
 from sparkrdma_tpu_torch.obs.timeline import record_active
 
 #: every key a ``{"kind": "job"}`` line carries (lint-pinned: the
-#: CLIs' ``jb.get("...")`` reads are checked against this set)
+#: port's srlint rule ``trace-schema-sync``, ``lint/rules_sync.py``,
+#: checks the CLIs' ``jb.get("...")`` reads against this set)
 JOB_FIELDS = frozenset({
     "kind", "schema", "ts", "trace_id", "job", "tenant", "process_index",
     "start_ts", "wall_s", "stage_idle_s", "stage_count", "spans",
@@ -72,7 +73,8 @@ JOB_FIELDS = frozenset({
 })
 
 #: every key a per-stage record inside ``stages`` carries (lint-pinned
-#: the same way, against ``st.get("...")`` reads)
+#: by ``trace-schema-sync`` the same way, against ``st.get("...")``
+#: reads)
 STAGE_FIELDS = frozenset({
     "stage", "attempt", "start_ts", "wall_s", "phase_s", "spans",
     "records", "bytes", "bottleneck",
@@ -80,7 +82,9 @@ STAGE_FIELDS = frozenset({
 
 #: the declared stage-name vocabulary — every stage the bundled
 #: workloads annotate. CLI stage-advice tables key on these names
-#: (lint-pinned); ad-hoc user stages are legal, they just get generic
+#: (lint-pinned: ``trace-schema-sync`` checks the advice table and
+#: every literal stage annotation in the port against this set);
+#: ad-hoc user stages are legal, they just get generic
 #: remediation in ``shuffle_report --doctor``.
 STAGE_VOCAB = frozenset({
     "item_join", "store_join", "group_agg",     # tpcds q64 shape

@@ -178,7 +178,7 @@ class TelemetryStore:
         the trailing ``span_s`` seconds of the ring (all when None).
         Caller must hold ``_lock``."""
         pts = [(ts, flat[name]) for ts, flat
-               in self._samples if name in flat]
+               in self._samples if name in flat]  # srlint: ignore[guarded-by]
         if span_s is not None and pts:
             cutoff = pts[-1][0] - span_s
             pts = [p for p in pts if p[0] >= cutoff]

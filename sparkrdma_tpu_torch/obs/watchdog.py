@@ -134,6 +134,12 @@ class StallWatchdog:
             self._waits[wid] = (now + self.timeout_s, record)
             self._last_armed = now
             if self._poller is None:
+                # daemon by design (ROADMAP C.1.16): one poll thread
+                # per watchdog that parks itself once nothing has been
+                # armed for _IDLE_S; the watchdog has no stop() to
+                # join it from, and a process exit mid-wait leaves it
+                # nothing to do
+                # srlint: ignore[thread-lifecycle]
                 self._poller = threading.Thread(
                     target=self._poll, name="stall-watchdog", daemon=True)
                 self._poller.start()

@@ -143,8 +143,8 @@ class RpcClient:
                 # thread's frames with this call's
                 with self._lock:
                     sock = self._ensure_connected()
-                    send_frame(sock, req)
-                    reply = recv_frame(sock)
+                    send_frame(sock, req)    # srlint: ignore[blocking-under-lock]
+                    reply = recv_frame(sock)  # srlint: ignore[blocking-under-lock]
                 if reply.get("req_id") != req_id:
                     raise FrameError("reply/request id mismatch")
             except (ConnectionError, FrameError, socket.timeout,

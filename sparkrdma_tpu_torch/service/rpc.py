@@ -233,7 +233,9 @@ class RpcServer:
             except OSError:
                 break
             conn.settimeout(_CONN_POLL_S)
-            # joined from stop() through the _conns list
+            # joined from stop() through the _conns list (the lint
+            # can't trace the collection)
+            # srlint: ignore[thread-lifecycle]
             th = threading.Thread(target=self._serve_conn,
                                   args=(conn,),
                                   name="sparkrdma-rpc-conn", daemon=True)
