@@ -91,7 +91,9 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
      I        ``run_repartition``, ``BASELINE.md`` config 1: 134,217,728
               8-byte records into 256 parts, placement checked on the card;
      J        ``run_hash_join``, 16,777,216 × 100-byte rows a side, and
-              ``Dataset.join`` on the same rows, held against numpy;
+              ``Dataset.join`` on the same rows, held against a numpy
+              join, which a child process of the smoke computes from the
+              smoke's start (``--join-reference``);
      K        every ``Dataset`` verb on 16,777,216 Zipf-keyed 100-byte
               records, each held against numpy;
      K-small  2^20 records through every verb, card against CPU, with
@@ -277,10 +279,22 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
                   bit for bit, then each timed (both workers at once,
                   each alone, against the whole exchange's bound); and
                   the handshake's host microseconds a move;
-   then the stacked ring kernel at every send shape legs B-S launched it at
-   (recorded while each leg ran), each against its plain version and
-   timed (cold only where a send/out pair is 1 MiB or more);
-14. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
+14. the port's soaks (``phase: chaos``): ``scripts/torch_chaos_soak.py``
+    (the reference's seven passes: control and chaos legs under a
+    seven-site fault schedule, two tenants with the probe under fire,
+    map-side combine, two RPC worker processes, alerts, the planner) at
+    65,536 records a partition, every exchange streamed through the ring
+    kernel, and ``scripts/torch_oversub_soak.py`` at 16 chunks of 262,144
+    records, both at once, each a child of this script
+    (``--soak-child``), started once leg Q-small's launch-failure child
+    has exited and run beside the rest of Q-small (its lines follow
+    Q-small's): each summary must read ``"ok": true``; the chaos soak's
+    launches and ring shapes join the legs';
+   then the stacked ring kernel at every send shape legs B-S and the
+   chaos soak launched it at (recorded while each leg ran), each against
+   its plain version and timed (cold only where a send/out pair is 1 MiB
+   or more);
+15. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
 Every phase, leg, profile and leg-seconds line carries ``wall_s``: the
@@ -581,6 +595,7 @@ def merge_phase() -> dict:
 RING_LEG_SHAPES = [
     # (legs, shape, a2a)
     ("M-small", (8, 1, 8, 1, 3, 14), False),
+    ("chaos", (8, 1, 8, 1, 3, 256), False),
     ("D-small", (8, 1, 8, 1, 3, 32769), False),
     ("E", (8, 1, 8, 1, 3, 2097153), False),
     ("M-small", (8, 1, 8, 1, 4, 5), False),
@@ -596,14 +611,18 @@ RING_LEG_SHAPES = [
     ("D-small", (8, 1, 8, 1, 4, 32768), True),
     ("D-small", (8, 1, 8, 1, 4, 32769), False),
     ("D", (8, 1, 8, 1, 4, 524289), False),
-    ("M-small", (8, 1, 8, 1, 6, 2), False),
+    ("M-small, chaos", (8, 1, 8, 1, 6, 2), False),
     ("M-small", (8, 1, 8, 1, 6, 6), False),
     ("M-small", (8, 1, 8, 1, 6, 12), False),
     ("M-small", (8, 1, 8, 1, 6, 14), False),
     ("M-small", (8, 1, 8, 1, 6, 16), False),
     ("M-small", (8, 1, 8, 1, 6, 43), False),
     ("M-small", (8, 1, 8, 1, 6, 249), False),
+    ("chaos", (8, 1, 8, 1, 6, 256), False),
     ("M-small", (8, 1, 8, 1, 6, 1665), False),
+    # the chaos soak's 256-record slots (W = 9; the planner pass W = 6)
+    ("chaos", (8, 1, 8, 1, 9, 256), False),
+    ("chaos", (8, 1, 8, 1, 9, 257), False),
     ("H-small", (8, 1, 8, 1, 25, 1152), True),
     ("H-small, Q-small, service", (8, 1, 8, 1, 25, 1153), False),
     ("H-small", (8, 1, 8, 1, 25, 1216), True),
@@ -619,6 +638,9 @@ RING_LEG_SHAPES = [
     ("B", (8, 1, 8, 1, 25, 524289), False),
     ("L-small", (8, 1, 8, 1, 46, 32769), False),
     ("L", (8, 1, 8, 1, 46, 524289), False),
+    ("chaos", (8, 1, 8, 4, 6, 256), False),
+    ("chaos", (8, 1, 8, 26, 6, 256), False),
+    ("chaos", (8, 1, 8, 184, 6, 256), False),
     ("G-small, N", (8, 2, 8, 1, 4, 4096), False),
     ("M-small", (8, 2, 8, 1, 6, 4096), False),
     ("F-small, K, K-small, Q-small", (8, 2, 8, 1, 25, 4096), False),
@@ -2172,8 +2194,10 @@ def leg_j() -> dict:
         m, J_ROWS, J_ROWS, key_range=J_KEY_RANGE, seed=0, verify=False))
     xa, xb = join_tables(J_ROWS, J_KEY_RANGE, seed=0)
     t0 = time.perf_counter()
-    want_codes, ref_count, ref_sum = join_codes_expect(xa, xb)
-    ref_s = time.perf_counter() - t0
+    ref = reference("--join-reference", "J")
+    want_codes, ref_count, ref_sum = (ref["codes"], int(ref["count"]),
+                                      float(ref["total"]))
+    check_wait_s = time.perf_counter() - t0
     da = Dataset.from_host_rows(m, xa)
     db = Dataset.from_host_rows(m, xb)
     (joined, totals), ds_join_s = timed(lambda: da.join(db))
@@ -2193,7 +2217,10 @@ def leg_j() -> dict:
             "shuffle_s": res.shuffle_s, "join_s": res.join_s,
             "shuffle_gbps": (res.rows_a + res.rows_b)
             * 4 * (KEY_WORDS + VAL_WORDS) / res.shuffle_s / 1e9,
-            "run_hash_join_wall_s": wall, "numpy_ref_s": ref_s,
+            "run_hash_join_wall_s": wall,
+            "numpy_ref": "join_codes_expect in a child process since the "
+                         "smoke's start",
+            "check_wait_s": check_wait_s,
             "dataset_join_s": ds_join_s,
             "dataset_join_rows": int(np.asarray(totals).sum()),
             "joined_row_bytes": 4 * (KEY_WORDS + 2 * VAL_WORDS),
@@ -2543,33 +2570,60 @@ def wire_reduction(ws: dict):
     return ws["combine_in_bytes"] / ws["combine_out_bytes"]
 
 
-#: leg L's check, ``_numpy_als`` (float64 sparse products; ~20 s in
-#: which scipy holds the GIL), runs in a child process of this script that
-#: the full run starts first, so that it overlaps the legs before L:
-#: ``(process, output path, its directory)``
-_ALS_CHILD = []
+#: the host references of legs J and L, ``join_codes_expect`` (~7 s of
+#: numpy sorts) and ``_numpy_als`` (float64 sparse products; ~20 s in
+#: which scipy holds the GIL), each run in a child process of this
+#: script that the full run starts first, so that it overlaps the legs
+#: before its own: flag -> ``(process, output path, its directory)``
+_REF_CHILDREN = {}
 
 
-def start_als_reference() -> None:
-    """Start leg L's check in a child process (``--als-reference PATH``)."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_als_")
-    path = os.path.join(root, "als_reference.npz")
+def start_references() -> None:
+    """Start legs J's and L's checks in child processes
+    (``--join-reference PATH``, ``--als-reference PATH``)."""
     env = dict(os.environ, OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
                MKL_NUM_THREADS="2")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--als-reference", path],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    _ALS_CHILD.append((proc, path, root))
-    atexit.register(stop_als_reference)
+    for flag in ("--join-reference", "--als-reference"):
+        root = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+        path = os.path.join(root, "reference.npz")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, path],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        _REF_CHILDREN[flag] = (proc, path, root)
+    atexit.register(stop_references)
 
 
-def stop_als_reference() -> None:
-    """Kill the child if it still runs, and drop its directory."""
-    for proc, _, root in _ALS_CHILD:
+def stop_references() -> None:
+    """Kill the children still running, and drop their directories."""
+    for proc, _, root in _REF_CHILDREN.values():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def reference(flag: str, leg: str):
+    """The arrays the ``flag`` child saved, waited for (the smoke fails
+    if the child did)."""
+    proc, path, _ = _REF_CHILDREN[flag]
+    try:
+        out = proc.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        fail(f"leg {leg}'s reference child ran past 600 s")
+    if proc.returncode:
+        print(out[-4000:], file=sys.stderr)
+        fail(f"leg {leg}'s reference child exited {proc.returncode}")
+    return np.load(path)
+
+
+def join_reference_child(path: str) -> int:
+    """The child: ``join_codes_expect`` on leg J's tables, saved to
+    ``path``."""
+    codes, count, total = join_codes_expect(
+        *join_tables(J_ROWS, J_KEY_RANGE, seed=0))
+    np.savez(path, codes=codes, count=count, total=total)
+    return 0
 
 
 def als_reference_child(path: str) -> int:
@@ -2586,17 +2640,8 @@ def als_reference_child(path: str) -> int:
 
 
 def als_reference():
-    """The child's ``(U, V)``, waited for (the smoke fails if the child
-    did)."""
-    proc, path, _ = _ALS_CHILD[0]
-    try:
-        out = proc.communicate(timeout=600)[0]
-    except subprocess.TimeoutExpired:
-        fail("leg L's numpy ALS child ran past 600 s")
-    if proc.returncode:
-        print(out[-4000:], file=sys.stderr)
-        fail(f"leg L's numpy ALS child exited {proc.returncode}")
-    ref = np.load(path)
+    """The ALS child's ``(U, V)``, waited for."""
+    ref = reference("--als-reference", "L")
     return ref["u"], ref["v"]
 
 
@@ -2605,7 +2650,7 @@ def leg_l() -> dict:
     users, 26,744 items, 20,000,263 ratings; generated, the file is not in
     the repository), rank 8, 5 iterations, checked against ``_numpy_als``
     at the reference's rtol 2e-3, atol 2e-4 (computed by the child process
-    :func:`start_als_reference` started, from the same ratings and initial
+    :func:`start_references` started, from the same ratings and initial
     factors)."""
     from sparkrdma_tpu_torch import MeshRuntime, ShuffleConf
     from sparkrdma_tpu_torch.workloads.als import run_als
@@ -2871,6 +2916,13 @@ def leg_o() -> dict:
     return line
 
 
+#: leg P's generated inputs (``v1``: keys and payloads; ``cols``: keys
+#: and columns), kept for the native_staging codec line, which times the
+#: codecs on the same data (made from the same seed) and takes them from
+#: here instead of making them again
+_P_INPUTS: dict = {}
+
+
 def p_v1_data(rng, n: int):
     """Leg P's v1 input: keys (random word, a permutation) and 0-92 B
     payloads."""
@@ -2957,6 +3009,7 @@ def leg_p() -> dict:
     checks["v1_round_trip"] = bool(np.array_equal(k, keys[order])) and \
         p == [pays[i] for i in order.tolist()]
     v1_mb = rows.nbytes / 1e6
+    _P_INPUTS["v1"] = (keys, pays)
     del ds, srt, k, p, pays, rows
     m.stop()
     torch.cuda.empty_cache()
@@ -2987,6 +3040,7 @@ def leg_p() -> dict:
         and not c["u"].any() and not np.ascontiguousarray(
             c["f"]).view(np.uint64).any())
     cols_mb = rows.nbytes / 1e6
+    _P_INPUTS["cols"] = (keys, cols)
     line = {"leg": "P", "workload": "serde round trip",
             "v1_records": P_V1, "v1_max_payload_bytes": P_MAXB,
             "v1_record_bytes": 4 * 26, "cols_records": P_COLS,
@@ -3359,14 +3413,16 @@ def launch_failure_child() -> int:
     os._exit(0)
 
 
-def leg_q_small() -> dict:
+def leg_q_small(after_child=None) -> dict:
     """2^20 records at leg F-small's geometry with ``fast_sort``: step
     3's schedule on the card and on the CPU (and with
     ``ring_fused=False``), each equal to the read without faults;
     checkpoints across devices; the failure paths (a persistent fault,
     the deadline, the backoff schedule, a corrupt checkpoint); each
     storage and pool site; the books; and a real failed launch in a
-    child process."""
+    child process, run first: ``after_child()``, if given, is called once
+    it has exited (the smoke starts the chaos phase's soaks there, so
+    that no soak runs while the child's launches fault)."""
     from sparkrdma_tpu_torch import faults
     from sparkrdma_tpu_torch.api import shuffle_manager as sm_mod
     from sparkrdma_tpu_torch.exchange.errors import (
@@ -3412,6 +3468,27 @@ def leg_q_small() -> dict:
                        "terminal": terminal}
         checks[name] = bool(ok)
 
+    # a real failed launch, in a child process
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--launch-failure-child"], capture_output=True,
+                          text=True, timeout=300)
+    child = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith('{"child"'):
+            child = json.loads(ln)
+    if child is None:
+        fail(f"leg Q-small: the launch-failure child printed no result "
+             f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
+    for name in ("refused_launch", "illegal_address"):
+        r = child[name]
+        checks[f"child {name}: FetchFailedError after max attempts"] = bool(
+            r["fetch_failed"] and r["attempt"] == child["max_retry_attempts"]
+            and r["device_error_in_chain"])
+    checks["child read after a refused launch equal"] = \
+        child["read_after_refused_launch_equal"]
+    if after_child is not None:
+        after_child()
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_q_small_") as tmp:
         # the schedule, card and CPU, two variants
         control = {}
@@ -3451,13 +3528,14 @@ def leg_q_small() -> dict:
         checks["ring_fused=False equals default"] = same(
             control["ring_fused=False", "cuda"], want)
 
-        # checkpoints across devices
+        # checkpoints across devices: the resumed read against the
+        # source device's control read of the same records and conf
         for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
             root = os.path.join(tmp, f"{src}-to-{dst}")
             m = qs_manager(src, spill_to_host=True, spill_dir=root)
-            h, _ = write(m, 2)
-            first = read(m, h)
+            write(m, 2)
             m.stop()
+            first = control["default", src]
             m = qs_manager(dst, spill_dir=root)
             h = m.register_shuffle(2, PARTS, part)
             m.resume_shuffle(h)
@@ -3634,24 +3712,6 @@ def leg_q_small() -> dict:
         b["injected"] == b["retries"] + b["recoveries"] + b["terminal"]
         for b in books.values())
 
-    # a real failed launch, in a child process
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--launch-failure-child"], capture_output=True,
-                          text=True, timeout=300)
-    child = None
-    for ln in proc.stdout.splitlines():
-        if ln.startswith('{"child"'):
-            child = json.loads(ln)
-    if child is None:
-        fail(f"leg Q-small: the launch-failure child printed no result "
-             f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
-    for name in ("refused_launch", "illegal_address"):
-        r = child[name]
-        checks[f"child {name}: FetchFailedError after max attempts"] = bool(
-            r["fetch_failed"] and r["attempt"] == child["max_retry_attempts"]
-            and r["device_error_in_chain"])
-    checks["child read after a refused launch equal"] = \
-        child["read_after_refused_launch_equal"]
     line = {"leg": "Q-small", "records": Q_SMALL, "partitions": PARTS,
             "variants": info, "books": books, "child": child,
             "child_rc": proc.returncode, "checks": checks,
@@ -3690,15 +3750,16 @@ CODEC_VARIANTS = (("native", {"native": True}),
 
 def native_codec_line() -> dict:
     """The four codec calls alone at leg P's own data (4,194,304 v1
-    records, 16,777,216 columnar rows): each on the three codecs, bytes
-    equal across them, MB/s of encoded bytes over host seconds."""
+    records, 16,777,216 columnar rows; leg P's inputs where it ran, else
+    made again from its seed): each on both codecs, bytes equal across
+    them, MB/s of encoded bytes over host seconds."""
     from sparkrdma_tpu_torch.api.serde import (decode_bytes_rows,
                                                decode_cols,
                                                encode_bytes_rows,
                                                encode_cols)
 
     rng = np.random.default_rng(31)
-    keys, pays = p_v1_data(rng, P_V1)
+    keys, pays = _P_INPUTS.pop("v1", None) or p_v1_data(rng, P_V1)
     secs, mb, checks = {}, {}, {}
     rows = {}
     for tag, kw in CODEC_VARIANTS:
@@ -3717,7 +3778,7 @@ def native_codec_line() -> dict:
         del k, p
     del keys, pays, want
     schema = p_schema()
-    keys, cols = p_cols_data(rng, P_COLS)
+    keys, cols = _P_INPUTS.pop("cols", None) or p_cols_data(rng, P_COLS)
     rows = {}
     for tag, kw in CODEC_VARIANTS:
         rows[tag], secs["encode_cols", tag] = timed(
@@ -6472,20 +6533,165 @@ def dist_phase_line(workers, out_dir, ts_ref, rep_ref, ck_ref,
     return line
 
 
+# --- the chaos phase: the port's soaks on the card --------------------
+
+#: the ``chaos`` phase's soaks: (part, script, flags). The chaos soak
+#: streams every exchange leg through the ring kernel in 32 chunks of
+#: 256-record slots (65,536 records a partition: about 8,192 a pair, 32
+#: rounds, inside its conf's ``max_rounds=64``); the oversubscription
+#: soak runs ceil(2048 * 32,768 / 4 MiB) = 16 chunks, leg H's count, of
+#: 262,144 records
+CHAOS_SOAKS = (
+    ("chaos_soak", "torch_chaos_soak.py",
+     ("--device", "cuda", "--transport", "pallas_ring",
+      "--records-per-device", "65536", "--seed", "7")),
+    ("oversub_soak", "torch_oversub_soak.py",
+     ("--device", "cuda", "--chunk-records", "262144", "--oversub",
+      "2048")),
+)
+#: a soak's limit; past it the smoke fails
+SOAK_TIMEOUT_S = 420
+
+
+def soak_child(script: str, argv) -> int:
+    """``--soak-child SCRIPT FLAGS...``: one soak's ``main(FLAGS)`` in this
+    process, the kernel wrappers' counts set to 0 just before it; after
+    its summary, the launches and the ring shapes it made
+    (``{"soak_launches": {...}, "soak_ring_shapes": [[shape, a2a,
+    launches], ...]}``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("soak", script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernels = zeroed_counters()
+    with RingShapes() as seen:
+        rc = mod.main(list(argv))
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "soak_launches": {k: v.launches for k, v in kernels.items()},
+        "soak_ring_shapes": [[list(shape), a2a, n] for (shape, a2a), n
+                             in sorted(seen.counts.items())]}), flush=True)
+    return rc
+
+
+def start_chaos() -> dict:
+    """Start both soaks at once, each a child of this script
+    (``--soak-child``) on the card; :func:`finish_chaos` waits for
+    them. Each child's output is drained by a thread of its own, and its
+    seconds are taken when it exits; a child still running when the
+    smoke exits (a failed leg) is killed."""
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    done = {}
+
+    def wait(name, proc):
+        try:
+            out, err = proc.communicate(timeout=SOAK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            err += f"\n{name} ran past {SOAK_TIMEOUT_S} s"
+        done[name] = (proc.returncode, out, err, time.perf_counter() - t0)
+
+    waiters, procs = [], []
+    for name, script, argv in CHAOS_SOAKS:
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--soak-child",
+             os.path.join(here, "scripts", script), *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        waiters.append(threading.Thread(target=wait,
+                                        args=(name, procs[-1])))
+        waiters[-1].start()
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"waiters": waiters, "done": done}
+
+
+def finish_chaos(started: dict, legs: dict, shapes: dict,
+                 overlapped_with: str = "") -> list:
+    """Wait for the soaks :func:`start_chaos` started: one ``phase:
+    chaos`` line each with the soak's summary, its seconds from the
+    start (``run_s``), its kernel launches and the ring shapes it made,
+    and ``overlapped_with``, the leg that ran meanwhile. The chaos
+    soak's launches go to ``legs["chaos"]`` and its ring shapes to
+    ``shapes["chaos"]`` (checked and timed against the plain version
+    with every other leg's). A soak that exits non-zero, runs past
+    ``SOAK_TIMEOUT_S``, prints no summary or one without ``"ok": true``,
+    or a chaos soak that launched no ring kernel, fails the smoke."""
+    for t in started["waiters"]:
+        t.join()
+    done = started["done"]
+    lines = []
+    for name, _, argv in CHAOS_SOAKS:
+        rc, out, err, run_s = done[name]
+        summary, child = None, None
+        for ln in out.splitlines():
+            if ln.startswith('{"ok"'):
+                summary = json.loads(ln)
+            elif ln.startswith('{"soak_launches"'):
+                child = json.loads(ln)
+        if rc != 0 or summary is None or summary.get("ok") is not True \
+                or child is None:
+            print(out[-8000:], err[-8000:], sep="\n", file=sys.stderr)
+            verdict = None if summary is None else summary.get("ok")
+            fail(f"phase chaos: {name} exited {rc} (summary ok: "
+                 f"{verdict})")
+        line = {"phase": "chaos", "part": name, "argv": list(argv),
+                "run_s": run_s, "overlapped_with": overlapped_with,
+                "launches": child["soak_launches"],
+                "ring_shapes": child["soak_ring_shapes"],
+                "summary": summary}
+        report(line)
+        lines.append(line)
+        if name == "chaos_soak":
+            legs["chaos"] = {"launches": child["soak_launches"],
+                             "run_s": run_s}
+            shapes["chaos"] = {(tuple(shape), a2a): n for shape, a2a, n
+                               in child["soak_ring_shapes"]}
+    n = legs["chaos"]["launches"]
+    if n["ring_exchange"] + n["ring_all_to_all"] <= 0:
+        fail("phase chaos: the chaos soak launched no ring kernel")
+    return lines
+
+
+def durability_and_chaos(legs: dict, shapes: dict, names) -> None:
+    """Legs Q and Q-small and the chaos phase, those of them in
+    ``names``. With Q-small, the soaks start once its launch-failure
+    child has exited and run beside the rest of it (card against CPU
+    reads, mostly on the host); the phase's lines follow Q-small's."""
+    if "Q" in names:
+        run_leg(legs, shapes, "Q", leg_q)
+    if "chaos" in names:
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "chaos" in names and "Q-small" in names:
+        started = {}
+        run_leg(legs, shapes, "Q-small", lambda: leg_q_small(
+            after_child=lambda: started.update(start_chaos())))
+        finish_chaos(started, legs, shapes, overlapped_with="Q-small")
+    elif "Q-small" in names:
+        run_leg(legs, shapes, "Q-small", leg_q_small)
+    elif "chaos" in names:
+        finish_chaos(start_chaos(), legs, shapes)
+
+
 NEW_LEGS = (("M-small", leg_m_small), ("P", leg_p), ("N", leg_n),
             ("O", leg_o), ("M", leg_m))
-DURABILITY_LEGS = (("Q", leg_q), ("Q-small", leg_q_small))
 SERVICE_LEGS = (("S", leg_s), ("service", service_phase))
 
 
 def main(argv=None) -> int:
     """``--legs M,P,Q`` runs only those of legs M-Q, S and T (M-small and
-    Q-small included, and ``native_staging``, ``obs`` and ``service``
-    for those phases; T brings ``phase: distributed``) and prints the ring
-    shapes they launched, without the kernel phases or the table check:
-    a quick run while a leg is brought up. ``--launch-failure-child`` is
-    leg Q-small's child process, ``--distributed-worker`` leg T's,
-    ``--als-reference`` leg L's check."""
+    Q-small included, and ``native_staging``, ``obs``, ``service`` and
+    ``chaos`` for those phases; T brings ``phase: distributed``) and
+    prints the ring shapes they launched, without the kernel phases or
+    the table check: a quick run while a leg is brought up.
+    ``--launch-failure-child`` is leg Q-small's child process,
+    ``--distributed-worker`` leg T's, ``--join-reference`` and
+    ``--als-reference`` legs J's and L's checks, ``--soak-child`` the
+    chaos phase's."""
     args = sys.argv[1:] if argv is None else argv
     only = args[1].split(",") if args[:1] == ["--legs"] else None
     t_smoke = time.perf_counter()
@@ -6502,6 +6708,10 @@ def main(argv=None) -> int:
         return distributed_worker(args[1:])
     if args[:1] == ["--als-reference"]:
         return als_reference_child(args[1])
+    if args[:1] == ["--join-reference"]:
+        return join_reference_child(args[1])
+    if args[:1] == ["--soak-child"]:
+        return soak_child(args[1], args[2:])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6531,9 +6741,7 @@ def main(argv=None) -> int:
             if name in only:
                 run_leg(legs, shapes, name, fn)
         no_unseen_retries(", ".join(legs) or "none")
-        for name, fn in DURABILITY_LEGS:
-            if name in only:
-                run_leg(legs, shapes, name, fn)
+        durability_and_chaos(legs, shapes, only)
         if "native_staging" in only:
             native_staging_phase(build_s, legs)
         if "obs" in only:
@@ -6550,7 +6758,7 @@ def main(argv=None) -> int:
             for leg_name, counts in shapes.items()
             for (shape, a2a), n in counts.items())})
         return 0
-    start_als_reference()
+    start_references()
     merge = merge_phase()
     ring_host_phase()
     ring = ring_phase()
@@ -6569,8 +6777,7 @@ def main(argv=None) -> int:
     for name, fn in NEW_LEGS:
         run_leg(legs, shapes, name, fn)
     no_unseen_retries("A-P")
-    for name, fn in DURABILITY_LEGS:
-        run_leg(legs, shapes, name, fn)
+    durability_and_chaos(legs, shapes, ("Q", "Q-small", "chaos"))
     t0 = time.perf_counter()
     native_staging_phase(build_s, legs)
     report({"leg_s": "native_staging", "seconds": time.perf_counter() - t0})

@@ -455,7 +455,8 @@ class ShuffleReader:
             per_peer_records=[int(c) for c in per_source],
             pool_high_water=pool.outstanding_high_water,
             spill_count=spill_count(), retry_count=attempt - 1,
-            backoff_ms=backoffs, degraded=[],
+            backoff_ms=backoffs,
+            degraded=faults.active_degradations(),
             store_spill_bytes=st_totals[0], store_fetch_bytes=st_totals[1],
             store_prefetch_hits=st_totals[2],
             store_sync_fetches=st_totals[3],

@@ -187,7 +187,7 @@ class ShuffleConf:
     #: a dimension-lookup join whose build side's plan-time row count
     #: fits ``plan_broadcast_records`` replicates that side to every
     #: partition and neither side exchanges. A build side with duplicate
-    #: keys raises (the port has no degradation rung)
+    #: keys degrades the join to the shuffle join (``plan/executor.py``)
     plan_broadcast_join: bool = True
     #: encode a deferred host source of a join's dimension side on a
     #: background worker while the fact side's exchanges run

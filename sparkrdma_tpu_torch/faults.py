@@ -48,15 +48,21 @@ one raises ``RuntimeError``.
 
 Injections are tallied on the plane; recoveries (a re-read after a CRC
 mismatch, a re-write after a failed spill, a native codec call run
-again) in this module's books. Both
-go to the process-wide registry (``obs/metrics.py``) as ``faults.<site>``
-and ``recover.<name>`` counters. The port has no degradation rung, so
-every hard injection (``fail`` or ``corrupt``) is either retried by the
-reader or recovered in place: injections == retries + recoveries.
-Each injection also records ``fault:injected`` (``site``, ``action``,
-``hit``) and each recovery ``fault:recovered`` (``path``) on the active
-timeline (``obs/timeline.py``); with no degradation rung, no
-``fault:degraded`` event fires.
+again) and degradations in this module's books. All three go to the
+process-wide registry (``obs/metrics.py``) as ``faults.<site>``,
+``recover.<name>`` and ``degrade.<name>`` counters. The port's two
+degradation rungs are the planner's (``plan/executor.py``): a broadcast
+join whose dim side has duplicate keys runs as the shuffle join
+(``broadcast_join``), and a failed overlap prefetch encodes the source
+again in the query's thread (``plan_overlap``). Both only change the
+plan: the joins and the encodes still run on the card. So every hard
+injection (``fail`` or ``corrupt``) is retried by the reader, recovered
+in place or degraded: injections == retries + recoveries +
+degradations. Each injection also records ``fault:injected``
+(``site``, ``action``, ``hit``), each recovery ``fault:recovered``
+(``path``) and each degradation ``fault:degraded`` (``path``,
+``reason``) on the active timeline (``obs/timeline.py``); a journal
+span's ``degraded`` lists the degradations taken so far.
 
 A standalone ``ShuffleManager`` installs its plane process-wide, so
 module-level sites (host staging, the checkpoint store) reach it without
@@ -209,8 +215,10 @@ class FaultPlane:
             self._by_site.setdefault(r.site, []).append(r)
         self._hits: Dict[str, int] = {}                # guarded-by: _lock
         self._injected: Dict[str, Dict[str, int]] = {}  # guarded-by: _lock
-        #: recoveries noted while this plane is scoped to a thread
+        #: recoveries and degradations noted while this plane is scoped
+        #: to a thread (a tenant's books)
         self._recov: Dict[str, int] = {}               # guarded-by: _lock
+        self._degr: Dict[str, int] = {}                # guarded-by: _lock
         self._lock = threading.Lock()
 
     def check(self, site: str) -> Optional[str]:
@@ -318,10 +326,26 @@ def mangle(data: bytes) -> bytes:
     return bytes(b)
 
 
-# --- recovery accounting (process-wide) ---------------------------------
+# --- degradation and recovery accounting (process-wide) ------------------
 
 _acct_lock = threading.Lock()
+_degradations: Dict[str, int] = {}   # guarded-by: _acct_lock
 _recoveries: Dict[str, int] = {}     # guarded-by: _acct_lock
+
+
+def note_degradation(name: str, reason: str = "") -> None:
+    """Record one degradation (``broadcast_join``, ``plan_overlap``).
+    Under a thread-scoped (tenant) plane it lands in that plane's books
+    too, so a noisy tenant's degradations never show in a clean
+    tenant's spans; the process-wide books always count it."""
+    p = getattr(_tls, "plane", None)
+    if p is not None:
+        with p._lock:
+            p._degr[name] = p._degr.get(name, 0) + 1
+    with _acct_lock:
+        _degradations[name] = _degradations.get(name, 0) + 1
+    global_registry().counter(f"degrade.{name}").inc()
+    record_active("fault:degraded", path=name, reason=reason[:120])
 
 
 def note_recovery(name: str) -> None:
@@ -335,6 +359,26 @@ def note_recovery(name: str) -> None:
         _recoveries[name] = _recoveries.get(name, 0) + 1
     global_registry().counter(f"recover.{name}").inc()
     record_active("fault:recovered", path=name)
+
+
+def active_degradations() -> List[str]:
+    """Sorted names of the degradations taken so far, in the current
+    scope: a thread-scoped plane's own, else the process-wide books."""
+    p = getattr(_tls, "plane", None)
+    if p is not None:
+        with p._lock:
+            return sorted(p._degr)
+    with _acct_lock:
+        return sorted(_degradations)
+
+
+def degradation_total() -> int:
+    p = getattr(_tls, "plane", None)
+    if p is not None:
+        with p._lock:
+            return sum(p._degr.values())
+    with _acct_lock:
+        return sum(_degradations.values())
 
 
 def recovery_total() -> int:
@@ -356,8 +400,10 @@ def recovery_counts() -> Dict[str, int]:
 
 
 def reset_accounting() -> None:
-    """Clear the recovery tallies (tests and smoke legs)."""
+    """Clear the degradation and recovery tallies (tests, smoke legs,
+    soak passes)."""
     with _acct_lock:
+        _degradations.clear()
         _recoveries.clear()
 
 
@@ -377,6 +423,7 @@ def backoff_ms(attempt: int, base_ms: float, span_id: int = 0,
 
 __all__ = ["SITES", "CORRUPTIBLE", "FaultRule", "FaultPlane", "NULL_PLANE",
            "parse_fault_spec", "set_active_plane", "scoped_plane",
-           "active_plane", "fire", "mangle", "note_recovery",
+           "active_plane", "fire", "mangle", "note_degradation",
+           "note_recovery", "active_degradations", "degradation_total",
            "recovery_total", "recovery_counts", "reset_accounting",
            "backoff_ms"]

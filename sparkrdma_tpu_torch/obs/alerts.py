@@ -10,9 +10,9 @@ service or by a standalone manager. Condition families:
 - **window_rate** — a windowed rate is abnormal (spill storms,
   synchronous-fetch storms);
 - **burn_rate** — a budget-consuming counter family is burning
-  (``degrade.*``: the reference's degradation-ladder rungs; the port has
-  no rung and writes no ``degrade.*`` counter, so ``degrade_rung`` is
-  kept for parity and cannot fire here);
+  (``degrade.*``: the planner's two degradation rungs,
+  ``degrade.broadcast_join`` and ``degrade.plan_overlap``, written by
+  ``faults.note_degradation``);
 - **baseline_anomaly** — a live rate scores as an outlier against the
   persisted baseline (``obs/baseline.py``, robust z-score);
 - **derived** — heartbeat staleness, one shuffle's straggler spread from
@@ -186,10 +186,6 @@ def _journal_errors(ctx: EvalContext) -> List[Breach]:
     return []
 
 
-# kept for the reference's alert table, but nothing in the port writes
-# degrade.* (ROADMAP C.1.18: the port has no degradation rungs, C.1.6,
-# C.1.9), so obs/names.py declares no such family
-# srlint: ignore[alert-rule-sync]
 @alert_rule("degrade_rung", severity="warn", subsystem="faults",
             condition="burn_rate", metrics=("degrade.*",),
             description="the degradation ladder took a rung")

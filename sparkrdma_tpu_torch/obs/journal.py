@@ -208,9 +208,8 @@ class ExchangeSpan:
     # per-attempt backoff sleeps (ms) taken by this read's retry loop;
     # len(backoff_ms) <= retry_count (backoff may be disabled)
     backoff_ms: List[float] = dataclasses.field(default_factory=list)
-    # sticky degradations active when the span was emitted (e.g.
-    # "serde_native", "transport") — see faults.py; the port has no
-    # degradation rung, so its spans carry an empty list
+    # degradations taken so far when the span was emitted (the port's
+    # rungs: "broadcast_join", "plan_overlap") — see faults.py
     degraded: List[str] = dataclasses.field(default_factory=list)
     # --- tiered out-of-core store totals (schema v6) — PROCESS-CUMULATIVE
     # like ``spill_count``: consumers diff consecutive spans. A read that

@@ -119,6 +119,7 @@ TIMELINE_TRACKS = frozenset({
 #: interpolated hole.
 WILDCARDS = frozenset({
     "faults.*",
+    "degrade.*",
     "recover.*",
     "serde.*_bytes",
     "serde.*_ns",

@@ -26,13 +26,22 @@ Per rewrite gate:
   tiered store.
 - ``plan_broadcast_join`` ON: marked joins pull the dim side to the host,
   sort its keys and replicate them to every partition; neither side
-  exchanges. A dim side with duplicate keys raises
-  :class:`BroadcastBuildError` (the reference degrades to the shuffle
-  join; the port has no degradation rung).
+  exchanges. A dim side with duplicate keys fails the build
+  (:class:`BroadcastBuildError`) and the join degrades to the shuffle
+  join, as the reference's: a ``broadcast_join`` degradation
+  (``faults.note_degradation``) and a plan line ``degraded to shuffle
+  join: <reason>``.
 - ``plan_overlap`` ON: marked deferred dim sources encode on a
   :class:`~sparkrdma_tpu_torch.api.pipeline.HostPrefetcher` worker while
-  the fact side's exchanges run. A failed background encode raises (the
-  reference encodes again synchronously).
+  the fact side's exchanges run. A failed background encode degrades to
+  encoding the source again in the query's thread, as the reference's:
+  a ``plan_overlap`` degradation, a plan line ``prefetch failed,
+  synchronous encode fallback: <reason>`` and a warning.
+
+Both rungs change only the plan: the shuffle join's exchanges and the
+encode run on the card as they would have. The reference's other rungs
+(the transport's, which would leave the ring kernel; the combine's and
+the codec's) stay out (ROADMAP C.1.6, C.1.25).
 
 The lookup join of each partition is ``torch.sort(stable=True)`` of the
 dim's keys and ``torch.searchsorted`` into them. Every rewrite is
@@ -64,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch import faults
 from sparkrdma_tpu_torch.api.dataset import (Dataset, _low_word_hash,
                                              _parts, _valid_nonfiller)
 from sparkrdma_tpu_torch.api.pipeline import HostPrefetcher
@@ -259,12 +269,29 @@ class PlanExecutor:
             return hit
         if node.dataset is not None:
             ds = node.dataset
-        elif self._prefetcher is not None and node.fp in self._prefetched:
-            self._prefetched.discard(node.fp)
-            ds = self._prefetcher.take(node.fp)
         else:
-            ds = Dataset.from_host_rows(node.manager or self.manager,
-                                        node.rows, schema=node.schema)
+            ds = None
+            if self._prefetcher is not None and \
+                    node.fp in self._prefetched:
+                self._prefetched.discard(node.fp)
+                try:
+                    ds = self._prefetcher.take(node.fp)
+                except Exception as exc:
+                    # the overlap only hides latency: a failed background
+                    # encode degrades to the synchronous one below
+                    faults.note_degradation("plan_overlap",
+                                            reason=str(exc))
+                    self.manager.journal.emit_raw(plan_line(
+                        node.label, node.op, "overlap", node.fp,
+                        detail=f"prefetch failed, synchronous encode "
+                               f"fallback: {exc}"))
+                    log.warning(
+                        "plan overlap prefetch of %s failed (%s); "
+                        "encoding synchronously", node.label or "source",
+                        exc)
+            if ds is None:
+                ds = Dataset.from_host_rows(node.manager or self.manager,
+                                            node.rows, schema=node.schema)
         self._results[id(node)] = ds
         return ds
 
@@ -397,7 +424,14 @@ class PlanExecutor:
         left = self._exec(left_node)
         with self._maybe_stage(node.stage):
             if node.broadcast and self.manager.conf.plan_broadcast_join:
-                return self._broadcast_join(node, left, dim_node)
+                try:
+                    return self._broadcast_join(node, left, dim_node)
+                except BroadcastBuildError as exc:
+                    faults.note_degradation("broadcast_join",
+                                            reason=str(exc))
+                    self.manager.journal.emit_raw(plan_line(
+                        node.label, node.op, "broadcast_join", node.fp,
+                        detail=f"degraded to shuffle join: {exc}"))
             return self._shuffle_join(node, left, dim_node)
 
     def _maybe_prefetch(self, dim_node: PlanNode) -> None:

@@ -695,8 +695,8 @@ def test_sharded_checkpoint_incomplete_not_resumable(ref, tmp_path):
 
 def test_chaos_smoke_accounting_identity(ref, caplog_port):
     """A multi-site schedule through one real shuffle: every hard
-    injection is a retry (the port has no degradation rung, so the
-    identity is injections == retries + recoveries)."""
+    injection is a retry (injections == retries + recoveries +
+    degradations, the last two 0 here)."""
     spec = ("exchange.dispatch:fail@attempt<2;"
             "pool.acquire:delay=1ms@attempt<2")
     kw = dict(slot_records=64, max_retry_attempts=6, retry_backoff_ms=0.1,
@@ -718,7 +718,8 @@ def test_chaos_smoke_accounting_identity(ref, caplog_port):
         assert hard == want_hard == 2
         assert pm.faults.sites_hit() == want_sites == [
             "exchange.dispatch", "pool.acquire"]
-    assert hard == _retries(caplog_port) + faults.recovery_total()
+    assert hard == _retries(caplog_port) + faults.recovery_total() \
+        + faults.degradation_total()
     assert _same(got, want)
     faults.reset_accounting()
 

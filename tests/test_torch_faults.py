@@ -264,11 +264,39 @@ def test_note_recovery_counts_in_the_global_registry():
     faults.reset_accounting()
 
 
-def test_no_degradation_books():
-    """The port has no degradation rung, so no degradation books."""
-    for name in ("note_degradation", "active_degradations",
-                 "degradation_total"):
-        assert not hasattr(faults, name)
+def test_no_degradation_books(ref):
+    """The degradation books start empty and are emptied by
+    ``reset_accounting``, as the reference's; between, each
+    ``note_degradation`` counts once in them, in the process-wide
+    ``degrade.<name>`` counter and, under a thread-scoped plane, in that
+    plane's own books only for that thread."""
+    faults.reset_accounting()
+    ref.reset_accounting()
+    assert faults.active_degradations() == ref.active_degradations() == []
+    assert faults.degradation_total() == ref.degradation_total() == 0
+    c = global_registry().counter("degrade.broadcast_join")
+    before = c.value
+    faults.note_degradation("broadcast_join", reason="dup keys")
+    faults.note_degradation("broadcast_join")
+    assert c.value - before == 2
+    plane = faults.FaultPlane("spill.write:fail@attempt<1")
+    seen = {}
+    with faults.scoped_plane(plane):
+        assert faults.active_degradations() == []
+        faults.note_degradation("plan_overlap")
+        t = threading.Thread(target=lambda: seen.update(
+            other=faults.active_degradations()))
+        t.start()
+        t.join(10)
+        assert faults.active_degradations() == ["plan_overlap"]
+        assert faults.degradation_total() == 1
+    assert seen["other"] == ["broadcast_join", "plan_overlap"]
+    assert faults.active_degradations() == ["broadcast_join",
+                                            "plan_overlap"]
+    assert faults.degradation_total() == 3
+    faults.reset_accounting()
+    assert faults.active_degradations() == []
+    assert faults.degradation_total() == 0
 
 
 def test_splitmix_matches_reference_on_random_inputs(ref):

@@ -121,6 +121,20 @@ def test_multi_process_modules_scanned(rel):
         sparkrdma_tpu_torch.initialize_distributed
 
 
+@pytest.mark.parametrize("rel", ["torch_chaos_soak.py",
+                                 "torch_oversub_soak.py"])
+def test_soak_scripts_scanned(rel):
+    """The chaos and oversubscription soaks are the port's own scripts:
+    they drive the port and import nothing of the reference (the
+    reference's ``shuffle_report.py`` runs as a subprocess of the alert
+    pass, over the port's journal)."""
+    path = REPO / "scripts" / rel
+    assert path in SOURCES
+    assert not [n for _, n in _imports(path) if _forbidden(n)]
+    assert "sparkrdma_tpu_torch" in {n.split(".")[0]
+                                     for _, n in _imports(path)}
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_imports(path):

@@ -288,20 +288,130 @@ def test_q95_matches_reference(ref, knobs, kw):
         pm.stop()
 
 
-def test_broadcast_of_duplicate_keys_raises(star_pair):
-    """A dim side with a duplicate primary key: the reference degrades
-    to the shuffle join; the port raises (no degradation rung). With
-    broadcast off the shuffle join gives the same rows as the
-    reference's degraded run."""
-    _, pm = star_pair
-    fact, d1t, _, _ = tpcds._star_tables(8, 16, 1, 0)
-    dup = d1t.copy()
-    dup[1, 1] = dup[0, 1]
-    q = (LogicalPlan.dataset(Dataset.from_host_rows(pm, fact))
-         .join(LogicalPlan.from_host_rows(pm, dup), key_from=0, attr_to=3)
-         .reduce_by_key("sum"))
-    with pytest.raises(BroadcastBuildError, match="duplicate primary"):
-        PlanExecutor(pm).run(q)
+def _degrade_plan(m, LP, DS, dim):
+    """The reference's ``TestBroadcastDegradation`` plan: a fact side
+    repartitioned, then a broadcast-marked lookup into ``dim``."""
+    rng = np.random.default_rng(7)
+    nf = 8 * 16
+    fact = np.zeros((nf, 6), dtype=np.uint32)
+    fact[:, 1] = rng.integers(1, 9, size=nf)     # lookup key 1..8
+    fact[:, 2] = rng.integers(1, 50, size=nf)    # next key
+    fact[:, 4] = rng.integers(1, 100, size=nf)   # value
+    return (LP.dataset(DS.from_host_rows(m, fact), name="degrade_fact")
+            .repartition(stage="fact_part")
+            .join(LP.from_host_rows(m, dim, name="degrade_dim"),
+                  key_from=0, attr_to=1, stage="bad_join")
+            .sink())
+
+
+def _plan_lines(path, prefix):
+    from sparkrdma_tpu_torch.obs.journal import read_entries
+
+    return [e for e in read_entries(str(path))
+            if e.get("kind") == "plan" and e["detail"].startswith(prefix)]
+
+
+def test_broadcast_of_duplicate_keys_raises(ref, tmp_path):
+    """A dim side with a duplicate primary key: the broadcast build
+    raises :class:`BroadcastBuildError`, and the executor degrades the
+    join to the shuffle join, as the reference's
+    ``test_duplicate_pk_degrades_to_shuffle_join``: the same rows as the
+    reference's degraded run, one ``degraded to shuffle join`` plan
+    line, a ``broadcast_join`` degradation in the books and its
+    ``degrade.*`` counter."""
+    from sparkrdma_tpu import MeshRuntime as RefRuntime
+    from sparkrdma_tpu import ShuffleConf as RefConf
+    from sparkrdma_tpu.api.shuffle_manager import ShuffleManager as RefManager
+    from sparkrdma_tpu.plan import LogicalPlan as RefPlan
+    from sparkrdma_tpu.plan import PlanExecutor as RefExecutor
+
+    from sparkrdma_tpu_torch import faults
+    from sparkrdma_tpu_torch.obs.metrics import global_registry
+
+    dim = np.zeros((16, 6), dtype=np.uint32)
+    dim[:8, 1] = np.arange(1, 9)
+    dim[:8, 2] = np.arange(1, 9) * 10
+    dim[8, 1], dim[8, 2] = 3, 30          # PK 3 twice, same attribute
+    kw = dict(slot_records=1024, val_words=4)
+    rc = RefConf(metrics_sink=str(tmp_path / "ref.jsonl"), **kw)
+    rm = RefManager(RefRuntime(rc), rc)
+    try:
+        want = RefExecutor(rm).run(
+            _degrade_plan(rm, RefPlan, ref["Dataset"], dim), "degrade")
+    finally:
+        rm.stop()
+    faults.reset_accounting()
+    counter = global_registry().counter("degrade.broadcast_join")
+    before = counter.value
+    pm = ShuffleManager(MeshRuntime(
+        ShuffleConf(metrics_sink=str(tmp_path / "port.jsonl"), **kw), 8,
+        device="cpu"))
+    try:
+        ex = PlanExecutor(pm)
+        q = _degrade_plan(pm, LogicalPlan, Dataset, dim)
+        join = q.root.children[0]
+        with pytest.raises(BroadcastBuildError, match="duplicate primary"):
+            ex._broadcast_build(join.children[1])
+        got = ex.run(q, "degrade")
+        books = (faults.active_degradations(), faults.degradation_total())
+        ex.close()
+    finally:
+        pm.stop()
+        faults.reset_accounting()
+    np.testing.assert_array_equal(got, want)
+    assert books == (["broadcast_join"], 1)
+    assert counter.value - before == 1
+    for path in ("ref.jsonl", "port.jsonl"):
+        (line,) = _plan_lines(tmp_path / path, "degraded to shuffle join")
+        assert line["rewrite"] == "broadcast_join"
+        assert "duplicate primary" in line["detail"]
+
+
+def test_prefetch_failure_degrades_to_sync_encode(ref, tmp_path,
+                                                  monkeypatch):
+    """The reference's ``test_prefetch_failure_degrades_to_sync_encode``:
+    a failed overlap prefetch encodes the source synchronously, and the
+    star suite gives the reference's results, with ``prefetch failed``
+    plan lines under rewrite ``overlap`` in both journals."""
+    from sparkrdma_tpu import MeshRuntime as RefRuntime
+    from sparkrdma_tpu import ShuffleConf as RefConf
+    from sparkrdma_tpu.api.pipeline import HostPrefetcher as RefPrefetcher
+    from sparkrdma_tpu.api.shuffle_manager import ShuffleManager as RefManager
+
+    from sparkrdma_tpu_torch import faults
+    from sparkrdma_tpu_torch.api.pipeline import HostPrefetcher
+
+    def wedged(self, key):
+        raise TimeoutError("encode wedged past the watchdog")
+
+    monkeypatch.setattr(RefPrefetcher, "take", wedged)
+    monkeypatch.setattr(HostPrefetcher, "take", wedged)
+    kw = dict(slot_records=1024, val_words=4)
+    rc = RefConf(metrics_sink=str(tmp_path / "ref.jsonl"), **kw)
+    rm = RefManager(RefRuntime(rc), rc)
+    try:
+        want = ref["tpcds"].run_star_suite(rm, fact_rows_per_device=16,
+                                           scale=1)
+    finally:
+        rm.stop()
+    faults.reset_accounting()
+    pm = ShuffleManager(MeshRuntime(
+        ShuffleConf(metrics_sink=str(tmp_path / "port.jsonl"), **kw), 8,
+        device="cpu"))
+    try:
+        got = tpcds.run_star_suite(pm, fact_rows_per_device=16, scale=1)
+        degraded = faults.active_degradations()
+    finally:
+        pm.stop()
+        faults.reset_accounting()
+    assert got.verified and want.verified
+    assert _result(got) == _result(want)
+    assert degraded == ["plan_overlap"]
+    ref_falls = _plan_lines(tmp_path / "ref.jsonl", "prefetch failed")
+    falls = _plan_lines(tmp_path / "port.jsonl", "prefetch failed")
+    assert falls and all(e["rewrite"] == "overlap" for e in falls)
+    assert [(e["node"], e["detail"]) for e in falls] == \
+        [(e["node"], e["detail"]) for e in ref_falls]
 
 
 def test_shuffle_join_with_duplicate_keys_matches_reference(ref):

@@ -334,8 +334,8 @@ def test_idempotent_replay_applies_mutation_once(svc):
 
 def test_corrupted_frame_retried_books_balance(svc):
     """A corrupted and a failed frame, each way, are retried; the
-    injections equal the client's retries (the port has no degradation
-    rung), and the faulted run is bit-identical."""
+    injections equal the client's retries (no recovery or degradation
+    on the wire), and the faulted run is bit-identical."""
     faults.reset_accounting()
     x = _records(svc.conf.record_words, 16, seed=9)
     plane = faults.FaultPlane(

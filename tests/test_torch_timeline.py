@@ -315,9 +315,18 @@ def test_watchdog_off_and_state_dump():
 
 def test_watchdog_fires_once_per_wait_and_parks(monkeypatch):
     """The poll thread fires a stalled wait once, never a wait that ends
-    in time, and parks when nothing has been armed for a while."""
+    in time, and parks when nothing has been armed for a while. Each
+    stalled wait lasts until its stall fires (a deadline of 10 s), so a
+    loaded host that wakes the poll thread late delays the test and
+    does not fail it."""
     from sparkrdma_tpu_torch.obs import watchdog as wdm
     from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+
+    def stall_until(count):
+        deadline = time.monotonic() + 10.0
+        while wd.stall_count < count and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return wd.stall_count
 
     monkeypatch.setattr(wdm, "_IDLE_S", 0.1)
     reg = MetricsRegistry()
@@ -325,16 +334,16 @@ def test_watchdog_fires_once_per_wait_and_parks(monkeypatch):
     with wd.armed("fast"):
         pass
     with wd.armed("slow", chunk=1):
-        time.sleep(1.0)
+        assert stall_until(1) == 1          # fired during the wait
     assert wd.stall_count == 1 and reg.counter("watchdog.stalls").value == 1
-    assert wd.last_stall["desc"] == "slow"
-    # fired during the wait (the 1.25x cadence bound is the chip smoke's
-    # to read: a loaded test host may delay the poll thread)
-    assert 0.08 <= wd.last_stall["elapsed_s"] < 1.0
-    deadline = time.monotonic() + 5.0
+    assert wd.last_stall["desc"] == "slow" and wd.last_stall["chunk"] == 1
+    # not before its timeout (the 1.25x cadence bound is the chip
+    # smoke's to read: a loaded test host may delay the poll thread)
+    assert wd.last_stall["elapsed_s"] >= 0.08
+    deadline = time.monotonic() + 10.0
     while wd._poller is not None and time.monotonic() < deadline:
         time.sleep(0.02)
     assert wd._poller is None
     with wd.armed("again"):                   # a parked watchdog restarts
-        time.sleep(1.0)
-    assert wd.stall_count == 2
+        assert stall_until(2) == 2
+    assert wd.stall_count == 2 and wd.last_stall["desc"] == "again"
