@@ -1263,17 +1263,16 @@ def kernel_rows(prof) -> list:
 
 def profile_table(label: str, prof, read_ms: float, path: str) -> dict:
     """The ``profile`` line of a profiled read (its device time by kernel
-    against ``read_ms``, a read's time unprofiled) and its table in
-    ``path``."""
+    beside ``read_ms``, a read's time unprofiled) and its table in
+    ``path``. The device's idle share is the benchmark's
+    (``shufflebench/trace.py``: the union of the kernels' intervals), not
+    a sum of self times, which counts two streams at once twice."""
     rows = kernel_rows(prof)
-    busy_ms = sum(r[0] for r in rows) / 1e3
     os.makedirs("profiles", exist_ok=True)
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
     line = {"profile": label, "read_ms": read_ms,
-            "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1 - busy_ms / read_ms),
             "top": [[k[:60], us / 1e3, c] for us, k, c in rows[:10]],
             "merge_kernels": [[k[:60], us / 1e3, c] for us, k, c in rows
                               if "merge_s" in k]}

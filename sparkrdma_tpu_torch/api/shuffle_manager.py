@@ -770,6 +770,13 @@ class ShuffleManager:
                              key_ordering, aggregator, float_payload,
                              row_filter, keep_words, combine_hint)
 
+    def wire_stats(self) -> Dict[str, float]:
+        """The last read's combine and pushdown wire accounting
+        (:meth:`ShuffleExchange.wire_stats`, the same dict): host numbers,
+        though the first call after a combined or filtered read waits
+        for its counts."""
+        return self._exchange.wire_stats()
+
     def job(self, name: str) -> "_trace.JobTrace":
         """A job trace over the exchanges that follow::
 

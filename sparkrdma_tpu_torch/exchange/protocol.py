@@ -134,6 +134,7 @@ from sparkrdma_tpu_torch.obs.timeline import NULL_TIMELINE, EventTimeline
 from sparkrdma_tpu_torch.obs.watchdog import StallWatchdog
 from sparkrdma_tpu_torch.runtime.distributed import WORLD
 from sparkrdma_tpu_torch.runtime.mesh import MeshRuntime
+from sparkrdma_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,17 +336,18 @@ class ShuffleExchange:
         n_global = records.shape[1] * self.processes
 
         def measure(part_fn, parts):
-            counts = torch.stack([
-                histogram_pids(part_fn(rt.partition(records, d)), parts)
-                for d in range(rt.local_partitions)]).cpu()
-            if self.processes > 1:
-                # the metadata-table read, made collective: every process
-                # gets the [D, parts] table (CPU tensors, gloo)
-                counts = counts.to(torch.int64)
-                rows = [torch.empty_like(counts)
-                        for _ in range(self.processes)]
-                self.collectives.all_gather(rows, counts)
-                counts = torch.cat(rows)
+            with span("shuffle:plan_pass", records.device):
+                counts = torch.stack([
+                    histogram_pids(part_fn(rt.partition(records, d)), parts)
+                    for d in range(rt.local_partitions)]).cpu()
+                if self.processes > 1:
+                    # the metadata-table read, made collective: every
+                    # process gets the [D, parts] table (CPU tensors, gloo)
+                    counts = counts.to(torch.int64)
+                    rows = [torch.empty_like(counts)
+                            for _ in range(self.processes)]
+                    self.collectives.all_gather(rows, counts)
+                    counts = torch.cat(rows)
             counts = counts.numpy().astype(np.int64)
             if int(counts.sum()) != n_global:
                 raise ValueError(
@@ -457,7 +459,8 @@ class ShuffleExchange:
         :meth:`exchange`'s ``combine_hint``)."""
         if not aggregator:
             return False, 0.0
-        ratio = self._sampled_dup_ratio(records)
+        with span("shuffle:combine_gate", records.device):
+            ratio = self._sampled_dup_ratio(records)
         mode = self.conf.map_side_combine
         if mode == "off":
             use = False
@@ -571,25 +574,27 @@ class ShuffleExchange:
         combine, whose (partition, key) order already is the bucketing,
         or the bucketing sort. Returns ``(bucketed, counts, offsets)``
         with post-filter, post-combine counts."""
-        pids = partitioner(records)
-        if row_filter is not None:
-            pids = torch.where(row_filter(records), pids, num_parts)
-        recs = records if keep_words is None else records[list(keep_words)]
-        mode = self.sort_mode(recs.shape[0])
-        how = dict(wide=mode == "wide", pack=mode == "pack",
-                   ride_words=self.conf.wide_sort_ride_words)
-        if combine:
-            sr, spids, _ = map_side_combine_cols(
-                recs, pids, num_parts, self.conf.key_words, aggregator,
-                float_payload, **how)
-            counts, offs = bucket_sorted_counts(spids, num_parts)
-            return sr, counts, offs
-        # bucket_records' single-partition shortcut counts the whole
-        # batch: under a filter, bucket over 2 partitions so the sentinel
-        # rows are counted out, and keep the real one
-        np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
-        sr, counts, offs = bucket_records(recs, pids, np_eff, **how)
-        return sr, counts[:num_parts], offs[:num_parts]
+        with span("shuffle:map", records.device):
+            pids = partitioner(records)
+            if row_filter is not None:
+                pids = torch.where(row_filter(records), pids, num_parts)
+            recs = (records if keep_words is None
+                    else records[list(keep_words)])
+            mode = self.sort_mode(recs.shape[0])
+            how = dict(wide=mode == "wide", pack=mode == "pack",
+                       ride_words=self.conf.wide_sort_ride_words)
+            if combine:
+                sr, spids, _ = map_side_combine_cols(
+                    recs, pids, num_parts, self.conf.key_words, aggregator,
+                    float_payload, **how)
+                counts, offs = bucket_sorted_counts(spids, num_parts)
+                return sr, counts, offs
+            # bucket_records' single-partition shortcut counts the whole
+            # batch: under a filter, bucket over 2 partitions so the
+            # sentinel rows are counted out, and keep the real one
+            np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
+            sr, counts, offs = bucket_records(recs, pids, np_eff, **how)
+            return sr, counts[:num_parts], offs[:num_parts]
 
     # ------------------------------------------------------------------
     # phase 2: execute
@@ -699,25 +704,30 @@ class ShuffleExchange:
                     float_payload, tight, use_combine, fkey, keep_words,
                     getattr(partitioner, "cache_key", id(partitioner)))
             tl = self.timeline
-            tl.begin("exchange:fused", rounds=plan.num_rounds)
-            if self._ring_fused_active():
-                # structural marks: the rounds run inside one kernel, so
-                # these record the launch's round structure, not its time
-                for r in range(plan.num_rounds):
-                    tl.begin("ring:round", round=r)
-                    tl.end("ring:round", round=r)
-            try:
-                out, totals, incoming = self._run(
-                    records, partitioner, plan_parts, plan.capacity,
-                    plan.num_rounds, plan.out_capacity, sort_key_words,
-                    tight, aggregator, float_payload, use_combine,
-                    row_filter, keep_words, okey)
-            finally:
-                # closed on a failed attempt too: the span's timeline
-                # stays balanced across retries
-                tl.end("exchange:fused")
+            with span("shuffle:fused", records.device):
+                tl.begin("exchange:fused", rounds=plan.num_rounds)
+                if self._ring_fused_active():
+                    # structural marks: the rounds run inside one kernel,
+                    # so these record the launch's round structure, not
+                    # its time
+                    for r in range(plan.num_rounds):
+                        tl.begin("ring:round", round=r)
+                        tl.end("ring:round", round=r)
+                try:
+                    out, totals, incoming = self._run(
+                        records, partitioner, plan_parts, plan.capacity,
+                        plan.num_rounds, plan.out_capacity, sort_key_words,
+                        tight, aggregator, float_payload, use_combine,
+                        row_filter, keep_words, okey)
+                finally:
+                    # closed on a failed attempt too: the span's timeline
+                    # stays balanced across retries
+                    tl.end("exchange:fused")
             self.last_dispatches = 1
             m.counter("exchange.dispatches").inc()
+            m.counter("exchange.slots_moved").inc(
+                plan.num_rounds * self.runtime.local_partitions * plan_parts
+                * plan.capacity)
         self._note_wire(records, incoming, use_combine,
                         row_filter is not None, keep_words, dup_ratio)
         return out, totals, incoming
@@ -777,12 +787,13 @@ class ShuffleExchange:
             if oc != n:
                 part = torch.cat([part, part.new_zeros((w_eff, oc - n))],
                                  dim=1)
-            if not combine:
-                part, total = self._fuse_tail(part, total, oc,
-                                              sort_key_words, aggregator,
-                                              float_payload, tight)
-            out[rows] = part
-            totals[0] = total
+            with span("shuffle:tail", dev):
+                if not combine:
+                    part, total = self._fuse_tail(part, total, oc,
+                                                  sort_key_words, aggregator,
+                                                  float_payload, tight)
+                out[rows] = part
+                totals[0] = total
             incoming = torch.full((1, 1, 1), wire, dtype=torch.int32,
                                   device=dev)
             return out, totals, incoming
@@ -795,18 +806,20 @@ class ShuffleExchange:
                                 capacity + 1), dtype=torch.int32, device=dev)
             for s in range(local):
                 sr, counts, offs = map_side(s)
-                for r in range(num_rounds):
-                    fill_round_slots_dest_major(
-                        sr, counts, offs, num_parts, mesh, capacity, r,
-                        out=send[s, r, :, :, :, 1:])
-                send[s, 0, :, :, 0, 0] = _device_partition_counts(
-                    counts, num_parts, mesh).to(torch.int32)
+                with span("shuffle:fill", dev):
+                    for r in range(num_rounds):
+                        fill_round_slots_dest_major(
+                            sr, counts, offs, num_parts, mesh, capacity, r,
+                            out=send[s, r, :, :, :, 1:])
+                    send[s, 0, :, :, 0, 0] = _device_partition_counts(
+                        counts, num_parts, mesh).to(torch.int32)
                 del sr
             exchange = make_ring_exchange(mesh, num_rounds, self.metrics,
                                           rt, self.collectives)
             # across processes recv is this process's window: read in
             # place below, then released
-            recv = exchange(send)
+            with span("shuffle:move", dev):
+                recv = exchange(send)
             release = exchange.release
             del send
             # recv[d, r, s, q, w, 1 + c]
@@ -826,11 +839,14 @@ class ShuffleExchange:
                         else a2a(incoming)).to(torch.int32)
             rounds = []
             for r in range(num_rounds):
-                send = torch.stack([
-                    fill_round_slots(sr, c, o, num_parts, capacity, r)[0]
-                    .reshape(w_eff, ppd, mesh, capacity).permute(2, 1, 0, 3)
-                    for sr, c, o in mapped])     # [D_src, D_dst, ppd, W, C]
-                rounds.append(a2a(send))         # [D_dst, D_src, ppd, W, C]
+                with span("shuffle:fill", dev):
+                    send = torch.stack([
+                        fill_round_slots(sr, c, o, num_parts, capacity, r)[0]
+                        .reshape(w_eff, ppd, mesh, capacity)
+                        .permute(2, 1, 0, 3)
+                        for sr, c, o in mapped])  # [D_src, D_dst, ppd, W, C]
+                with span("shuffle:move", dev):
+                    rounds.append(a2a(send))      # [D_dst, D_src, ppd, W, C]
                 del send
             del mapped
             # per destination: [S, ppd, R, W, C] -> (w; q, s, r, c)
@@ -841,16 +857,19 @@ class ShuffleExchange:
         # clip(incoming[d, s, q] - r*C, 0, C), in stream order (q, s, r)
         r_ix = torch.arange(num_rounds, device=dev)[None, :] * capacity
         for d in range(local):
-            inc = incoming[d].T.reshape(ppd * mesh, 1).to(torch.int64)
-            chunk_len = torch.clamp(inc - r_ix, 0, capacity).reshape(-1)
-            stream = streams[d].reshape(w_eff, -1)
-            streams[d] = None                    # free as we go
-            part, total = compact_segments(stream, chunk_len, oc)
-            del stream
-            part, total = self._fuse_tail(part, total, oc, sort_key_words,
-                                          aggregator, float_payload, tight)
-            out[rows, d * oc:(d + 1) * oc] = part
-            totals[d] = total
+            with span("shuffle:fold", dev):
+                inc = incoming[d].T.reshape(ppd * mesh, 1).to(torch.int64)
+                chunk_len = torch.clamp(inc - r_ix, 0, capacity).reshape(-1)
+                stream = streams[d].reshape(w_eff, -1)
+                streams[d] = None                # free as we go
+                part, total = compact_segments(stream, chunk_len, oc)
+                del stream
+            with span("shuffle:tail", dev):
+                part, total = self._fuse_tail(part, total, oc,
+                                              sort_key_words, aggregator,
+                                              float_payload, tight)
+                out[rows, d * oc:(d + 1) * oc] = part
+                totals[d] = total
         if release is not None:
             release()
         return out, totals, incoming
@@ -918,51 +937,61 @@ class ShuffleExchange:
 
         tl = self.timeline
         # --- prep -------------------------------------------------------
-        tl.begin("stream:prep", chunks=n_chunks, rounds=plan.num_rounds)
-        srs, cnts, offs = [], [], []
-        for s in range(local):
-            sr, c, o = self._map_side(
-                rt.partition(records, s), partitioner, num_parts, combine,
-                aggregator, float_payload, row_filter, keep_words)
-            srs.append(sr)
-            cnts.append(c)
-            offs.append(o)
-        src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))], dim=1)
-        del srs
-        zero_col = local * n
-        # dest-major: p_dq[d, q] = partition q * mesh + d
-        p_dq = torch.arange(num_parts, device=dev).reshape(ppd, mesh).T
-        cnt = torch.stack(cnts)[:, p_dq]                   # [S, D, ppd]
-        base = torch.stack(offs)[:, p_dq] + (
-            torch.arange(local, device=dev) * n)[:, None, None]
-        if self.processes == 1:
-            incoming = cnt.transpose(0, 1).to(torch.int32)  # [D, S, ppd]
-            by_dest = cnt.permute(1, 2, 0)                  # [D, ppd, S]
-        else:
-            # the size exchange rides the data's move between processes
-            moved = cross(cnt)                              # [L, S, ppd]
-            incoming = moved.to(torch.int32)
-            by_dest = moved.permute(0, 2, 1)                # [L, ppd, S]
-        # segment (q, s, r) of destination d: its length and its start in
-        # the destination's columns of the accumulator
-        r_ix = torch.arange(total_rounds, device=dev) * cap
-        seg = (by_dest[..., None] - r_ix).clamp(0, cap)
-        flat = seg.reshape(local, -1)                      # [L, ppd*S*TR]
-        starts = ((flat.cumsum(1) - flat).reshape(seg.shape)
-                  + (torch.arange(local, device=dev) * oc)[:, None, None,
-                                                           None])
-        totals = flat.sum(1)
-        col = torch.arange(cap, device=dev)
-        dump = local * oc + col
-        dispatches = 1
-        tl.end("stream:prep")
+        with span("shuffle:prep", dev):
+            tl.begin("stream:prep", chunks=n_chunks, rounds=plan.num_rounds)
+            srs, cnts, offs = [], [], []
+            for s in range(local):
+                sr, c, o = self._map_side(
+                    rt.partition(records, s), partitioner, num_parts,
+                    combine, aggregator, float_payload, row_filter,
+                    keep_words)
+                srs.append(sr)
+                cnts.append(c)
+                offs.append(o)
+            with span("shuffle:fill", dev):
+                # the chunks' gather source
+                src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))], dim=1)
+            del srs
+            zero_col = local * n
+            # dest-major: p_dq[d, q] = partition q * mesh + d
+            p_dq = torch.arange(num_parts, device=dev).reshape(ppd, mesh).T
+            cnt = torch.stack(cnts)[:, p_dq]                   # [S, D, ppd]
+            base = torch.stack(offs)[:, p_dq] + (
+                torch.arange(local, device=dev) * n)[:, None, None]
+            if self.processes == 1:
+                incoming = cnt.transpose(0, 1).to(torch.int32)  # [D, S, ppd]
+                by_dest = cnt.permute(1, 2, 0)                  # [D, ppd, S]
+            else:
+                # the size exchange rides the data's move between processes
+                with span("shuffle:move", dev):
+                    moved = cross(cnt)                          # [L, S, ppd]
+                incoming = moved.to(torch.int32)
+                by_dest = moved.permute(0, 2, 1)                # [L, ppd, S]
+            # segment (q, s, r) of destination d: its length and its start
+            # in the destination's columns of the accumulator
+            r_ix = torch.arange(total_rounds, device=dev) * cap
+            seg = (by_dest[..., None] - r_ix).clamp(0, cap)
+            flat = seg.reshape(local, -1)                      # [L, ppd*S*TR]
+            starts = ((flat.cumsum(1) - flat).reshape(seg.shape)
+                      + (torch.arange(local, device=dev) * oc)[:, None, None,
+                                                               None])
+            totals = flat.sum(1)
+            col = torch.arange(cap, device=dev)
+            dump = local * oc + col
+            dispatches = 1
+            tl.end("stream:prep")
 
         acc = self._get_buf((w_eff, local * oc + cap), dev)
         send = recv = None
         try:
-            acc.zero_()     # a pooled buffer holds its last user's words
+            with span("shuffle:fold", dev):
+                # a pooled buffer holds its last user's words
+                acc.zero_()
             shape = ((f_in, local, mesh, ppd, w_eff, cap) if unfused
                      else (local, f_in, mesh, ppd, w_eff, cap))
+            # record slots one chunk moves: every (source, destination
+            # sub-partition) pair's F rounds of ``cap`` slots
+            chunk_slots = f_in * local * num_parts * cap
             move = (make_ring_all_to_all(mesh, m, rt, self.collectives)
                     if unfused
                     else make_ring_exchange(mesh, f_in, m, rt,
@@ -987,92 +1016,107 @@ class ShuffleExchange:
                     # silently (Event.synchronize releases the GIL, so
                     # the watchdog's timer runs meanwhile)
                     m.counter("exchange.queue_blocks").inc()
-                    tl.begin("queue:block", chunk=j)
-                    with self.watchdog.armed(
-                            "queue:block", shuffle=shuffle_id, chunk=j,
-                            queue=len(in_flight),
-                            pool_high_water=(
-                                self.pool.outstanding_high_water
-                                if self.pool is not None else 0)):
-                        if self.block_hook is not None:
-                            self.block_hook(j)
-                        done = in_flight.popleft()
-                        if done is not None:
-                            done.synchronize()
-                    tl.end("queue:block", chunk=j)
+                    with span("shuffle:queue_block", dev):
+                        tl.begin("queue:block", chunk=j)
+                        with self.watchdog.armed(
+                                "queue:block", shuffle=shuffle_id, chunk=j,
+                                queue=len(in_flight),
+                                pool_high_water=(
+                                    self.pool.outstanding_high_water
+                                    if self.pool is not None else 0)):
+                            if self.block_hook is not None:
+                                self.block_hook(j)
+                            done = in_flight.popleft()
+                            if done is not None:
+                                done.synchronize()
+                        tl.end("queue:block", chunk=j)
                 m.counter("exchange.stream_chunks").inc()
-                tl.begin("chunk", chunk=j)
-                rounds = slice(j * f_in, (j + 1) * f_in)
-                # chunk: send[s, f, d, q, :, c] = source s's column c of
-                # round j*F+f of partition q*mesh+d, or the zero column
-                pos = (r_ix[rounds, None] + col)[None, :, None, None, :]
-                idx = torch.where(pos < cnt[:, None, :, :, None],
-                                  base[:, None, :, :, None] + pos, zero_col)
-                if unfused:
-                    idx = idx.transpose(0, 1)      # [F, S, D, ppd, C]
-                send = self._get_buf(shape, dev)
-                torch.gather(src.expand(shape[:4] + src.shape), 5,
-                             idx.unsqueeze(4).expand(shape), out=send)
-                if in_window:
-                    # [L_dst, F, D_src, ...]: a synchronous move, whose
-                    # ready step waits for the last chunk's fold
-                    view = move(send)
-                elif cross is not None and move is None:
-                    # [L_src, D_dst, F, ...] -> [L_dst, D_src, F, ...]
-                    view = cross(send.transpose(1, 2)).transpose(1, 2)
-                else:
-                    recv = self._get_buf(shape, dev)
-                    if unfused:
-                        for f in range(f_in):
-                            move(send[f], out=recv[f])
-                        view = recv.transpose(0, 1)  # [L, F, S, ppd, W, C]
-                    elif move is not None:
-                        view = move(send, out=recv)
-                    else:
-                        view = recv.copy_(send.transpose(0, 2))
-                self._put_buf(send)
-                send = None
-                tl.event("chunk:dispatch", chunk=j, rounds=f_in)
-                if self._ring_fused_active():
-                    # structural marks, as in the fused regime
-                    for jr in range(f_in):
-                        tl.begin("ring:round", round=j * f_in + jr)
-                        tl.end("ring:round", round=j * f_in + jr)
-                # fold: column c of (d, f, s, q) lands at its stream offset
-                ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
-                st = starts[..., rounds].permute(0, 3, 2, 1)[..., None]
-                acc[:, torch.where(col < ln, st + col, dump)] = \
-                    view.permute(4, 0, 1, 2, 3, 5)
-                del view
-                if in_window:
-                    move.release()   # the fold that reads the window
-                if recv is not None:
-                    self._put_buf(recv)  # read by the fold already queued
-                recv = None
-                dispatches += 2
-                done = None
-                if dev.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(dev))
-                in_flight.append(done)
-                tl.event("chunk:fold", chunk=j)
-                tl.end("chunk", chunk=j)
+                with span("shuffle:chunk", dev):
+                    tl.begin("chunk", chunk=j)
+                    rounds = slice(j * f_in, (j + 1) * f_in)
+                    with span("shuffle:fill", dev):
+                        # chunk: send[s, f, d, q, :, c] = source s's column
+                        # c of round j*F+f of partition q*mesh+d, or the
+                        # zero column
+                        pos = (r_ix[rounds, None] + col)[None, :, None, None,
+                                                         :]
+                        idx = torch.where(pos < cnt[:, None, :, :, None],
+                                          base[:, None, :, :, None] + pos,
+                                          zero_col)
+                        if unfused:
+                            idx = idx.transpose(0, 1)  # [F, S, D, ppd, C]
+                        send = self._get_buf(shape, dev)
+                        torch.gather(src.expand(shape[:4] + src.shape), 5,
+                                     idx.unsqueeze(4).expand(shape), out=send)
+                    with span("shuffle:move", dev):
+                        if in_window:
+                            # [L_dst, F, D_src, ...]: a synchronous move,
+                            # whose ready step waits for the last chunk's
+                            # fold
+                            view = move(send)
+                        elif cross is not None and move is None:
+                            # [L_src, D_dst, F, ...] -> [L_dst, D_src, F, ...]
+                            view = cross(send.transpose(1, 2)).transpose(1, 2)
+                        else:
+                            recv = self._get_buf(shape, dev)
+                            if unfused:
+                                for f in range(f_in):
+                                    move(send[f], out=recv[f])
+                                # [L, F, S, ppd, W, C]
+                                view = recv.transpose(0, 1)
+                            elif move is not None:
+                                view = move(send, out=recv)
+                            else:
+                                view = recv.copy_(send.transpose(0, 2))
+                    m.counter("exchange.slots_moved").inc(chunk_slots)
+                    self._put_buf(send)
+                    send = None
+                    tl.event("chunk:dispatch", chunk=j, rounds=f_in)
+                    if self._ring_fused_active():
+                        # structural marks, as in the fused regime
+                        for jr in range(f_in):
+                            tl.begin("ring:round", round=j * f_in + jr)
+                            tl.end("ring:round", round=j * f_in + jr)
+                    with span("shuffle:fold", dev):
+                        # fold: column c of (d, f, s, q) lands at its
+                        # stream offset
+                        ln = seg[..., rounds].permute(0, 3, 2, 1)[..., None]
+                        st = starts[..., rounds].permute(0, 3, 2, 1)[...,
+                                                                     None]
+                        acc[:, torch.where(col < ln, st + col, dump)] = \
+                            view.permute(4, 0, 1, 2, 3, 5)
+                    del view
+                    if in_window:
+                        move.release()   # the fold that reads the window
+                    if recv is not None:
+                        self._put_buf(recv)  # read by the fold already queued
+                    recv = None
+                    dispatches += 2
+                    done = None
+                    if dev.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(dev))
+                    in_flight.append(done)
+                    tl.event("chunk:fold", chunk=j)
+                    tl.end("chunk", chunk=j)
                 tl.counter("chunks.outstanding", len(in_flight))
             del src
 
             # --- tail ---------------------------------------------------
             rows = (list(keep_words) if keep_words is not None
                     else slice(None))
-            out = (self.pool.zeros((w, local * oc))
-                   if self.pool is not None
-                   else torch.zeros((w, local * oc), dtype=torch.int32,
-                                    device=dev))
+            with span("shuffle:tail", dev):
+                out = (self.pool.zeros((w, local * oc))
+                       if self.pool is not None
+                       else torch.zeros((w, local * oc), dtype=torch.int32,
+                                        device=dev))
             new_totals = []
             for d, total in enumerate(totals.tolist()):
-                part, total = self._fuse_tail(
-                    acc[:, d * oc:(d + 1) * oc], total, oc, sort_key_words,
-                    aggregator, float_payload)
-                out[rows, d * oc:(d + 1) * oc] = part
+                with span("shuffle:tail", dev):
+                    part, total = self._fuse_tail(
+                        acc[:, d * oc:(d + 1) * oc], total, oc,
+                        sort_key_words, aggregator, float_payload)
+                    out[rows, d * oc:(d + 1) * oc] = part
                 new_totals.append(total)
             tl.event("stream:tail")
         except BaseException:

@@ -23,6 +23,7 @@ import torch
 
 from sparkrdma_tpu_torch.kernels.sort import lexsort_records
 from sparkrdma_tpu_torch.runtime.distributed import WORLD
+from sparkrdma_tpu_torch.utils.profiling import span
 
 
 def make_sampler(num_partitions: int, key_words: int,
@@ -43,19 +44,20 @@ def make_sampler(num_partitions: int, key_words: int,
         procs = runtime.process_count
 
     def sample(records: torch.Tensor) -> np.ndarray:
-        n = records.shape[1] // len(local)
-        parts = []
-        for r, d in enumerate(local):
-            gen = torch.Generator().manual_seed(seed * 1_000_003 + d)
-            idx = torch.randint(0, max(n, 1), (samples_per_device,),
-                                generator=gen) + r * n
-            parts.append(records[:key_words, idx.to(records.device)].T)
-        rows = torch.cat(parts).cpu().contiguous()
-        if procs > 1:
-            gathered = [torch.empty_like(rows) for _ in range(procs)]
-            collectives.all_gather(gathered, rows)
-            rows = torch.cat(gathered)
-        return rows.numpy().view(np.uint32)
+        with span("shuffle:sample", records.device):
+            n = records.shape[1] // len(local)
+            parts = []
+            for r, d in enumerate(local):
+                gen = torch.Generator().manual_seed(seed * 1_000_003 + d)
+                idx = torch.randint(0, max(n, 1), (samples_per_device,),
+                                    generator=gen) + r * n
+                parts.append(records[:key_words, idx.to(records.device)].T)
+            rows = torch.cat(parts).cpu().contiguous()
+            if procs > 1:
+                gathered = [torch.empty_like(rows) for _ in range(procs)]
+                collectives.all_gather(gathered, rows)
+                rows = torch.cat(gathered)
+            return rows.numpy().view(np.uint32)
 
     return sample
 
@@ -68,8 +70,9 @@ def compute_splitters(samples: np.ndarray, num_parts: int) -> np.ndarray:
     n, kw = samples.shape
     if n == 0 or num_parts < 2:
         return np.zeros((max(0, num_parts - 1), kw), dtype=np.uint32)
-    rows = torch.from_numpy(np.ascontiguousarray(samples).view(np.int32))
-    srt = lexsort_records(rows, kw).numpy().view(np.uint32)
+    with span("shuffle:sample"):
+        rows = torch.from_numpy(np.ascontiguousarray(samples).view(np.int32))
+        srt = lexsort_records(rows, kw).numpy().view(np.uint32)
     idx = (np.arange(1, num_parts) * n) // num_parts
     return srt[idx].astype(np.uint32)
 

@@ -48,6 +48,7 @@ COUNTERS = frozenset({
     "exchange.queue_blocks",
     "exchange.stream_chunks",
     "exchange.dispatches",
+    "exchange.slots_moved",
     "exchange.exchanges",
     "exchange.rounds",
     "exchange.records",
@@ -88,6 +89,15 @@ COUNTERS = frozenset({
     "probe.errors",
     "alerts.fired",
     "alerts.resolved",
+})
+
+#: Counters of the port's own that the reference does not emit (and its
+#: CLIs do not read): the other names are the reference's, spelled alike.
+#: ``exchange.slots_moved`` is the record slots each fused launch or
+#: streaming chunk moved, the source where the work happens of the
+#: benchmark's ``slot_fill``.
+PORT_ONLY = frozenset({
+    "exchange.slots_moved",
 })
 
 #: Point-in-time gauges (``registry.gauge(name)``).
@@ -137,5 +147,5 @@ WILDCARDS = frozenset({
     "tenant.*.quota_waits",
 })
 
-__all__ = ["COUNTERS", "GAUGES", "HISTOGRAMS", "TIMELINE_TRACKS",
-           "WILDCARDS"]
+__all__ = ["COUNTERS", "PORT_ONLY", "GAUGES", "HISTOGRAMS",
+           "TIMELINE_TRACKS", "WILDCARDS"]

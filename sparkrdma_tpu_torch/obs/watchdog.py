@@ -175,14 +175,16 @@ class StallWatchdog:
                                    6)
         stall["ts"] = time.time()
         with self._lock:
+            # the counter first, under the same lock and before the log
+            # line: whoever reads the new stall_count reads it bumped
+            if self.metrics is not None:
+                self.metrics.counter("watchdog.stalls").inc()
             self.stall_count += 1
             self.last_stall = stall
         log.error("shuffle stall: blocked > %.3fs in %s (%s)",
                   self.timeout_s, stall.get("desc"),
                   ", ".join(f"{k}={v}" for k, v in sorted(stall.items())
                             if k not in ("desc", "kind", "ts")))
-        if self.metrics is not None:
-            self.metrics.counter("watchdog.stalls").inc()
         if self.timeline is not None:
             self.timeline.event("stall", **{
                 k: v for k, v in stall.items()

@@ -486,14 +486,18 @@ def test_metric_names_declared_both_ways():
 
 def test_port_names_are_the_reference_names_it_shares():
     """Every name the port declares is one the reference declares too
-    (same spelling, same kind), so the reference's CLIs read them."""
+    (same spelling, same kind), so the reference's CLIs read them; the
+    port's own counters (``PORT_ONLY``) are the exception, and none of
+    them is a name of the reference's."""
     from sparkrdma_tpu.obs import names as rn
 
     from sparkrdma_tpu_torch.obs import names as pn
 
     for kind in ("COUNTERS", "GAUGES", "HISTOGRAMS", "TIMELINE_TRACKS",
                  "WILDCARDS"):
-        assert getattr(pn, kind) <= getattr(rn, kind), kind
+        assert getattr(pn, kind) - pn.PORT_ONLY <= getattr(rn, kind), kind
+    assert pn.PORT_ONLY <= pn.COUNTERS
+    assert not pn.PORT_ONLY & (rn.COUNTERS | rn.GAUGES | rn.HISTOGRAMS)
 
 
 def test_direct_exchange_span_matches_reference(ref, tmp_path):

@@ -347,3 +347,32 @@ def test_watchdog_fires_once_per_wait_and_parks(monkeypatch):
     with wd.armed("again"):                   # a parked watchdog restarts
         assert stall_until(2) == 2
     assert wd.stall_count == 2 and wd.last_stall["desc"] == "again"
+
+
+def test_stall_counter_is_bumped_before_the_log_line(monkeypatch):
+    """The registry's ``watchdog.stalls`` is bumped under the lock that
+    bumps ``stall_count``, before the stall is logged: with the log call
+    held 50 ms, the counter equals ``stall_count`` the moment the count
+    reads 1."""
+    from sparkrdma_tpu_torch.obs import watchdog as wdm
+    from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+
+    logged = []
+
+    def slow_error(*a, **k):
+        time.sleep(0.05)
+        logged.append(a[0])
+
+    monkeypatch.setattr(wdm.log, "error", slow_error)
+    reg = MetricsRegistry()
+    wd = StallWatchdog(0.02, metrics=reg)
+    seen = None
+    with wd.armed("slow"):
+        deadline = time.monotonic() + 10.0
+        while wd.stall_count < 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        seen = (wd.stall_count, reg.counter("watchdog.stalls").value)
+        while not logged and time.monotonic() < deadline:
+            time.sleep(0.005)
+    assert seen == (1, 1)
+    assert logged and logged[0].startswith("shuffle stall")
