@@ -293,7 +293,13 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    then the stacked ring kernel at every send shape legs B-S and the
    chaos soak launched it at (recorded while each leg ran), each against
    its plain version and timed (cold only where a send/out pair is 1 MiB
-   or more);
+   or more); and the plan's count kernel (``csrc/partition_counts.cu``)
+   at every plan pass the legs, leg T's workers and both soaks gave it
+   (``PlanPasses``, ``phase: partition_counts``): random words in a
+   batch of the pass's shape and strides, under a partitioner of the
+   same kind, bins and split, its table bit-exact against
+   ``partition_counts_plain``, both timed (every leg's ``launches``
+   counts the kernel's launches, set to 0 before the leg);
 15. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
@@ -1196,12 +1202,15 @@ def zeroed_counters():
                                                    ring_push_all_to_all)
     from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
                                                         merge_stage)
+    from sparkrdma_tpu_torch.kernels.partition_counts import \
+        partition_counts
 
     kernels = {"merge_stage": merge_stage, "merge_splits": merge_splits,
                "ring_exchange": ring_exchange,
                "ring_all_to_all": ring_all_to_all,
                "ring_push": ring_push,
-               "ring_push_all_to_all": ring_push_all_to_all}
+               "ring_push_all_to_all": ring_push_all_to_all,
+               "partition_counts": partition_counts}
     for k in kernels.values():
         k.launches = 0
     return kernels
@@ -1781,6 +1790,61 @@ class RingShapes:
         self._ring._launch = self._launch
 
 
+class PlanPasses:
+    """The plan passes the ``partition_counts`` kernel counted while
+    inside the ``with``, with their launch counts: ``exchange/protocol.py``'s
+    name for the wrapper is wrapped for the duration (the launch count
+    stays the wrapper's own). A pass's key is what the kernel is given:
+    the batch's shape and strides, the description's kind,
+    ``num_parts``, key words, first key word, ``split_k`` and stride,
+    the bins and the stacked partitions, all plain values, so a worker's
+    or a child's keys come back through JSON (:func:`plan_rows`)."""
+
+    def __enter__(self):
+        from sparkrdma_tpu_torch.exchange import protocol
+
+        self.counts = {}
+        self._protocol = protocol
+        self._counts = protocol.partition_counts
+
+        def counts(records, part_fn, parts, local_partitions):
+            if records.is_cuda:
+                d = part_fn.device_spec
+                key = (tuple(records.shape), tuple(records.stride()),
+                       d.kind, d.num_parts, d.key_words, d.first,
+                       d.split_k, d.stride, parts, local_partitions)
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return self._counts(records, part_fn, parts, local_partitions)
+
+        protocol.partition_counts = counts
+        return self
+
+    def __exit__(self, *exc):
+        self._protocol.partition_counts = self._counts
+
+
+#: leg (or worker part, or soak) -> {PlanPasses key: launches}
+PLAN_PASSES = {}
+
+
+def note_plans(leg_name: str, counts: dict) -> None:
+    """Add a leg's plan passes to ``PLAN_PASSES``."""
+    mine = PLAN_PASSES.setdefault(leg_name, {})
+    for key, n in counts.items():
+        mine[key] = mine.get(key, 0) + n
+
+
+def plan_rows(counts: dict) -> list:
+    """``PlanPasses.counts`` as JSON rows ``[*key, launches]``."""
+    return [[list(k[0]), list(k[1]), *k[2:], n]
+            for k, n in sorted(counts.items())]
+
+
+def plan_counts_of(rows: list) -> dict:
+    """:func:`plan_rows`' rows back as ``PlanPasses.counts``."""
+    return {(tuple(r[0]), tuple(r[1]), *r[2:-1]): r[-1] for r in rows}
+
+
 def is_push(shape) -> bool:
     """A push shape ``[L, R, D, ...]`` (``L < D``: across processes)."""
     return shape[0] != shape[2]
@@ -1790,9 +1854,10 @@ def run_leg(legs: dict, shapes: dict, name: str, fn) -> dict:
     """``legs[name] = fn()``, recording the ring shapes it launched and
     its seconds."""
     t0 = time.perf_counter()
-    with RingShapes() as seen:
+    with RingShapes() as seen, PlanPasses() as plans:
         legs[name] = fn()
     shapes[name] = seen.counts
+    note_plans(name, plans.counts)
     gc.collect()
     torch.cuda.empty_cache()
     report({"leg_s": name, "seconds": time.perf_counter() - t0,
@@ -1865,6 +1930,86 @@ def ring_leg_phases(shapes: dict) -> list:
              f"RING_LEG_SHAPES lists: recorded, not listed "
              f"{sorted(seen - table)}; listed, not recorded "
              f"{sorted(table - seen)}")
+    return lines
+
+
+def plan_partitioner(kind: str, num_parts: int, key_words: int,
+                     first: int, split_k: int, stride: int, seed: int):
+    """A partitioner whose description is the one a recorded plan pass
+    gave the kernel; range's splitter rows are random and unsorted."""
+    from sparkrdma_tpu_torch.exchange.partitioners import (
+        hash_partitioner, modulo_partitioner, range_partitioner)
+    from sparkrdma_tpu_torch.exchange.protocol import split_partitioner
+
+    if kind == "hash":
+        part = hash_partitioner(num_parts, key_words)
+    elif kind == "mod":
+        part = modulo_partitioner(num_parts, first)
+    else:
+        part = range_partitioner(np.random.default_rng(seed).integers(
+            0, 2 ** 32, size=(num_parts - 1, key_words), dtype=np.uint32),
+            key_words)
+    return split_partitioner(part, stride, split_k) if stride else part
+
+
+def plan_counts_phase() -> list:
+    """The plan's count kernel at every pass the legs, workers and soaks
+    gave it (``PLAN_PASSES``): random words in a batch of the pass's
+    shape and strides, the same partitioner kind, bins and split, its
+    table bit-exact against ``partition_counts_plain`` and both timed
+    beside the bound (the key words read once). One line per pass; fails
+    on any difference, or if legs B (range) and D (hash) launched none."""
+    from sparkrdma_tpu_torch.kernels.partition_counts import (
+        partition_counts, partition_counts_plain)
+
+    by_key = {}
+    for leg_name, counts in PLAN_PASSES.items():
+        for key, n in counts.items():
+            by_key.setdefault(key, {})[leg_name] = n
+    lines = []
+    for seed, (key, legs) in enumerate(sorted(by_key.items())):
+        shape, strides, kind, num_parts, kw, first, k, stride, parts, L = key
+        part = plan_partitioner(kind, num_parts, kw, first, k, stride,
+                                seed=200 + seed)
+        words = rand_words(shape, seed=200 + seed)
+        if strides[1:] == (0,) or not all(strides):
+            x = words       # an expanded batch is read contiguous
+        else:
+            x = torch.empty_strided(shape, strides, dtype=torch.int32,
+                                    device="cuda").copy_(words)
+        del words
+
+        def kernel():
+            return partition_counts(x, part, parts, L)
+
+        def plain():
+            return partition_counts_plain(x, part, parts, L)
+
+        got, want = kernel(), plain()
+        err = max_abs_err(got, want)
+        if err or got.dtype != want.dtype:
+            fail(f"partition_counts disagrees with its plain version at "
+                 f"{key} (legs {sorted(legs)}): {err}")
+        bound_ms = shape[1] // L * L * kw * 4 / MEM_RATE * 1e3
+        line = {"phase": "partition_counts", "shape": list(shape),
+                "strides": list(strides), "kind": kind,
+                "num_parts": num_parts, "key_words": kw,
+                "first_key_word": first, "split_k": k,
+                "split_stride": stride, "bins": parts, "partitions": L,
+                "legs": ", ".join(sorted(legs)), "launches_by_leg": legs,
+                "launches": sum(legs.values()), "max_abs_err": err,
+                "records": int(want.sum()),
+                "kernel_ms": time_ms(kernel, reps=10,
+                                     inner=20 if bound_ms < 0.5 else 1),
+                "bound_ms": bound_ms,
+                "plain_ms": time_ms(plain, reps=3)}
+        report(line)
+        lines.append(line)
+        del x, got, want
+        torch.cuda.empty_cache()
+    for leg_name in ("B", "D"):
+        if leg_name in PLAN_PASSES and not PLAN_PASSES[leg_name]:
+            fail(f"partition_counts counted no plan pass of leg {leg_name}")
     return lines
 
 
@@ -5287,7 +5432,9 @@ def t_worker(rank: int, backend: str) -> dict:
         spl = compute_splitters(make_sampler(
             PARTS, KEY_WORDS, 256, 0, runtime=rt)(records), PARTS)
         h = m.register_shuffle(1, PARTS, range_partitioner(spl, KEY_WORDS))
+        kernels = zeroed_counters()
         plan = m.get_writer(h).write(records).stop()
+        plan_passes = kernels["partition_counts"].launches
         reader = m.get_reader(h, key_ordering=True)
         reads = []
         for i in range(T_READS + 1):
@@ -5315,7 +5462,8 @@ def t_worker(rank: int, backend: str) -> dict:
                     "window_gb": w1["window_gb"],
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
         out_lines[name] = {
-            "reads": reads, "rounds": plan.num_rounds,
+            "reads": reads, "partition_counts": plan_passes,
+            "rounds": plan.num_rounds,
             "out_capacity": plan.out_capacity,
             "totals": totals.tolist(),
             "digests": part_digests(out, totals, plan.out_capacity),
@@ -5411,6 +5559,8 @@ def u_run(m, rows: np.ndarray, sync=None, a2a_s=None,
                      "a2a_s": a2a_s[None] if a2a_s is not None else None,
                      "merge_stage": kernels["merge_stage"].launches,
                      "merge_splits": kernels["merge_splits"].launches,
+                     "partition_counts":
+                         kernels["partition_counts"].launches,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "totals": res.totals.tolist(),
                      "digests": part_digests(res.records, res.totals, cap)}
@@ -5474,6 +5624,7 @@ def v_plan_run(m, ds, sync=None, a2a_s=None) -> dict:
                 "a2a_s": a2a_s[None] if a2a_s is not None else None,
                 "merge_stage": kernels["merge_stage"].launches,
                 "merge_splits": kernels["merge_splits"].launches,
+                "partition_counts": kernels["partition_counts"].launches,
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "totals": res.totals.tolist(),
                 "digests": part_digests(res.records, res.totals, cap)}
@@ -5566,6 +5717,7 @@ def v_service_worker(out_dir: str, rank: int) -> dict:
            "merge_stage": kernels["merge_stage"].launches,
            "merge_splits": kernels["merge_splits"].launches,
            "ring_push": kernels["ring_push"].launches,
+           "partition_counts": kernels["partition_counts"].launches,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "journal_lines": {k: len(v) for k, v in sorted(kinds.items())}}
     gc.collect()
@@ -5625,7 +5777,8 @@ def dist_phase_worker(rank: int, out_dir: str) -> dict:
             "ring_push": kernels["ring_push"].launches,
             "ring_push_all_to_all": kernels["ring_push_all_to_all"].launches,
             "merge_stage": kernels["merge_stage"].launches,
-            "merge_splits": kernels["merge_splits"].launches}
+            "merge_splits": kernels["merge_splits"].launches,
+            "partition_counts": kernels["partition_counts"].launches}
         m.stop()
     out, totals = dist_repartition("cuda")
     np.save(os.path.join(out_dir, f"repart-{rank}.npy"), out)
@@ -5982,24 +6135,29 @@ def distributed_worker(args) -> int:
                                   backend=backend, timeout_s=300):
         fail("no process group")
     t0 = time.perf_counter()
-    seen = {}
-    with RingShapes() as seen["T"]:
+    seen, plans = {}, {}
+    with RingShapes() as seen["T"], PlanPasses() as plans["T"]:
         res = {"T": t_worker(rank, backend)}
     res["T_s"] = time.perf_counter() - t0
     if phase:
         t0 = time.perf_counter()
-        with RingShapes() as seen["V-service"]:
+        with RingShapes() as seen["V-service"], \
+                PlanPasses() as plans["V-service"]:
             res["V"] = v_service_worker(out_dir, rank)
         res["V_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res["U"] = u_worker()
+        with PlanPasses() as plans["U"]:
+            res["U"] = u_worker()
         res["U_s"] = time.perf_counter() - t0
-        with RingShapes() as seen["distributed"]:
+        with RingShapes() as seen["distributed"], \
+                PlanPasses() as plans["distributed"]:
             res["distributed"] = dist_phase_worker(rank, out_dir)
     # the ring shapes each part launched at, and the push checked there
     res["ring_shapes"] = {part: [[list(shape), a2a, n] for (shape, a2a), n
                                  in sorted(rec.counts.items())]
                           for part, rec in seen.items()}
+    res["plan_passes"] = {part: plan_rows(rec.counts)
+                          for part, rec in plans.items()}
     if phase:
         t0 = time.perf_counter()
         res["push"] = push_checks(rank, {
@@ -6122,6 +6280,7 @@ def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
             "a2a_s": [p["a2a_s"] for p in per],
             "merge_stage": [p["merge_stage"] for p in per],
             "one_process_merge_stage": plan_ref[name]["merge_stage"],
+            "partition_counts": [p["partition_counts"] for p in per],
             "peak_gb": [p["peak_gb"] for p in per],
             "one_process_peak_gb": plan_ref[name]["peak_gb"],
             "partition_totals": sum((p["totals"] for p in per), []),
@@ -6216,7 +6375,7 @@ def v_lines(service_ref: dict, plan_ref: dict, workers: list) -> dict:
         fail("leg V: " + ", ".join(bad))
     launches = dict.fromkeys(KERNEL_COUNTS, 0)
     for w in workers:
-        for k in ("merge_stage", "merge_splits"):
+        for k in ("merge_stage", "merge_splits", "partition_counts"):
             launches[k] += w["V"][k] + sum(
                 w["U"]["verbs"]["plans"][n][k] for n in V_PLANS)
         launches["ring_push"] += w["V"]["ring_push"]
@@ -6241,6 +6400,7 @@ def u_line(ref: dict, workers: list) -> dict:
             "a2a_s": [p["a2a_s"] for p in per],
             "merge_stage": [p["merge_stage"] for p in per],
             "one_process_merge_stage": ref[name]["merge_stage"],
+            "partition_counts": [p["partition_counts"] for p in per],
             "peak_gb": [p["peak_gb"] for p in per],
             "one_process_peak_gb": ref[name]["peak_gb"],
             "partition_totals": sum((p["totals"] for p in per), []),
@@ -6345,13 +6505,14 @@ def leg_t() -> dict:
     u_launches = dict(launches)
     for w in workers:
         for transport in T_TRANSPORTS:
+            launches["partition_counts"] += w["T"][transport][
+                "partition_counts"]
             for r in w["T"][transport]["reads"]:
                 for k in ("merge_stage", "merge_splits", "ring_push"):
                     launches[k] += r[k]
         for name in U_VERBS:
-            u_launches["merge_stage"] += w["U"]["verbs"][name]["merge_stage"]
-            u_launches["merge_splits"] += w["U"]["verbs"][name][
-                "merge_splits"]
+            for k in ("merge_stage", "merge_splits", "partition_counts"):
+                u_launches[k] += w["U"]["verbs"][name][k]
     # each part's ring shapes, recorded in the workers
     shapes = {}
     for w in workers:
@@ -6366,12 +6527,14 @@ def leg_t() -> dict:
               "verb_s": {k: v["wall_s"] for k, v in u["verbs"].items()}},
         "V": v, "distributed": {"leg": "distributed",
                                 "launches": phase["launches"]},
-        "push": push, "ring_shapes": shapes}
+        "push": push, "ring_shapes": shapes,
+        "plan_passes": [w["plan_passes"] for w in workers]}
 
 
 #: the kernel wrappers whose launches the legs count
 KERNEL_COUNTS = ("merge_stage", "merge_splits", "ring_exchange",
-                 "ring_all_to_all", "ring_push", "ring_push_all_to_all")
+                 "ring_all_to_all", "ring_push", "ring_push_all_to_all",
+                 "partition_counts")
 
 
 def push_lines(workers: list) -> dict:
@@ -6557,20 +6720,22 @@ def soak_child(script: str, argv) -> int:
     process, the kernel wrappers' counts set to 0 just before it; after
     its summary, the launches and the ring shapes it made
     (``{"soak_launches": {...}, "soak_ring_shapes": [[shape, a2a,
-    launches], ...]}``)."""
+    launches], ...], "soak_plan_passes": [...]}``, the last
+    :func:`plan_rows`)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("soak", script)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     kernels = zeroed_counters()
-    with RingShapes() as seen:
+    with RingShapes() as seen, PlanPasses() as plans:
         rc = mod.main(list(argv))
     torch.cuda.synchronize()
     print(json.dumps({
         "soak_launches": {k: v.launches for k, v in kernels.items()},
         "soak_ring_shapes": [[list(shape), a2a, n] for (shape, a2a), n
-                             in sorted(seen.counts.items())]}), flush=True)
+                             in sorted(seen.counts.items())],
+        "soak_plan_passes": plan_rows(plans.counts)}), flush=True)
     return rc
 
 
@@ -6644,6 +6809,7 @@ def finish_chaos(started: dict, legs: dict, shapes: dict,
                 "summary": summary}
         report(line)
         lines.append(line)
+        note_plans(name, plan_counts_of(child["soak_plan_passes"]))
         if name == "chaos_soak":
             legs["chaos"] = {"launches": child["soak_launches"],
                              "run_s": run_s}
@@ -6751,6 +6917,7 @@ def main(argv=None) -> int:
         if "T" in only:
             run_leg(legs, shapes, "T", leg_t)
             split_leg_t(legs, shapes)
+        plan_counts_phase()
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -6788,6 +6955,7 @@ def main(argv=None) -> int:
     run_leg(legs, shapes, "T", leg_t)
     push = split_leg_t(legs, shapes)
     ring_legs = ring_leg_phases(shapes)
+    plan_lines = plan_counts_phase()
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
             fail(f"ring_exchange was not launched on leg {name}")
@@ -6873,6 +7041,8 @@ def main(argv=None) -> int:
                    "sparkrdma_tpu/exchange/ring.py:87",
                    launches("ring_push_all_to_all"),
                    by_leg("ring_push_all_to_all")),
+        plan_entry(plan_lines, launches("partition_counts"),
+                   by_leg("partition_counts")),
     ]
     report({"smoke_s": time.perf_counter() - t_smoke})
     report({"kernels": kernels})
@@ -6892,6 +7062,9 @@ def split_leg_t(legs: dict, shapes: dict) -> dict:
         mine = shapes.setdefault(part, {})
         for key, n in counts.items():
             mine[key] = mine.get(key, 0) + n
+    for worker in legs["T"].pop("plan_passes"):
+        for part, rows in worker.items():
+            note_plans(part, plan_counts_of(rows))
     return legs["T"].pop("push")
 
 
@@ -6923,6 +7096,26 @@ def push_entry(push: dict, name: str, replaces: str, launches: int,
                        for v in lines]}
 
 
+def plan_entry(lines: list, launches: int, by_leg: dict) -> dict:
+    """The ``kernels`` line's entry of ``partition_counts``: its numbers
+    at the pass with the most key bytes, every pass's beside them."""
+    if not lines:
+        fail("partition_counts was checked at no plan pass")
+    top = max(lines, key=lambda v: v["bound_ms"])
+    return {"name": "partition_counts", "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/partition_counts.cu",
+            "replaces": None, "launches": launches,
+            "launches_by_leg": by_leg, "shape": top["shape"],
+            "max_abs_err": max(v["max_abs_err"] for v in lines),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "passes": [{k: v[k] for k in ("shape", "kind", "split_k",
+                                          "bins", "legs", "max_abs_err",
+                                          "kernel_ms", "bound_ms")}
+                       for v in lines]}
+
+
 def earlier_legs(legs: dict, shapes: dict):
     """Legs A-H, into ``legs``, and the ring shapes each launched, into
     ``shapes``; returns the ring kernel's phases at leg F's chunk shape
@@ -6931,18 +7124,20 @@ def earlier_legs(legs: dict, shapes: dict):
     for name, d, transport, fused in (("A", 1, "xla", True),
                                       ("B", 8, "pallas_ring", True),
                                       ("C", 8, "pallas_ring", False)):
-        with RingShapes() as seen:
+        with RingShapes() as seen, PlanPasses() as plans:
             legs[name], out, totals = leg(name, d, RECORDS, transport,
                                           fused, seed=0, full=True)
         shapes[name] = seen.counts
+        note_plans(name, plans.counts)
         if name in ("B", "C"):
             outs[name] = (out, totals)
         del out, totals
         torch.cuda.empty_cache()
-        with RingShapes() as seen:
+        with RingShapes() as seen, PlanPasses() as plans:
             leg(name + "-small", d, 1 << 20, transport, fused, seed=5,
                 full=False)
         shapes[name + "-small"] = seen.counts
+        note_plans(name + "-small", plans.counts)
     # the two transports of the 8-partition path give the same bytes
     (ob, tb), (oc, tc) = outs["B"], outs["C"]
     if not (torch.equal(ob, oc) and torch.equal(tb, tc)):

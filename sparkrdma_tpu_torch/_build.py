@@ -55,6 +55,10 @@ SIGNATURES = {
         "sr_merge_splits": ([_P, _P, _I, _L, _L, _L, _I, _P], _I),
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),
     },
+    "partition_counts": {
+        "sr_partition_counts": ([_P, _L, _L, _L, _I, _I, _I, _I, _I, _P, _I,
+                                 _I, _P, _I, _P], _I),
+    },
     "ring_exchange": {
         "sr_ring_push": ([_P, PeerTable, _I, _I, _I, _I, _L, _I, _I, _L,
                           _L, _I, _P], _I),

@@ -120,10 +120,11 @@ from sparkrdma_tpu_torch.kernels.bucketing import (bucket_records,
                                                    bucket_sorted_counts,
                                                    compact_segments,
                                                    fill_round_slots,
-                                                   fill_round_slots_dest_major,
-                                                   histogram_pids)
+                                                   fill_round_slots_dest_major)
 from sparkrdma_tpu_torch.kernels.merge_sort import (merge_sort_cols,
                                                     supports_fast_sort)
+from sparkrdma_tpu_torch.kernels.partition_counts import (
+    partition_counts, partition_counts_plain)
 from sparkrdma_tpu_torch.kernels.sort import (lexsort_cols,
                                               packed_lexsort_cols,
                                               sort_by_lead_cols)
@@ -157,7 +158,9 @@ class ShufflePlan:
 def split_partitioner(partitioner: Callable, num_parts: int,
                       k: int) -> Callable:
     """Spread each partition over ``k`` same-owner sub-partitions
-    ``p + num_parts * j``, ``j`` cycling by local record position."""
+    ``p + num_parts * j``, ``j`` cycling by local record position. Its
+    ``device_spec`` wraps the inner partitioner's with ``k``; it has
+    none where the inner one has none or is itself a split."""
 
     def wrapped(records):
         base = partitioner(records).to(torch.int64)
@@ -166,6 +169,8 @@ def split_partitioner(partitioner: Callable, num_parts: int,
 
     wrapped.cache_key = ("split", k, num_parts,
                          getattr(partitioner, "cache_key", id(partitioner)))
+    inner = getattr(partitioner, "device_spec", None)
+    wrapped.device_spec = None if inner is None else inner.split(k, num_parts)
     return wrapped
 
 
@@ -337,9 +342,18 @@ class ShuffleExchange:
 
         def measure(part_fn, parts):
             with span("shuffle:plan_pass", records.device):
-                counts = torch.stack([
-                    histogram_pids(part_fn(rt.partition(records, d)), parts)
-                    for d in range(rt.local_partitions)]).cpu()
+                # a described partitioner on the card: one launch over
+                # every stacked partition; else the partitioner itself
+                if records.is_cuda and getattr(part_fn, "device_spec",
+                                               None) is not None:
+                    self.metrics.counter("exchange.plan_passes_kernel").inc()
+                    counts = partition_counts(records, part_fn, parts,
+                                              rt.local_partitions)
+                else:
+                    self.metrics.counter("exchange.plan_passes_plain").inc()
+                    counts = partition_counts_plain(records, part_fn, parts,
+                                                    rt.local_partitions)
+                counts = counts.cpu()
                 if self.processes > 1:
                     # the metadata-table read, made collective: every
                     # process gets the [D, parts] table (CPU tensors, gloo)

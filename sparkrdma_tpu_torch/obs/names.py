@@ -45,6 +45,8 @@ COUNTERS = frozenset({
     "watchdog.stalls",
     "exchange.faults",
     "exchange.plans",
+    "exchange.plan_passes_kernel",
+    "exchange.plan_passes_plain",
     "exchange.queue_blocks",
     "exchange.stream_chunks",
     "exchange.dispatches",
@@ -95,9 +97,13 @@ COUNTERS = frozenset({
 #: CLIs do not read): the other names are the reference's, spelled alike.
 #: ``exchange.slots_moved`` is the record slots each fused launch or
 #: streaming chunk moved, the source where the work happens of the
-#: benchmark's ``slot_fill``.
+#: benchmark's ``slot_fill``. ``exchange.plan_passes_kernel`` and
+#: ``exchange.plan_passes_plain`` count the plan passes counted by the
+#: ``partition_counts`` kernel and by calling the partitioner.
 PORT_ONLY = frozenset({
     "exchange.slots_moved",
+    "exchange.plan_passes_kernel",
+    "exchange.plan_passes_plain",
 })
 
 #: Point-in-time gauges (``registry.gauge(name)``).

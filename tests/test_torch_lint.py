@@ -1438,8 +1438,9 @@ def test_idiom_fault_site_param_bad_twins(tmp_path):
 # ABI: copies of the real tables
 # ---------------------------------------------------------------------
 
-_ABI_REAL = ["_build.py", "csrc/merge_path.cu", "csrc/ring_exchange.cu",
-             "hbm/host_staging.py", "native/staging.cpp"]
+_ABI_REAL = ["_build.py", "csrc/merge_path.cu", "csrc/partition_counts.cu",
+             "csrc/ring_exchange.cu", "hbm/host_staging.py",
+             "native/staging.cpp"]
 
 
 @pytest.fixture
@@ -1466,10 +1467,15 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
     pairs = {p.c_rel: p for p in abi_model(LintContext(abi_copy)).pairs}
     # every export of both pairs is compared with its table entry
     assert sorted(pairs) == [f"{PKG}/csrc/merge_path.cu",
+                             f"{PKG}/csrc/partition_counts.cu",
                              f"{PKG}/csrc/ring_exchange.cu",
                              f"{PKG}/native/staging.cpp"]
     assert sorted(pairs[f"{PKG}/csrc/merge_path.cu"].cfuncs) == \
         ["sr_merge_splits", "sr_merge_stage"]
+    counts = pairs[f"{PKG}/csrc/partition_counts.cu"]
+    assert sorted(counts.cfuncs) == sorted(counts.decls) == [
+        "sr_partition_counts"]
+    assert len(counts.cfuncs["sr_partition_counts"].params) == 15
     ring = pairs[f"{PKG}/csrc/ring_exchange.cu"]
     assert sorted(ring.cfuncs) == sorted(ring.decls) == [
         "sr_ipc_close", "sr_ipc_export", "sr_ipc_open", "sr_ring_push",
@@ -1489,6 +1495,12 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
      '"sr_merge_splits": ([_P, _P, _I, _I, _L, _L, _I, _P], _I)',
      "sr_merge_splits parameter 3 is long long in C but argtypes[3] is "
      "c_int (expected c_longlong)"),
+    # sr_partition_counts' row stride declared int instead of long long
+    ("_build.py",
+     '"sr_partition_counts": ([_P, _L, _L, _L,',
+     '"sr_partition_counts": ([_P, _I, _L, _L,',
+     "sr_partition_counts parameter 1 is long long in C but argtypes[1] "
+     "is c_int (expected c_longlong)"),
     # sr_ipc_close dropped from the table
     ("_build.py", '        "sr_ipc_close": ([_I, _P], _I),\n', "",
      "sr_ipc_close is exported from ring_exchange.cu but _build.py never "
