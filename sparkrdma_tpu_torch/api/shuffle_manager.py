@@ -465,7 +465,7 @@ class ShuffleReader:
             # drain restarts the timeline's clock: the next span's events
             # are relative to this one (a sampled-away span drains too)
             events=m.timeline.drain(),
-            **serde, **ex.wire_stats())
+            **serde, **ex.reference_wire_stats())
         tctx = _trace.current_trace()
         if tctx is not None:
             span.trace_id = tctx.trace_id
@@ -771,7 +771,8 @@ class ShuffleManager:
                              row_filter, keep_words, combine_hint)
 
     def wire_stats(self) -> Dict[str, float]:
-        """The last read's combine and pushdown wire accounting
+        """The last read's combine and pushdown wire accounting and its
+        reduce-side combine's lines and keys
         (:meth:`ShuffleExchange.wire_stats`, the same dict): host numbers,
         though the first call after a combined or filtered read waits
         for its counts."""

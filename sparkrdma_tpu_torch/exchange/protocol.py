@@ -37,7 +37,8 @@ With an aggregator, a plan-time gate (``conf.map_side_combine``) may
 also combine each source's records by (partition, key) before they are
 bucketed; ``row_filter`` and ``keep_words`` push a predicate and a
 projection into the map side, and :meth:`ShuffleExchange.wire_stats`
-accounts for what they kept off the wire.
+accounts for what they kept off the wire and for what the reduce-side
+combine folded.
 
 Partition ``p`` lives on stacked partition ``p % D`` (round-robin).
 
@@ -102,7 +103,7 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -249,6 +250,9 @@ class ShuffleExchange:
         self.last_dispatches = 0
         self._last_wire = None
         self._last_wire_stats: Dict[str, float] = {}
+        # [lines in, keys out] of the last read's reduce-side combine
+        # (None: no aggregator); ints the combine already holds
+        self._last_reduce: Optional[List[int]] = None
         #: a test's fault injector: called at each exchange, a True
         #: return fails it (takes priority over ``fault_injection_rate``)
         self.fault_hook: Optional[Callable[[], bool]] = None
@@ -495,12 +499,25 @@ class ShuffleExchange:
                            bool(combined), bool(filtered), float(dup_ratio))
 
     def wire_stats(self) -> Dict[str, float]:
+        """:meth:`reference_wire_stats`, and for every aggregator read the
+        port's ``reduce_in_records`` / ``reduce_out_records``: the lines
+        into the reduce-side combine and the keys out of it, summed over
+        the partitions (0 / 0 where the one-partition exchange's map-side
+        combine was the whole fold)."""
+        s = self.reference_wire_stats()
+        if self._last_reduce is None or self._last_wire is None:
+            return s
+        return dict(s, reduce_in_records=self._last_reduce[0],
+                    reduce_out_records=self._last_reduce[1])
+
+    def reference_wire_stats(self) -> Dict[str, float]:
         """Combine/pushdown wire accounting of the last :meth:`exchange`,
-        under the reference's keys: ``combine_{in,out}_{records,bytes}``
-        when the map-side combine ran (a filter under it folded in),
-        ``pushdown_rows_dropped`` for a filter without it,
-        ``pushdown_words_dropped`` for a projection, and the gate's
-        ``combine_dup_ratio`` for every aggregator exchange."""
+        under the reference's keys (what a journal span carries):
+        ``combine_{in,out}_{records,bytes}`` when the map-side combine
+        ran (a filter under it folded in), ``pushdown_rows_dropped`` for
+        a filter without it, ``pushdown_words_dropped`` for a projection,
+        and the gate's ``combine_dup_ratio`` for every aggregator
+        exchange."""
         if self._last_wire is None:
             return {}
         if self._last_wire_stats:
@@ -550,6 +567,15 @@ class ShuffleExchange:
                                        device=out.device),
                 self.conf.key_words, aggregator, float_payload,
                 wide=mode == "wide", ride_words=ride, pack=mode == "pack")
+            # host ints the combine already holds: no sync. A ranged read's
+            # tail follows an exchange run without the aggregator
+            self.metrics.counter("exchange.reduce_combine_in_records").inc(n)
+            self.metrics.counter("exchange.reduce_combine_out_records").inc(
+                unique)
+            if self._last_reduce is None:
+                self._last_reduce = [0, 0]
+            self._last_reduce[0] += n
+            self._last_reduce[1] += unique
             if float_payload and n == 1 < out_capacity:
                 # the scan over the whole capacity turns -0.0 into +0.0
                 # even for one valid row (``combine_by_key_cols``)
@@ -676,6 +702,7 @@ class ShuffleExchange:
                             f"{records.dtype}")
         self._last_wire = None
         self._last_wire_stats = {}
+        self._last_reduce = [0, 0] if aggregator else None
         self._maybe_inject_fault(shuffle_id)
         m = self.metrics
         m.counter("exchange.exchanges").inc()
@@ -1207,7 +1234,7 @@ class ShuffleExchange:
                 events=self.timeline.drain(),
                 store_spill_bytes=st_spill, store_fetch_bytes=st_fetch,
                 store_prefetch_hits=st_hits, store_sync_fetches=st_sync,
-                **self.wire_stats())
+                **self.reference_wire_stats())
             tctx = _trace.current_trace()
             if tctx is not None:
                 span.trace_id = tctx.trace_id

@@ -51,6 +51,8 @@ COUNTERS = frozenset({
     "exchange.stream_chunks",
     "exchange.dispatches",
     "exchange.slots_moved",
+    "exchange.reduce_combine_in_records",
+    "exchange.reduce_combine_out_records",
     "exchange.exchanges",
     "exchange.rounds",
     "exchange.records",
@@ -100,10 +102,15 @@ COUNTERS = frozenset({
 #: benchmark's ``slot_fill``. ``exchange.plan_passes_kernel`` and
 #: ``exchange.plan_passes_plain`` count the plan passes counted by the
 #: ``partition_counts`` kernel and by calling the partitioner.
+#: ``exchange.reduce_combine_in_records`` / ``_out_records`` count the
+#: lines into the reduce-side combine (``_fuse_tail``) and the keys out
+#: of it, the source of the benchmark's ``reduce_fold``.
 PORT_ONLY = frozenset({
     "exchange.slots_moved",
     "exchange.plan_passes_kernel",
     "exchange.plan_passes_plain",
+    "exchange.reduce_combine_in_records",
+    "exchange.reduce_combine_out_records",
 })
 
 #: Point-in-time gauges (``registry.gauge(name)``).

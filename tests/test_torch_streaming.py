@@ -160,7 +160,8 @@ def _same_read(r, p, ref_kw=None, **kw):
     out, totals = port.get_reader(ph, **kw).read()
     np.testing.assert_array_equal(totals.numpy(), np.asarray(tot_r))
     np.testing.assert_array_equal(records_from_torch(out), np.asarray(out_r))
-    assert port._exchange.wire_stats() == ref._exchange.wire_stats()
+    assert port._exchange.reference_wire_stats() == \
+        ref._exchange.wire_stats()
     assert port._exchange.last_dispatches == ref._exchange.last_dispatches
     return out.clone(), totals.clone()
 
