@@ -299,7 +299,11 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    batch of the pass's shape and strides, under a partitioner of the
    same kind, bins and split, its table bit-exact against
    ``partition_counts_plain``, both timed (every leg's ``launches``
-   counts the kernel's launches, set to 0 before the leg);
+   counts the kernel's launches, set to 0 before the leg); and the
+   read's bucketing kernel (``csrc/bucket_scatter.cu``) likewise at every
+   map pass they gave it (``PlanPasses``, ``phase: bucket_scatter``): its
+   gather source, counts and offsets bit-exact against
+   ``bucket_scatter_plain``, both timed;
 15. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
@@ -1202,6 +1206,7 @@ def zeroed_counters():
                                                    ring_push_all_to_all)
     from sparkrdma_tpu_torch.kernels.merge_sort import (merge_splits,
                                                         merge_stage)
+    from sparkrdma_tpu_torch.kernels.bucket_scatter import bucket_scatter
     from sparkrdma_tpu_torch.kernels.partition_counts import \
         partition_counts
 
@@ -1210,7 +1215,8 @@ def zeroed_counters():
                "ring_all_to_all": ring_all_to_all,
                "ring_push": ring_push,
                "ring_push_all_to_all": ring_push_all_to_all,
-               "partition_counts": partition_counts}
+               "partition_counts": partition_counts,
+               "bucket_scatter": bucket_scatter}
     for k in kernels.values():
         k.launches = 0
     return kernels
@@ -1791,39 +1797,49 @@ class RingShapes:
 
 
 class PlanPasses:
-    """The plan passes the ``partition_counts`` kernel counted while
-    inside the ``with``, with their launch counts: ``exchange/protocol.py``'s
-    name for the wrapper is wrapped for the duration (the launch count
-    stays the wrapper's own). A pass's key is what the kernel is given:
-    the batch's shape and strides, the description's kind,
-    ``num_parts``, key words, first key word, ``split_k`` and stride,
-    the bins and the stacked partitions, all plain values, so a worker's
-    or a child's keys come back through JSON (:func:`plan_rows`)."""
+    """The plan passes the ``partition_counts`` kernel counted and the
+    map passes the ``bucket_scatter`` kernel bucketed while inside the
+    ``with``, with their launch counts: ``exchange/protocol.py``'s names
+    for the wrappers are wrapped for the duration (the launch counts stay
+    the wrappers' own). A pass's key is what the kernel is given: the
+    batch's shape and strides, the description's kind, ``num_parts``,
+    key words, first key word, ``split_k`` and stride, the bins and the
+    stacked partitions, then ``"plan"`` or ``"map"``, all plain values,
+    so a worker's or a child's keys come back through JSON
+    (:func:`plan_rows`)."""
 
     def __enter__(self):
         from sparkrdma_tpu_torch.exchange import protocol
 
         self.counts = {}
         self._protocol = protocol
-        self._counts = protocol.partition_counts
+        self._wrapped = {"plan": protocol.partition_counts,
+                         "map": protocol.bucket_scatter}
 
-        def counts(records, part_fn, parts, local_partitions):
-            if records.is_cuda:
-                d = part_fn.device_spec
-                key = (tuple(records.shape), tuple(records.stride()),
-                       d.kind, d.num_parts, d.key_words, d.first,
-                       d.split_k, d.stride, parts, local_partitions)
-                self.counts[key] = self.counts.get(key, 0) + 1
-            return self._counts(records, part_fn, parts, local_partitions)
+        def recorder(what):
+            def wrapper(records, part_fn, parts, local_partitions):
+                if records.is_cuda:
+                    d = part_fn.device_spec
+                    key = (tuple(records.shape), tuple(records.stride()),
+                           d.kind, d.num_parts, d.key_words, d.first,
+                           d.split_k, d.stride, parts, local_partitions,
+                           what)
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                return self._wrapped[what](records, part_fn, parts,
+                                           local_partitions)
+            return wrapper
 
-        protocol.partition_counts = counts
+        protocol.partition_counts = recorder("plan")
+        protocol.bucket_scatter = recorder("map")
         return self
 
     def __exit__(self, *exc):
-        self._protocol.partition_counts = self._counts
+        self._protocol.partition_counts = self._wrapped["plan"]
+        self._protocol.bucket_scatter = self._wrapped["map"]
 
 
-#: leg (or worker part, or soak) -> {PlanPasses key: launches}
+#: leg (or worker part, or soak) -> {PlanPasses key: launches}, plan
+#: and map passes
 PLAN_PASSES = {}
 
 
@@ -1952,6 +1968,16 @@ def plan_partitioner(kind: str, num_parts: int, key_words: int,
     return split_partitioner(part, stride, split_k) if stride else part
 
 
+def pass_batch(shape, strides, seed: int) -> torch.Tensor:
+    """Random words in a batch of a recorded pass's shape and strides (an
+    expanded batch, which the wrappers read contiguous, contiguous)."""
+    words = rand_words(shape, seed=seed)
+    if strides[1:] == (0,) or not all(strides):
+        return words
+    return torch.empty_strided(shape, strides, dtype=torch.int32,
+                               device="cuda").copy_(words)
+
+
 def plan_counts_phase() -> list:
     """The plan's count kernel at every pass the legs, workers and soaks
     gave it (``PLAN_PASSES``): random words in a batch of the pass's
@@ -1962,22 +1988,14 @@ def plan_counts_phase() -> list:
     from sparkrdma_tpu_torch.kernels.partition_counts import (
         partition_counts, partition_counts_plain)
 
-    by_key = {}
-    for leg_name, counts in PLAN_PASSES.items():
-        for key, n in counts.items():
-            by_key.setdefault(key, {})[leg_name] = n
+    by_key = passes_by_key("plan")
     lines = []
     for seed, (key, legs) in enumerate(sorted(by_key.items())):
-        shape, strides, kind, num_parts, kw, first, k, stride, parts, L = key
+        shape, strides, kind, num_parts, kw, first, k, stride, parts, L, _ = \
+            key
         part = plan_partitioner(kind, num_parts, kw, first, k, stride,
                                 seed=200 + seed)
-        words = rand_words(shape, seed=200 + seed)
-        if strides[1:] == (0,) or not all(strides):
-            x = words       # an expanded batch is read contiguous
-        else:
-            x = torch.empty_strided(shape, strides, dtype=torch.int32,
-                                    device="cuda").copy_(words)
-        del words
+        x = pass_batch(shape, strides, seed=200 + seed)
 
         def kernel():
             return partition_counts(x, part, parts, L)
@@ -2008,8 +2026,76 @@ def plan_counts_phase() -> list:
         del x, got, want
         torch.cuda.empty_cache()
     for leg_name in ("B", "D"):
-        if leg_name in PLAN_PASSES and not PLAN_PASSES[leg_name]:
+        if leg_name in PLAN_PASSES and not any(
+                k[-1] == "plan" for k in PLAN_PASSES[leg_name]):
             fail(f"partition_counts counted no plan pass of leg {leg_name}")
+    return lines
+
+
+def passes_by_key(what: str) -> dict:
+    """``PLAN_PASSES``' keys of ``what`` ("plan" or "map"), each with the
+    launches every leg made at it."""
+    by_key = {}
+    for leg_name, counts in PLAN_PASSES.items():
+        for key, n in counts.items():
+            if key[-1] == what:
+                by_key.setdefault(key, {})[leg_name] = n
+    return by_key
+
+
+def map_passes_phase() -> list:
+    """The read's bucketing kernel at every map pass the legs, workers
+    and soaks gave it (``PLAN_PASSES``' "map" keys): random words in a
+    batch of the pass's shape and strides, the same partitioner kind,
+    bins and split, its gather source, counts and offsets bit-exact
+    against ``bucket_scatter_plain`` and both timed beside the bound
+    (every word read once and written once, the key words read once
+    more). One line per pass; fails on any difference, or if leg F (the
+    default geometry's streaming TeraSort) launched none."""
+    from sparkrdma_tpu_torch.kernels.bucket_scatter import (
+        bucket_scatter, bucket_scatter_plain)
+
+    lines = []
+    for seed, (key, legs) in enumerate(sorted(passes_by_key("map").items())):
+        shape, strides, kind, num_parts, kw, first, k, stride, parts, L, _ = \
+            key
+        part = plan_partitioner(kind, num_parts, kw, first, k, stride,
+                                seed=300 + seed)
+        x = pass_batch(shape, strides, seed=300 + seed)
+
+        def kernel():
+            return bucket_scatter(x, part, parts, L)
+
+        def plain():
+            return bucket_scatter_plain(x, part, parts, L)
+
+        got, want = kernel(), plain()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if err or any(a.dtype != b.dtype or a.shape != b.shape
+                      for a, b in zip(got, want)):
+            fail(f"bucket_scatter disagrees with its plain version at "
+                 f"{key} (legs {sorted(legs)}): {err}")
+        records = shape[1] // L * L
+        bound_ms = records * (shape[0] * 8 + kw * 4) / MEM_RATE * 1e3
+        line = {"phase": "bucket_scatter", "shape": list(shape),
+                "strides": list(strides), "kind": kind,
+                "num_parts": num_parts, "key_words": kw,
+                "first_key_word": first, "split_k": k,
+                "split_stride": stride, "bins": parts, "partitions": L,
+                "legs": ", ".join(sorted(legs)), "launches_by_leg": legs,
+                "launches": sum(legs.values()), "max_abs_err": err,
+                "records": int(want[1].sum()),
+                "kernel_ms": time_ms(kernel, reps=10,
+                                     inner=20 if bound_ms < 0.5 else 1),
+                "bound_ms": bound_ms,
+                "plain_ms": time_ms(plain, reps=3)}
+        report(line)
+        lines.append(line)
+        del x, got, want
+        torch.cuda.empty_cache()
+    if "F" in PLAN_PASSES and not any(
+            k[-1] == "map" for k in PLAN_PASSES["F"]):
+        fail("bucket_scatter bucketed no map pass of leg F")
     return lines
 
 
@@ -6534,7 +6620,7 @@ def leg_t() -> dict:
 #: the kernel wrappers whose launches the legs count
 KERNEL_COUNTS = ("merge_stage", "merge_splits", "ring_exchange",
                  "ring_all_to_all", "ring_push", "ring_push_all_to_all",
-                 "partition_counts")
+                 "partition_counts", "bucket_scatter")
 
 
 def push_lines(workers: list) -> dict:
@@ -6918,6 +7004,7 @@ def main(argv=None) -> int:
             run_leg(legs, shapes, "T", leg_t)
             split_leg_t(legs, shapes)
         plan_counts_phase()
+        map_passes_phase()
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -6956,6 +7043,7 @@ def main(argv=None) -> int:
     push = split_leg_t(legs, shapes)
     ring_legs = ring_leg_phases(shapes)
     plan_lines = plan_counts_phase()
+    map_lines = map_passes_phase()
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
             fail(f"ring_exchange was not launched on leg {name}")
@@ -7043,6 +7131,8 @@ def main(argv=None) -> int:
                    by_leg("ring_push_all_to_all")),
         plan_entry(plan_lines, launches("partition_counts"),
                    by_leg("partition_counts")),
+        map_entry(map_lines, launches("bucket_scatter"),
+                  by_leg("bucket_scatter")),
     ]
     report({"smoke_s": time.perf_counter() - t_smoke})
     report({"kernels": kernels})
@@ -7104,6 +7194,26 @@ def plan_entry(lines: list, launches: int, by_leg: dict) -> dict:
     top = max(lines, key=lambda v: v["bound_ms"])
     return {"name": "partition_counts", "route": "cuda",
             "source": "sparkrdma_tpu_torch/csrc/partition_counts.cu",
+            "replaces": None, "launches": launches,
+            "launches_by_leg": by_leg, "shape": top["shape"],
+            "max_abs_err": max(v["max_abs_err"] for v in lines),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "passes": [{k: v[k] for k in ("shape", "kind", "split_k",
+                                          "bins", "legs", "max_abs_err",
+                                          "kernel_ms", "bound_ms")}
+                       for v in lines]}
+
+
+def map_entry(lines: list, launches: int, by_leg: dict) -> dict:
+    """The ``kernels`` line's entry of ``bucket_scatter``: its numbers at
+    the map pass with the most bytes, every pass's beside them."""
+    if not lines:
+        fail("bucket_scatter was checked at no map pass")
+    top = max(lines, key=lambda v: v["bound_ms"])
+    return {"name": "bucket_scatter", "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/bucket_scatter.cu",
             "replaces": None, "launches": launches,
             "launches_by_leg": by_leg, "shape": top["shape"],
             "max_abs_err": max(v["max_abs_err"] for v in lines),

@@ -51,6 +51,10 @@ class PeerTable(ctypes.Structure):
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
+    "bucket_scatter": {
+        "sr_bucket_scatter": ([_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P,
+                               _I, _I, _I, _P, _L, _P, _P, _P, _L, _P], _I),
+    },
     "merge_path": {
         "sr_merge_splits": ([_P, _P, _I, _L, _L, _L, _I, _P], _I),
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),

@@ -11,7 +11,8 @@
 //
 // Contract. `rec` holds L partitions of n records, columnar: record i of
 // partition d has word w at rec[w*ld + (d*n + i)*cs]. Each key word is
-// read as uint32. A record's id is
+// read as uint32. A record's id is partition_ids.cuh's, the one the
+// read's bucketing scatter (bucket_scatter.cu) gives it:
 //   hash:  h = ((h ^ k_w) * 2654435761) mod 2^32 over key words
 //          0..kw-1, then h ^= h >> 16, id = h mod P;
 //   mod:   id = k_first mod P;
@@ -47,28 +48,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "partition_ids.cuh"
+
 namespace {
+
+using partition_ids::IdSpec;
+using partition_ids::kRange;
+using partition_ids::kHash;
+using partition_ids::kMod;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRegWords = 4;            // key words held in registers
 constexpr int kSmemBytes = 48 * 1024;   // shared memory without opt-in
 constexpr int kSplSmemBytes = 16 * 1024;
-constexpr uint32_t kHashMul = 2654435761u;
-
-enum Kind { kHash = 0, kMod = 1, kRange = 2 };
 
 struct Params {
   const uint32_t* rec;   // word `first` of record 0 of partition 0
-  long long ld;          // words between rows
-  long long cs;          // words between records
+  IdSpec ids;            // row and record strides, kind, P, kw, split
   long long n;           // records a partition
-  int kind;
-  uint32_t P;            // hash / mod modulus; range: splitters + 1
-  int kw;                // key words read (mod: 1)
   const uint32_t* spl;   // range: [P-1, kw] rows, sorted
-  uint32_t split_k;
-  uint32_t stride;
   unsigned long long* table;
   int parts;
   int per_warp;          // a histogram a warp, else the table itself
@@ -76,113 +74,26 @@ struct Params {
   int vec;
 };
 
-template <int V>
-__device__ __forceinline__ void load_word(const uint32_t* p,
-                                          uint32_t (&x)[V]) {
-  if constexpr (V == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-// key >= s, lexicographic over kw words: the first kRegWords from
-// registers, the rest from the record's column `kg` (row stride ld).
-__device__ __forceinline__ bool key_ge(const uint32_t (&kr)[kRegWords],
-                                       const uint32_t* kg, long long ld,
-                                       const uint32_t* s, int kw) {
-#pragma unroll
-  for (int w = 0; w < kRegWords; ++w)
-    if (w < kw && kr[w] != s[w]) return kr[w] > s[w];
-  for (int w = kRegWords; w < kw; ++w) {
-    const uint32_t a = __ldg(kg + w * ld);
-    if (a != s[w]) return a > s[w];
-  }
-  return true;
-}
-
-// #{j : key >= spl_j} over m sorted rows: the first row above the key
-__device__ __forceinline__ uint32_t range_id(
-    const uint32_t (&kr)[kRegWords], const uint32_t* kg, long long ld,
-    const uint32_t* spl, int m, int kw) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key_ge(kr, kg, ld, spl + mid * kw, kw))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return (uint32_t)lo;
-}
-
 // Count V records i0 .. i0+V-1 of one partition; `col` points at the
 // first one's word `first` (V == 4 only with unit column stride).
 template <int V>
 __device__ __forceinline__ void count_group(
     const Params& p, const uint32_t* col, long long i0,
     const uint32_t* spl, uint32_t* hist, unsigned long long* gtab) {
-  // the first kRegWords key words of the V records, every load issued
-  // before any is used
-  uint32_t kr[V][kRegWords];
-#pragma unroll
-  for (int w = 0; w < kRegWords; ++w) {
-    uint32_t x[V];
-    if (w < p.kw) {
-      load_word<V>(col + w * p.ld, x);
-    } else {
-#pragma unroll
-      for (int r = 0; r < V; ++r) x[r] = 0u;
-    }
-#pragma unroll
-    for (int r = 0; r < V; ++r) kr[r][w] = x[r];
-  }
   uint32_t id[V];
-  if (p.kind == kHash) {
-    uint32_t h[V];
-#pragma unroll
-    for (int r = 0; r < V; ++r) {
-      h[r] = 0u;
-#pragma unroll
-      for (int w = 0; w < kRegWords; ++w)
-        if (w < p.kw) h[r] = (h[r] ^ kr[r][w]) * kHashMul;
-    }
-    for (int w = kRegWords; w < p.kw; ++w) {
-      uint32_t x[V];
-      load_word<V>(col + w * p.ld, x);
-#pragma unroll
-      for (int r = 0; r < V; ++r) h[r] = (h[r] ^ x[r]) * kHashMul;
-    }
-#pragma unroll
-    for (int r = 0; r < V; ++r) {
-      const uint32_t f = h[r] ^ (h[r] >> 16);
-      id[r] = f % p.P;
-    }
-  } else if (p.kind == kMod) {
-#pragma unroll
-    for (int r = 0; r < V; ++r) id[r] = kr[r][0] % p.P;
-  } else {
-#pragma unroll
-    for (int r = 0; r < V; ++r)
-      id[r] = range_id(kr[r], col + r * p.cs, p.ld, spl, (int)p.P - 1,
-                       p.kw);
-  }
-  uint32_t j = p.split_k > 1 ? (uint32_t)(i0 % p.split_k) : 0u;
+  partition_ids::key_ids<V>(p.ids, col, spl, id);
+  uint32_t j = p.ids.split_k > 1 ? (uint32_t)(i0 % p.ids.split_k) : 0u;
 #pragma unroll
   for (int r = 0; r < V; ++r) {
     const unsigned long long b =
-        id[r] + (unsigned long long)p.stride * j;
+        id[r] + (unsigned long long)p.ids.stride * j;
     if (b < (unsigned long long)p.parts) {
       if (hist)
         atomicAdd(hist + b, 1u);
       else
         atomicAdd(gtab + b, 1ull);
     }
-    if (++j == p.split_k) j = 0;
+    if (++j == p.ids.split_k) j = 0;
   }
 }
 
@@ -190,8 +101,8 @@ __global__ void __launch_bounds__(kThreads)
     partition_counts_kernel(Params p) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int d = blockIdx.y;
-  const int m = p.kind == kRange ? (int)p.P - 1 : 0;
-  const int spl_words = p.spl_smem ? m * p.kw : 0;
+  const int m = p.ids.kind == kRange ? (int)p.ids.P - 1 : 0;
+  const int spl_words = p.spl_smem ? m * p.ids.kw : 0;
   const int spl_pad = (spl_words + 3) & ~3;
   uint32_t* hist_s = smem + spl_pad;
   const uint32_t* spl = p.spl;
@@ -206,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* hist =
       p.per_warp ? hist_s + (threadIdx.x >> 5) * p.parts : nullptr;
   unsigned long long* gtab = p.table + (long long)d * p.parts;
-  const uint32_t* base = p.rec + (long long)d * p.n * p.cs;
+  const uint32_t* base = p.rec + (long long)d * p.n * p.ids.cs;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long nth = (long long)gridDim.x * kThreads;
   if (p.vec) {
@@ -228,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (long long i = tid; i < p.n; i += nth)
-      count_group<1>(p, base + i * p.cs, i, spl, hist, gtab);
+      count_group<1>(p, base + i * p.ids.cs, i, spl, hist, gtab);
   }
   if (!p.per_warp) return;
   __syncthreads();
@@ -271,15 +182,16 @@ int sr_partition_counts(const void* rec, long long ld, long long cs,
   const long long hist_bytes = per_warp ? warp_bytes : 0;
   Params p;
   p.rec = (const uint32_t*)rec + (long long)first * ld;
-  p.ld = ld;
-  p.cs = cs;
+  p.ids.ld = ld;
+  p.ids.cs = cs;
+  p.ids.kind = kind;
+  p.ids.P = (uint32_t)P;
+  p.ids.pm = partition_ids::mod_magic((uint32_t)P);
+  p.ids.kw = kw;
+  p.ids.split_k = (uint32_t)split_k;
+  p.ids.stride = (uint32_t)stride;
   p.n = n;
-  p.kind = kind;
-  p.P = (uint32_t)P;
-  p.kw = kw;
   p.spl = (const uint32_t*)spl;
-  p.split_k = (uint32_t)split_k;
-  p.stride = (uint32_t)stride;
   p.table = (unsigned long long*)table;
   p.parts = parts;
   p.per_warp = per_warp;

@@ -26,7 +26,9 @@ reference:
 - ``num_rounds <= max_rounds_in_flight``: the fused regime, all rounds
   in one transport step;
 - more rounds: the streaming regime (:meth:`ShuffleExchange
-  ._exchange_streaming`). A prep step runs the map side and the size
+  ._exchange_streaming`). A prep step runs the map side (on the card,
+  one launch of ``csrc/bucket_scatter.cu`` for every source where the
+  read's input allows it: :func:`map_kernel_takes`) and the size
   exchange; then chunks of ``max_rounds_in_flight`` rounds each are
   filled, moved and folded into an accumulator at their exact offsets in
   the stream, with the host waiting for the oldest chunk once
@@ -117,6 +119,8 @@ from sparkrdma_tpu_torch.exchange.ring import (make_ring_all_to_all,
                                                make_ring_exchange)
 from sparkrdma_tpu_torch.kernels.aggregate import (OPS, combine_by_key_cols,
                                                   map_side_combine_cols)
+from sparkrdma_tpu_torch.kernels.bucket_scatter import (BIN_LIMIT,
+                                                        bucket_scatter)
 from sparkrdma_tpu_torch.kernels.bucketing import (bucket_records,
                                                    bucket_sorted_counts,
                                                    compact_segments,
@@ -173,6 +177,20 @@ def split_partitioner(partitioner: Callable, num_parts: int,
     inner = getattr(partitioner, "device_spec", None)
     wrapped.device_spec = None if inner is None else inner.split(k, num_parts)
     return wrapped
+
+
+def map_kernel_takes(on_card: bool, partitioner: Callable, num_parts: int,
+                     combine: bool, row_filter: Optional[Callable],
+                     keep_words: Optional[Tuple[int, ...]]) -> bool:
+    """Whether the streaming prep buckets every source with one
+    ``bucket_scatter`` launch: a batch on the card, a described
+    partitioner (not a split of a split), no filter, no projection, no
+    map-side combine (whose (partition, key) sort is its own bucketing)
+    and 2 to ``BIN_LIMIT`` bins. Else each source goes through
+    :meth:`ShuffleExchange._map_side`."""
+    return (on_card and not combine and row_filter is None
+            and keep_words is None and 1 < num_parts <= BIN_LIMIT
+            and getattr(partitioner, "device_spec", None) is not None)
 
 
 def _device_partition_counts(counts_local: torch.Tensor, num_parts: int,
@@ -633,6 +651,7 @@ class ShuffleExchange:
             # batch: under a filter, bucket over 2 partitions so the
             # sentinel rows are counted out, and keep the real one
             np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
+            self.metrics.counter("exchange.map_passes_plain").inc()
             sr, counts, offs = bucket_records(recs, pids, np_eff, **how)
             return sr, counts[:num_parts], offs[:num_parts]
 
@@ -925,9 +944,11 @@ class ShuffleExchange:
         over the stacked partitions.
 
         - prep: the map side of every source (filter, projection,
-          combine, bucketing) and the size exchange; the bucketed sources
-          sit side by side in one gather source, followed by one zero
-          column that every empty slot position reads;
+          combine, bucketing; one ``bucket_scatter`` launch for all of
+          them where :func:`map_kernel_takes`) and the size exchange; the
+          bucketed sources sit side by side in one gather source,
+          followed by one zero column that every empty slot position
+          reads;
         - chunk ``j``: rounds ``[j*F, (j+1)*F)`` of every (source,
           destination) slot gathered into one pooled send buffer (no
           counts lane: prep did the size exchange; rounds past the plan
@@ -980,24 +1001,35 @@ class ShuffleExchange:
         # --- prep -------------------------------------------------------
         with span("shuffle:prep", dev):
             tl.begin("stream:prep", chunks=n_chunks, rounds=plan.num_rounds)
-            srs, cnts, offs = [], [], []
-            for s in range(local):
-                sr, c, o = self._map_side(
-                    rt.partition(records, s), partitioner, num_parts,
-                    combine, aggregator, float_payload, row_filter,
-                    keep_words)
-                srs.append(sr)
-                cnts.append(c)
-                offs.append(o)
-            with span("shuffle:fill", dev):
-                # the chunks' gather source
-                src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))], dim=1)
-            del srs
+            if map_kernel_takes(dev.type == "cuda", partitioner, num_parts,
+                                combine, row_filter, keep_words):
+                # every source bucketed by one launch, straight into the
+                # chunks' gather source
+                m.counter("exchange.map_passes_kernel").inc()
+                with span("shuffle:map", dev):
+                    src, cnts, offs = bucket_scatter(records, partitioner,
+                                                     num_parts, local)
+            else:
+                srs, cnts, offs = [], [], []
+                for s in range(local):
+                    sr, c, o = self._map_side(
+                        rt.partition(records, s), partitioner, num_parts,
+                        combine, aggregator, float_payload, row_filter,
+                        keep_words)
+                    srs.append(sr)
+                    cnts.append(c)
+                    offs.append(o)
+                with span("shuffle:fill", dev):
+                    # the chunks' gather source
+                    src = torch.cat(srs + [srs[0].new_zeros((w_eff, 1))],
+                                    dim=1)
+                del srs
+                cnts, offs = torch.stack(cnts), torch.stack(offs)
             zero_col = local * n
             # dest-major: p_dq[d, q] = partition q * mesh + d
             p_dq = torch.arange(num_parts, device=dev).reshape(ppd, mesh).T
-            cnt = torch.stack(cnts)[:, p_dq]                   # [S, D, ppd]
-            base = torch.stack(offs)[:, p_dq] + (
+            cnt = cnts[:, p_dq]                                # [S, D, ppd]
+            base = offs[:, p_dq] + (
                 torch.arange(local, device=dev) * n)[:, None, None]
             if self.processes == 1:
                 incoming = cnt.transpose(0, 1).to(torch.int32)  # [D, S, ppd]

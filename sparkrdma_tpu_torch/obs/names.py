@@ -47,6 +47,8 @@ COUNTERS = frozenset({
     "exchange.plans",
     "exchange.plan_passes_kernel",
     "exchange.plan_passes_plain",
+    "exchange.map_passes_kernel",
+    "exchange.map_passes_plain",
     "exchange.queue_blocks",
     "exchange.stream_chunks",
     "exchange.dispatches",
@@ -101,7 +103,11 @@ COUNTERS = frozenset({
 #: streaming chunk moved, the source where the work happens of the
 #: benchmark's ``slot_fill``. ``exchange.plan_passes_kernel`` and
 #: ``exchange.plan_passes_plain`` count the plan passes counted by the
-#: ``partition_counts`` kernel and by calling the partitioner.
+#: ``partition_counts`` kernel and by calling the partitioner;
+#: ``exchange.map_passes_kernel`` the reads' map sides bucketed by one
+#: ``bucket_scatter`` launch, ``exchange.map_passes_plain`` the source
+#: partitions bucketed by ``bucket_records`` (the map-side combine counts
+#: as neither).
 #: ``exchange.reduce_combine_in_records`` / ``_out_records`` count the
 #: lines into the reduce-side combine (``_fuse_tail``) and the keys out
 #: of it, the source of the benchmark's ``reduce_fold``.
@@ -109,6 +115,8 @@ PORT_ONLY = frozenset({
     "exchange.slots_moved",
     "exchange.plan_passes_kernel",
     "exchange.plan_passes_plain",
+    "exchange.map_passes_kernel",
+    "exchange.map_passes_plain",
     "exchange.reduce_combine_in_records",
     "exchange.reduce_combine_out_records",
 })

@@ -1438,9 +1438,9 @@ def test_idiom_fault_site_param_bad_twins(tmp_path):
 # ABI: copies of the real tables
 # ---------------------------------------------------------------------
 
-_ABI_REAL = ["_build.py", "csrc/merge_path.cu", "csrc/partition_counts.cu",
-             "csrc/ring_exchange.cu", "hbm/host_staging.py",
-             "native/staging.cpp"]
+_ABI_REAL = ["_build.py", "csrc/bucket_scatter.cu", "csrc/merge_path.cu",
+             "csrc/partition_counts.cu", "csrc/ring_exchange.cu",
+             "hbm/host_staging.py", "native/staging.cpp"]
 
 
 @pytest.fixture
@@ -1466,7 +1466,8 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
     assert run_rules(abi_copy, select=["abi-sync", "abi-gate"]) == []
     pairs = {p.c_rel: p for p in abi_model(LintContext(abi_copy)).pairs}
     # every export of both pairs is compared with its table entry
-    assert sorted(pairs) == [f"{PKG}/csrc/merge_path.cu",
+    assert sorted(pairs) == [f"{PKG}/csrc/bucket_scatter.cu",
+                             f"{PKG}/csrc/merge_path.cu",
                              f"{PKG}/csrc/partition_counts.cu",
                              f"{PKG}/csrc/ring_exchange.cu",
                              f"{PKG}/native/staging.cpp"]
@@ -1476,6 +1477,10 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
     assert sorted(counts.cfuncs) == sorted(counts.decls) == [
         "sr_partition_counts"]
     assert len(counts.cfuncs["sr_partition_counts"].params) == 15
+    scatter = pairs[f"{PKG}/csrc/bucket_scatter.cu"]
+    assert sorted(scatter.cfuncs) == sorted(scatter.decls) == [
+        "sr_bucket_scatter"]
+    assert len(scatter.cfuncs["sr_bucket_scatter"].params) == 21
     ring = pairs[f"{PKG}/csrc/ring_exchange.cu"]
     assert sorted(ring.cfuncs) == sorted(ring.decls) == [
         "sr_ipc_close", "sr_ipc_export", "sr_ipc_open", "sr_ring_push",
@@ -1495,6 +1500,12 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
      '"sr_merge_splits": ([_P, _P, _I, _I, _L, _L, _I, _P], _I)',
      "sr_merge_splits parameter 3 is long long in C but argtypes[3] is "
      "c_int (expected c_longlong)"),
+    # sr_bucket_scatter's records a partition declared int
+    ("_build.py",
+     '"sr_bucket_scatter": ([_P, _L, _L, _L,',
+     '"sr_bucket_scatter": ([_P, _L, _L, _I,',
+     "sr_bucket_scatter parameter 3 is long long in C but argtypes[3] "
+     "is c_int (expected c_longlong)"),
     # sr_partition_counts' row stride declared int instead of long long
     ("_build.py",
      '"sr_partition_counts": ([_P, _L, _L, _L,',
