@@ -125,8 +125,7 @@ def _strip_filler(m: ShuffleManager, r: torch.Tensor, t: int
     kw = m.conf.key_words
     v = _valid_nonfiller(r, t, kw)
     r = torch.where(v[None], r, 0)
-    mode = m._exchange.sort_mode(m.conf.record_words)
-    return sort_by_lead_cols(r, ~v, mode), int(v.sum())
+    return sort_by_lead_cols(r, ~v), int(v.sum())
 
 
 def _join_counts(m: ShuffleManager, a: "Dataset", b: "Dataset",
@@ -546,13 +545,12 @@ class Dataset:
         mesh = m.runtime.local_partitions
         cap = self.records.shape[1] // mesh
         kw = m.conf.key_words
-        mode = m._exchange.sort_mode(self.records.shape[0])
         new_cap = min(cap, size_class_fine(max(1, max(tot))))
         live = torch.arange(new_cap, device=self.records.device)
         pieces = []
         for r, t in zip(_parts(self.records, mesh), tot):
             valid = _valid_nonfiller(r, t, kw)
-            packed = sort_by_lead_cols(r, ~valid, mode)[:, :new_cap]
+            packed = sort_by_lead_cols(r, ~valid)[:, :new_cap]
             pieces.append(torch.where((live < valid.sum())[None], packed,
                                       _NULL_WORD))
         return torch.cat(pieces, dim=1)
@@ -694,7 +692,6 @@ class Dataset:
         w = m.conf.record_words
         kw = m.conf.key_words
         num_parts = m.runtime.num_partitions
-        pack = m._exchange.sort_mode(w) == "pack"
 
         def full_row_hash(records):
             h = torch.full((records.shape[1],), 0x9E3779B9,
@@ -710,7 +707,7 @@ class Dataset:
         for r, t in zip(_parts(a.records, m.runtime.local_partitions),
                         a.totals.tolist()):
             out, nuniq = combine_by_key_cols(r, _valid_nonfiller(r, t, kw),
-                                             w, pack=pack)
+                                             w)
             outs.append(out)
             totals.append(nuniq)
         return Dataset(m, torch.cat(outs, dim=1), torch.tensor(
@@ -741,13 +738,11 @@ class Dataset:
         output: ``(values, groups, n_groups int[D], totals int[D])``."""
         m = self.manager
         kw = m.conf.key_words
-        mode = m._exchange.sort_mode(m.conf.record_words)
         mesh = m.runtime.local_partitions
         vals, grps, ngs, tots = [], [], [], []
         for r, t in zip(_parts(a.records, mesh), a.totals.tolist()):
             values, groups, n_groups, total = group_runs_cols(
-                r, _valid_nonfiller(r, t, kw), kw, wide=mode == "wide",
-                ride_words=m.conf.wide_sort_ride_words, pack=mode == "pack")
+                r, _valid_nonfiller(r, t, kw), kw)
             vals.append(values)
             grps.append(groups)
             ngs.append(n_groups)

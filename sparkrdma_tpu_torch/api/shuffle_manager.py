@@ -996,12 +996,11 @@ class ShuffleManager:
                     continue
                 rank[d, st:st + ln] = (p - start) * k + j
                 kept[d] += ln
-        mode = self._exchange.sort_mode(out.shape[0])
         res = torch.zeros_like(out)
         for d in range(local):
             part = out[:, d * cap:(d + 1) * cap]
             res[:, d * cap:d * cap + kept[d]] = sort_by_lead_cols(
-                part, rank[d], mode)[:, :kept[d]]
+                part, rank[d])[:, :kept[d]]
         return res, torch.tensor(kept, dtype=torch.int32, device=out.device)
 
     def _ranged_tail(self, out: torch.Tensor, totals: torch.Tensor,

@@ -2,9 +2,9 @@
 
 Only the knobs the ported paths read are kept (TeraSort, the aggregation
 path with its map-side combine gate, the streaming regime with its
-``queue_depth`` pacing, the slot pool, the pack/wide sort modes, and the
-out-of-core path: host staging, the tiered store and segment
-checkpoints; the query planner's rewrite gates and the host codec's
+``queue_depth`` pacing, the slot pool, the pack/wide sort-mode knobs
+(accepted; they select one sort), and the out-of-core path: host
+staging, the tiered store and segment checkpoints; the query planner's rewrite gates and the host codec's
 chunking; the whole-shuffle checkpoint, the reader's retry loop and
 the fault plane; the observability knobs of the journal, the read
 stats and the stall watchdog, of the live telemetry and alert layer,
@@ -92,11 +92,16 @@ class ShuffleConf:
     fast_sort_run: int = 1 << 15
     #: keep arrival order within equal keys (disables the merge-path sort)
     stable_key_sort: bool = False
-    #: payload widths that select the reference's "wide" / "pack" sort
-    #: modes (0 disables). Every mode here is one stable key sort plus one
-    #: gather, so the mode and ``wide_sort_ride_words`` name the
-    #: reference's strategy but never change a result
+    #: the reference's payload widths for its "wide" / "pack" sort modes
+    #: (0 disables), read only by ``ShuffleExchange.sort_mode``, which
+    #: names the reference's strategy and selects nothing here: every
+    #: sort of the port is one stable key sort plus one gather
     wide_sort_min_payload: int = 20
+    #: payload words the reference's wide sort lets ride its comparator
+    #: network; accepted and validated so that a configuration written
+    #: for the reference means the same here. The port's one sort has no
+    #: ride, so nothing reads it.
+    # srlint: ignore[config-key-sync] -- the reference's knob, kept for parity
     wide_sort_ride_words: int = 10
     pack_sort_min_payload: int = 20
 

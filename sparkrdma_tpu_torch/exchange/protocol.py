@@ -70,9 +70,10 @@ session's exchange (``tenant=``, ``account=``) charges each pooled
 buffer to the tenant's account while it holds it and tags its spans with
 the tenant.
 
-The record-movement strategy of every sort (``sort_mode``: pack, wide
-or plain) is chosen as in the reference; all three are one stable sort
-here (``kernels/sort.py``).
+Every sort here outside the merge path is one stable key sort plus one
+gather (``kernels/sort.py``). ``sort_mode`` names the reference's
+strategy for the same records (pack, wide or plain) and selects
+nothing.
 
 Faults (``faults.py``): ``exchange`` fires the ``exchange.dispatch``
 site, then the legacy ``fault_hook`` or ``conf.fault_injection_rate``,
@@ -130,10 +131,7 @@ from sparkrdma_tpu_torch.kernels.merge_sort import (merge_sort_cols,
                                                     supports_fast_sort)
 from sparkrdma_tpu_torch.kernels.partition_counts import (
     partition_counts, partition_counts_plain)
-from sparkrdma_tpu_torch.kernels.sort import (lexsort_cols,
-                                              packed_lexsort_cols,
-                                              sort_by_lead_cols)
-from sparkrdma_tpu_torch.kernels.wide_sort import sort_wide_cols
+from sparkrdma_tpu_torch.kernels.sort import lexsort_cols, sort_by_lead_cols
 from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
 from sparkrdma_tpu_torch.obs.stats import ExchangeRecord, ShuffleReadStats
 from sparkrdma_tpu_torch.obs.timeline import NULL_TIMELINE, EventTimeline
@@ -450,7 +448,10 @@ class ShuffleExchange:
                 and supports_fast_sort(out_capacity, self.conf.fast_sort_run))
 
     def sort_mode(self, record_words: int) -> str:
-        """The reference's precedence rule: pack > wide > plain."""
+        """The reference's sort strategy for records of this width, by
+        its precedence rule: pack > wide > plain. It names the
+        reference's choice and selects nothing in the port: every sort
+        here is one stable key sort plus one gather."""
         payload = record_words - self.conf.key_words
         if self.conf.pack_sort_min_payload and \
                 payload >= self.conf.pack_sort_min_payload:
@@ -569,11 +570,10 @@ class ShuffleExchange:
         combine-by-key for an aggregator (its output is key-sorted),
         else the key-ordering sort.
 
-        Outside the merge-path geometry the port sorts by the key words
-        stably; the reference's default there is unstable, so equal keys
-        may come out in another (equally valid) order."""
-        mode = self.sort_mode(out.shape[0])
-        ride = self.conf.wide_sort_ride_words
+        The key-ordering sort is the merge path where
+        :meth:`_uses_fast_sort` holds, else the stable key sort of
+        ``lexsort_cols``; the reference's default there is unstable, so
+        equal keys may come out in another (equally valid) order."""
         if aggregator:
             # the valid rows are the received prefix, and a stable sort
             # keeps their order whether the rest is masked or cut off:
@@ -583,8 +583,7 @@ class ShuffleExchange:
             part, unique = combine_by_key_cols(
                 out[:, :n], torch.ones(n, dtype=torch.bool,
                                        device=out.device),
-                self.conf.key_words, aggregator, float_payload,
-                wide=mode == "wide", ride_words=ride, pack=mode == "pack")
+                self.conf.key_words, aggregator, float_payload)
             # host ints the combine already holds: no sync. A ranged read's
             # tail follows an exchange run without the aggregator
             self.metrics.counter("exchange.reduce_combine_in_records").inc(n)
@@ -612,11 +611,6 @@ class ShuffleExchange:
             out = merge_sort_cols(
                 out, run=self.conf.fast_sort_run,
                 n_valid=None if tight_out else min(total, out_capacity))
-        elif mode == "pack":
-            out = packed_lexsort_cols(out, sort_key_words, valid,
-                                      stable=self.conf.stable_key_sort)
-        elif mode == "wide":
-            out = sort_wide_cols(out, sort_key_words, valid, ride_words=ride)
         else:
             out = lexsort_cols(out, sort_key_words, valid)
         return out, total
@@ -638,13 +632,10 @@ class ShuffleExchange:
                 pids = torch.where(row_filter(records), pids, num_parts)
             recs = (records if keep_words is None
                     else records[list(keep_words)])
-            mode = self.sort_mode(recs.shape[0])
-            how = dict(wide=mode == "wide", pack=mode == "pack",
-                       ride_words=self.conf.wide_sort_ride_words)
             if combine:
                 sr, spids, _ = map_side_combine_cols(
                     recs, pids, num_parts, self.conf.key_words, aggregator,
-                    float_payload, **how)
+                    float_payload)
                 counts, offs = bucket_sorted_counts(spids, num_parts)
                 return sr, counts, offs
             # bucket_records' single-partition shortcut counts the whole
@@ -652,7 +643,7 @@ class ShuffleExchange:
             # sentinel rows are counted out, and keep the real one
             np_eff = num_parts if (num_parts > 1 or row_filter is None) else 2
             self.metrics.counter("exchange.map_passes_plain").inc()
-            sr, counts, offs = bucket_records(recs, pids, np_eff, **how)
+            sr, counts, offs = bucket_records(recs, pids, np_eff)
             return sr, counts[:num_parts], offs[:num_parts]
 
     # ------------------------------------------------------------------
@@ -839,8 +830,7 @@ class ShuffleExchange:
                 if keep is not None:
                     # stable validity-lead compaction: survivors to the
                     # front in arrival order, zeroed tail
-                    part = sort_by_lead_cols(part, ~keep,
-                                             self.sort_mode(w_eff))
+                    part = sort_by_lead_cols(part, ~keep)
                     total = int(keep.sum())
                     part[:, total:] = 0
                 wire = total

@@ -129,8 +129,7 @@ def _run_extremes(payload: torch.Tensor, head: torch.Tensor, runs: int,
 
 def combine_by_key_cols(cols: torch.Tensor, valid: torch.Tensor,
                         key_words: int, op: str = "sum",
-                        float_payload: bool = False, wide: bool = False,
-                        ride_words: int = 0, pack: bool = False
+                        float_payload: bool = False
                         ) -> Tuple[torch.Tensor, int]:
     """Reduce the payloads of equal keys: ``(combined [W, N], unique)``.
 
@@ -138,9 +137,8 @@ def combine_by_key_cols(cols: torch.Tensor, valid: torch.Tensor,
     rows; rows with ``valid == False`` are ignored. The first ``unique``
     columns of the output are the unique keys, ascending, with their
     reduced payloads; the rest is zero. ``float_payload`` reads the
-    payload words as float32. ``wide``/``ride_words``/``pack`` name the
-    reference's sort strategy; the reference sorts stably in all three,
-    as the one sort here does, so they change nothing."""
+    payload words as float32. The key sort is stable, as the reference's
+    is in every one of its sort modes."""
     if op not in OPS:
         raise ValueError(f"unsupported op {op!r}")
     n = cols.shape[1]
@@ -168,8 +166,7 @@ def combine_by_key_cols(cols: torch.Tensor, valid: torch.Tensor,
 
 def map_side_combine_cols(records: torch.Tensor, part_ids: torch.Tensor,
                           num_parts: int, key_words: int, op: str = "sum",
-                          float_payload: bool = False, wide: bool = False,
-                          ride_words: int = 0, pack: bool = False
+                          float_payload: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Collapse duplicate (partition, key) pairs before the exchange.
 
@@ -182,8 +179,7 @@ def map_side_combine_cols(records: torch.Tensor, part_ids: torch.Tensor,
     ``unique`` columns are the surviving rows; ``new_pids`` carries their
     partition ids, ascending, with the sentinel ``num_parts`` on the
     tail — the form :func:`~sparkrdma_tpu_torch.kernels.bucketing
-    .bucket_sorted_counts` takes. ``wide``/``ride_words``/``pack`` as in
-    :func:`combine_by_key_cols`."""
+    .bucket_sorted_counts` takes."""
     n = records.shape[1]
     pids = part_ids.to(torch.int64)
     cols = torch.cat([pids.to(torch.int32)[None], records])

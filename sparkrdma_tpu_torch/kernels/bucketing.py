@@ -29,14 +29,11 @@ def _exclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:
 
 
 def bucket_records(records: torch.Tensor, part_ids: torch.Tensor,
-                   num_parts: int, wide: bool = False, ride_words: int = 0,
-                   pack: bool = False
+                   num_parts: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stable sort of ``[W, n]`` by destination partition. Returns
-    ``(bucketed, counts, offsets)``. ``wide``, ``ride_words`` and
-    ``pack`` name the reference's record-movement strategy; here one
-    sort of the ids and one gather serve all three with the same bytes
-    (``kernels/sort.py``)."""
+    """Stable sort of ``[W, n]`` by destination partition: one sort of
+    the ids and one gather (``kernels/sort.py``). Returns ``(bucketed,
+    counts, offsets)``."""
     w, n = records.shape
     if num_parts == 1:
         dev = records.device

@@ -22,9 +22,7 @@ from typing import Tuple
 
 import torch
 
-from sparkrdma_tpu_torch.kernels.sort import (_lex_perm, lexsort_cols,
-                                              packed_lexsort_cols)
-from sparkrdma_tpu_torch.kernels.wide_sort import sort_wide_cols
+from sparkrdma_tpu_torch.kernels.sort import _lex_perm, lexsort_cols
 
 
 def _run_heads(keys: torch.Tensor, total: int) -> torch.Tensor:
@@ -37,9 +35,7 @@ def _run_heads(keys: torch.Tensor, total: int) -> torch.Tensor:
     return ~same & in_valid
 
 
-def group_runs_cols(cols: torch.Tensor, valid: torch.Tensor, key_words: int,
-                    wide: bool = False, ride_words: int = 0,
-                    pack: bool = False
+def group_runs_cols(cols: torch.Tensor, valid: torch.Tensor, key_words: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """Key-sort ``cols: int32[W, N]`` and emit its CSR group table.
 
@@ -53,15 +49,10 @@ def group_runs_cols(cols: torch.Tensor, valid: torch.Tensor, key_words: int,
     - ``n_groups``: unique keys; ``total``: valid records.
 
     Unique keys never outnumber valid records, so ``groups`` always fits.
-    ``wide``/``ride_words``/``pack`` name the reference's sort strategy;
-    all three are the same stable sort here."""
+    The key sort is stable, as the reference's is in every one of its
+    sort modes."""
     n = cols.shape[1]
-    if pack:
-        values = packed_lexsort_cols(cols, key_words, valid, stable=True)
-    elif wide:
-        values = sort_wide_cols(cols, key_words, valid, ride_words=ride_words)
-    else:
-        values = lexsort_cols(cols, key_words, valid)
+    values = lexsort_cols(cols, key_words, valid)
     total = int(valid.sum())
     pos = torch.arange(n, device=cols.device)
     keys = values[:key_words]

@@ -1,24 +1,20 @@
 """Multi-word lexicographic sorts over int32 bit-views of uint32 words.
 
-The reference sorts with one variadic ``lax.sort``, which has no torch
-primitive. Here a sort is a least-significant-first chain of stable
-``torch.sort`` passes. Two words ride one pass: the pair ``(hi, lo)``
-packs into the int64 ``((hi ^ 0x80000000) << 32) | lo``, whose signed
-order is the unsigned lexicographic order of the pair, so W key words
-cost ``ceil(W/2)`` passes. Rows with ``valid == False`` are led to the
-tail by a last pass on the validity flag.
+Every sort here is one stable sort of its keys (key words, or one lead
+row), giving a permutation, plus one gather that places the full
+records. The reference sorts with one variadic ``lax.sort``, which has
+no torch primitive. Here the key sort is a least-significant-first
+chain of stable ``torch.sort`` passes. Two words ride one pass: the pair
+``(hi, lo)`` packs into the int64 ``((hi ^ 0x80000000) << 32) | lo``,
+whose signed order is the unsigned lexicographic order of the pair, so
+W key words cost ``ceil(W/2)`` passes. Rows with ``valid == False`` are
+led to the tail by a last pass on the validity flag.
 
-The reference has three strategies for moving the records of a sort
-(``ShuffleExchange.sort_mode``): ``"plain"`` rides every word through
-the comparator network, ``"pack"`` rides them as u64 pairs, ``"wide"``
-sorts the keys with an index and places the rest by one gather. Those
-are costs of XLA's variadic sort; here every sort already sorts the key
-words with an index and places the records with one gather, so the
-three modes are one implementation with the same output (a stable
-sort). The mode names and parameters stay so that call sites read as in
-the reference. Where the reference's pack sort is unstable
-(``stable=False``), this one stays stable: equal keys keep arrival
-order, one of the orders the reference may give.
+The reference's three ways of moving a sort's records
+(``ShuffleExchange.sort_mode``: pack, wide, plain) are costs of XLA's
+variadic sort and have no counterpart here. Each gives the bytes of the
+one stable sort here, and where the reference's pack sort is unstable,
+equal keys here keep arrival order, one of the orders it may give.
 
 Every function here works on the CPU and on the card alike: it is plain
 tensor code, and no Pallas kernel stands behind it in the reference.
@@ -26,7 +22,7 @@ tensor code, and no Pallas kernel stands behind it in the reference.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 
@@ -86,14 +82,6 @@ def lexsort_records(records: torch.Tensor, key_words: int,
     return lexsort_cols(records.T, key_words, valid).T.contiguous()
 
 
-def packed_lexsort_cols(cols: torch.Tensor, key_words: int,
-                        valid: Optional[torch.Tensor] = None,
-                        stable: bool = False) -> torch.Tensor:
-    """The reference's u64-packed sort: :func:`lexsort_cols` (always
-    stable, whatever ``stable`` says; module docstring)."""
-    return lexsort_cols(cols, key_words, valid)
-
-
 def _lead_perm(lead: torch.Tensor) -> torch.Tensor:
     """Stable ascending permutation of one uint32 row held in any integer
     dtype (int32 bit-views read unsigned)."""
@@ -102,25 +90,11 @@ def _lead_perm(lead: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
 
 
-def packed_partition_cols(cols: torch.Tensor, lead: torch.Tensor,
-                          stable: bool = True
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort full records by one uint32 ``lead`` row; returns
-    ``(sorted_lead, sorted_cols)``. Stable."""
-    perm = _lead_perm(lead)
-    return lead[perm], cols[:, perm]
-
-
-_MODES = ("plain", "pack", "wide")
-
-
-def sort_by_lead_cols(cols: torch.Tensor, lead: torch.Tensor,
-                      mode: str, stable: bool = True) -> torch.Tensor:
+def sort_by_lead_cols(cols: torch.Tensor, lead: torch.Tensor
+                      ) -> torch.Tensor:
     """Order full records ``[W, N]`` stably by one uint32 ``lead`` row (a
     validity flag, a partition rank...): one stable sort of the lead and
-    one gather, in every ``mode`` (module docstring)."""
-    if mode not in _MODES:
-        raise ValueError(f"unknown sort mode {mode!r}")
+    one gather."""
     return cols[:, _lead_perm(lead)]
 
 
@@ -135,5 +109,4 @@ def chunk_sort_cols(cols: torch.Tensor, run: int) -> torch.Tensor:
 
 
 __all__ = ["as_unsigned", "lexsort_cols", "lexsort_records",
-           "packed_lexsort_cols", "packed_partition_cols",
            "sort_by_lead_cols", "chunk_sort_cols"]

@@ -96,8 +96,9 @@ def _local_join_rows(cols_a: torch.Tensor, total_a: int,
     payload words, then B's payload words; the tail is zero.
 
     Both sides sort stably by the key, full records riding: one
-    permutation and one gather at any width, so the reference's
-    u64-packed route (``pack=True``) gives the same rows. Each A row's match range in B gives, by an exclusive prefix sum of
+    permutation and one gather at any width, which gives the rows of
+    every one of the reference's sort routes. Each A row's match range
+    in B gives, by an exclusive prefix sum of
     match counts, its output offset; every output slot finds its A row
     by one ``searchsorted`` into those offsets and its B row by
     inverting B's validity prefix sum. A count past ``2**31 - 1``, where
