@@ -303,7 +303,10 @@ It builds the CUDA kernels from ``sparkrdma_tpu_torch/csrc`` (one
    read's bucketing kernel (``csrc/bucket_scatter.cu``) likewise at every
    map pass they gave it (``PlanPasses``, ``phase: bucket_scatter``): its
    gather source, counts and offsets bit-exact against
-   ``bucket_scatter_plain``, both timed;
+   ``bucket_scatter_plain``, both timed; and the sort by key's kernel
+   (``csrc/lexsort.cu``) at every sort they gave it (``PlanPasses``,
+   ``phase: lexsort``): its output bit-exact against
+   ``lexsort_cols_plain`` on the card, both timed;
 15. the whole smoke's seconds, one ``{"kernels": [...]}`` line and, last,
     the device line.
 
@@ -1209,6 +1212,7 @@ def zeroed_counters():
     from sparkrdma_tpu_torch.kernels.bucket_scatter import bucket_scatter
     from sparkrdma_tpu_torch.kernels.partition_counts import \
         partition_counts
+    from sparkrdma_tpu_torch.kernels.sort import lexsort_cols
 
     kernels = {"merge_stage": merge_stage, "merge_splits": merge_splits,
                "ring_exchange": ring_exchange,
@@ -1216,7 +1220,8 @@ def zeroed_counters():
                "ring_push": ring_push,
                "ring_push_all_to_all": ring_push_all_to_all,
                "partition_counts": partition_counts,
-               "bucket_scatter": bucket_scatter}
+               "bucket_scatter": bucket_scatter,
+               "lexsort": lexsort_cols}
     for k in kernels.values():
         k.launches = 0
     return kernels
@@ -1797,24 +1802,44 @@ class RingShapes:
 
 
 class PlanPasses:
-    """The plan passes the ``partition_counts`` kernel counted and the
-    map passes the ``bucket_scatter`` kernel bucketed while inside the
-    ``with``, with their launch counts: ``exchange/protocol.py``'s names
-    for the wrappers are wrapped for the duration (the launch counts stay
-    the wrappers' own). A pass's key is what the kernel is given: the
-    batch's shape and strides, the description's kind, ``num_parts``,
-    key words, first key word, ``split_k`` and stride, the bins and the
-    stacked partitions, then ``"plan"`` or ``"map"``, all plain values,
-    so a worker's or a child's keys come back through JSON
+    """The plan passes the ``partition_counts`` kernel counted, the map
+    passes the ``bucket_scatter`` kernel bucketed and the sorts by key
+    the ``lexsort`` kernel sorted while inside the ``with``, with their
+    launch counts: ``exchange/protocol.py``'s names for the wrappers (and
+    ``kernels/aggregate.py``'s and ``kernels/group.py``'s for
+    ``lexsort_cols``) are wrapped for the duration (the launch counts
+    stay the wrappers' own). A pass's key is what the kernel is given:
+    the batch's shape and strides, the description's kind,
+    ``num_parts``, key words, first key word, ``split_k`` and stride, the
+    bins and the stacked partitions, then ``"plan"`` or ``"map"``; a
+    sort's, the shape and strides, the key words, whether a mask was
+    given, the columns sorted (``n``, -1 for all) and ``out``'s row
+    stride (0 for none), then ``"sort"``: all plain values, so a
+    worker's or a child's keys come back through JSON
     (:func:`plan_rows`)."""
 
     def __enter__(self):
         from sparkrdma_tpu_torch.exchange import protocol
+        from sparkrdma_tpu_torch.kernels import aggregate, group
 
         self.counts = {}
         self._protocol = protocol
         self._wrapped = {"plan": protocol.partition_counts,
                          "map": protocol.bucket_scatter}
+        self._sorters = (protocol, aggregate, group)
+        self._lexsort = protocol.lexsort_cols
+
+        def sort_recorder(cols, key_words, valid=None, n=None, out=None):
+            if cols.is_cuda:
+                key = (tuple(cols.shape), tuple(cols.stride()),
+                       int(key_words), int(valid is not None),
+                       -1 if n is None else int(n),
+                       0 if out is None else int(out.stride(0)), "sort")
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return self._lexsort(cols, key_words, valid, n=n, out=out)
+
+        for mod in self._sorters:
+            mod.lexsort_cols = sort_recorder
 
         def recorder(what):
             def wrapper(records, part_fn, parts, local_partitions):
@@ -1836,6 +1861,8 @@ class PlanPasses:
     def __exit__(self, *exc):
         self._protocol.partition_counts = self._wrapped["plan"]
         self._protocol.bucket_scatter = self._wrapped["map"]
+        for mod in self._sorters:
+            mod.lexsort_cols = self._lexsort
 
 
 #: leg (or worker part, or soak) -> {PlanPasses key: launches}, plan
@@ -2096,6 +2123,79 @@ def map_passes_phase() -> list:
     if "F" in PLAN_PASSES and not any(
             k[-1] == "map" for k in PLAN_PASSES["F"]):
         fail("bucket_scatter bucketed no map pass of leg F")
+    return lines
+
+
+def sort_passes_phase() -> list:
+    """The sort kernel at every sort by key the legs, workers and soaks
+    gave it (``PLAN_PASSES``' "sort" keys): random words in a batch of
+    the sort's shape and strides (key word 0 whole, the others below
+    2^16, so that digits every key shares are skipped), a random mask
+    where one was given, the same ``n`` and an ``out`` of the same row
+    stride, its output bit-exact against ``lexsort_cols_plain`` on the
+    card and both timed beside the bound (every record read once and
+    written once, the key words read once more; each shape timed at its
+    largest ``n``). One line per sort; fails on any difference, or if
+    leg F (the default geometry's streaming TeraSort) gave it none."""
+    from sparkrdma_tpu_torch.kernels.sort import (carries_whole_records,
+                                                  lexsort_cols,
+                                                  lexsort_cols_plain)
+
+    lines = []
+    by_key = passes_by_key("sort")
+    # timed once a shape: at its largest n (each partition's received
+    # count is its own key)
+    largest = {}
+    for key in by_key:
+        group = key[:4] + key[5:]
+        top = largest.get(group)
+        if top is None or key[4] < 0 or 0 <= top[4] < key[4]:
+            largest[group] = key
+    timed = set(largest.values())
+    for seed, (key, legs) in enumerate(sorted(by_key.items())):
+        shape, strides, kw, masked, n, out_ld, _ = key
+        x = pass_batch(shape, strides, seed=400 + seed)
+        if kw > 1:
+            x[1:kw] &= 0xFFFF
+        n = None if n < 0 else n
+        valid = (torch.rand(shape[1], device="cuda") < 0.7
+                 if masked else None)
+
+        dests = [torch.zeros((shape[0], out_ld), dtype=torch.int32,
+                             device="cuda")[:, :shape[1]]
+                 if out_ld else None for _ in range(2)]
+
+        def kernel():
+            return lexsort_cols(x, kw, valid, n=n, out=dests[0])
+
+        def plain():
+            return lexsort_cols_plain(x, kw, valid, n, dests[1])
+
+        got, want = kernel(), plain()
+        err = max_abs_err(got, want)
+        if err:
+            fail(f"lexsort disagrees with its plain version at {key} "
+                 f"(legs {sorted(legs)}): {err}")
+        records = shape[1] if n is None else n
+        bound_ms = records * (shape[0] * 8 + kw * 4) / MEM_RATE * 1e3
+        line = {"phase": "lexsort", "shape": list(shape),
+                "strides": list(strides), "key_words": kw,
+                "masked": bool(masked), "n": n, "out_ld": out_ld,
+                "narrow": carries_whole_records(shape[0], kw),
+                "legs": ", ".join(sorted(legs)), "launches_by_leg": legs,
+                "launches": sum(legs.values()), "max_abs_err": err,
+                "kernel_ms": None, "bound_ms": bound_ms, "plain_ms": None}
+        if key in timed:
+            line.update(kernel_ms=time_ms(kernel, reps=5,
+                                          inner=20 if bound_ms < 0.5 else 1),
+                        plain_ms=time_ms(plain, reps=2, warm=1))
+        report(line)
+        lines.append(line)
+        del x, got, want, valid, dests
+        torch.cuda.empty_cache()
+    if "F" in PLAN_PASSES and not any(
+            k[-1] == "sort" for k in PLAN_PASSES["F"]):
+        fail("lexsort sorted nothing of leg F")
     return lines
 
 
@@ -6620,7 +6720,7 @@ def leg_t() -> dict:
 #: the kernel wrappers whose launches the legs count
 KERNEL_COUNTS = ("merge_stage", "merge_splits", "ring_exchange",
                  "ring_all_to_all", "ring_push", "ring_push_all_to_all",
-                 "partition_counts", "bucket_scatter")
+                 "partition_counts", "bucket_scatter", "lexsort")
 
 
 def push_lines(workers: list) -> dict:
@@ -7005,6 +7105,7 @@ def main(argv=None) -> int:
             split_leg_t(legs, shapes)
         plan_counts_phase()
         map_passes_phase()
+        sort_passes_phase()
         report({"smoke_s": time.perf_counter() - t_smoke})
         report({"recorded_ring_shapes": sorted(
             [leg_name, list(shape), a2a, n]
@@ -7044,6 +7145,7 @@ def main(argv=None) -> int:
     ring_legs = ring_leg_phases(shapes)
     plan_lines = plan_counts_phase()
     map_lines = map_passes_phase()
+    sort_lines = sort_passes_phase()
     for name in LEGS_I_TO_L:
         if legs[name]["launches"]["ring_exchange"] <= 0:
             fail(f"ring_exchange was not launched on leg {name}")
@@ -7133,6 +7235,7 @@ def main(argv=None) -> int:
                    by_leg("partition_counts")),
         map_entry(map_lines, launches("bucket_scatter"),
                   by_leg("bucket_scatter")),
+        sort_entry(sort_lines, launches("lexsort"), by_leg("lexsort")),
     ]
     report({"smoke_s": time.perf_counter() - t_smoke})
     report({"kernels": kernels})
@@ -7224,6 +7327,28 @@ def map_entry(lines: list, launches: int, by_leg: dict) -> dict:
                                           "bins", "legs", "max_abs_err",
                                           "kernel_ms", "bound_ms")}
                        for v in lines]}
+
+
+def sort_entry(lines: list, launches: int, by_leg: dict) -> dict:
+    """The ``kernels`` line's entry of ``lexsort``: its numbers at the
+    sort with the most bytes, every sort's beside them."""
+    if not lines:
+        fail("lexsort was checked at no sort")
+    top = max((v for v in lines if v["kernel_ms"] is not None),
+              key=lambda v: v["bound_ms"])
+    return {"name": "lexsort", "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/lexsort.cu",
+            "replaces": None, "launches": launches,
+            "launches_by_leg": by_leg, "shape": top["shape"],
+            "max_abs_err": max(v["max_abs_err"] for v in lines),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "sorts": [{k: v[k] for k in ("shape", "key_words", "masked",
+                                         "n", "narrow", "legs",
+                                         "max_abs_err", "kernel_ms",
+                                         "bound_ms")}
+                      for v in lines]}
 
 
 def earlier_legs(legs: dict, shapes: dict):

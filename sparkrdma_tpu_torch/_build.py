@@ -55,6 +55,12 @@ SIGNATURES = {
         "sr_bucket_scatter": ([_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P,
                                _I, _I, _I, _P, _L, _P, _P, _P, _L, _P], _I),
     },
+    "lexsort": {
+        "sr_lexsort": ([_P, _L, _L, _I, _I, _P, _P, _L, _I, _P, _L, _P, _L,
+                        _P], _I),
+        "sr_lexsort_meta_words": ([_I, _I], ctypes.c_int64),
+        "sr_lexsort_scratch_words": ([_L, _I, _I, _I, _I], ctypes.c_int64),
+    },
     "merge_path": {
         "sr_merge_splits": ([_P, _P, _I, _L, _L, _L, _I, _P], _I),
         "sr_merge_stage": ([_P, _P, _P, _I, _L, _L, _L, _L, _I, _P], _I),

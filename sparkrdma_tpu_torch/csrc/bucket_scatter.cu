@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "partition_ids.cuh"
+#include "tile_rank.cuh"
 
 namespace {
 
@@ -74,11 +75,12 @@ using partition_ids::kHash;
 using partition_ids::kMod;
 using partition_ids::kRange;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 4096;                 // records a tile
-constexpr int kPer = kTile / kThreads;      // records a thread: 16
-constexpr int kWarpSpan = kTile / kWarps;   // records a warp ranks: 512
+using tile_rank::block_exclusive;
+using tile_rank::kPer;
+using tile_rank::kThreads;
+using tile_rank::kTile;
+using tile_rank::kWarps;
+using tile_rank::kWarpSpan;
 constexpr int kMaxBins = 256;               // ids kept as bytes
 constexpr int kSplSmemBytes = 16 * 1024;
 constexpr uint32_t kNone = 0x100u;          // no record: above every id
@@ -239,72 +241,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Exclusive sum over the block of one value a thread; `wsum` holds
-// kWarps words and is free again when this returns.
-__device__ __forceinline__ uint32_t block_exclusive(uint32_t v,
-                                                    uint32_t* wsum,
-                                                    uint32_t* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t x = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += x;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  uint32_t before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before += wsum[w];
-    all += wsum[w];
-  }
-  __syncthreads();
-  *total = all;
-  return before + incl - v;
-}
-
 __global__ void __launch_bounds__(kThreads) tile_scan_kernel(Params p) {
   __shared__ uint32_t wsum[kWarps];
   const int d = blockIdx.y, b = blockIdx.x;
   // each tile's records of the bin in the partition's earlier tiles (all
   // below n < 2^31), then the bin's count
-  uint32_t carry = 0;
-  uint32_t* row = p.work + ((long long)d * p.parts + b) * p.tiles;
-  constexpr int kItems = 8;
-  for (long long start = 0; start < p.tiles;
-       start += (long long)kThreads * kItems) {
-    const long long i0 = start + (long long)threadIdx.x * kItems;
-    uint32_t v[kItems];
-    uint32_t sum = 0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      v[j] = i0 + j < p.tiles ? row[i0 + j] : 0u;
-      sum += v[j];
-    }
-    uint32_t total;
-    uint32_t run = carry + block_exclusive(sum, wsum, &total);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (i0 + j < p.tiles) row[i0 + j] = run;
-      run += v[j];
-    }
-    carry += total;
-  }
+  const uint32_t carry = tile_rank::scan_tiles(
+      p.work + ((long long)d * p.parts + b) * p.tiles, p.tiles, wsum);
   if (threadIdx.x == 0)
     p.counts[(long long)d * p.parts + b] = (unsigned long long)carry;
-}
-
-// The lanes of the warp whose key equals this lane's (keys up to
-// `parts`, which stands for no record).
-__device__ __forceinline__ unsigned peers_of(uint32_t key, int parts) {
-  unsigned peers = 0xffffffffu;
-  const int bits = 32 - __clz(parts);
-  for (int i = 0; i < bits; ++i) {
-    const unsigned set = __ballot_sync(0xffffffffu, (key >> i) & 1u);
-    peers &= (key >> i) & 1u ? set : ~set;
-  }
-  return peers;
 }
 
 template <bool VEC, bool NARROW>
@@ -318,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, NARROW ? 3 : 2)
   uint8_t* id_of = bin_at + kTile;                              // kTile
   uint32_t* whist = reinterpret_cast<uint32_t*>(id_of + kTile);
   int* delta = reinterpret_cast<int*>(whist + kWarps * p.parts);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int d = blockIdx.y;
   const long long t = blockIdx.x;
   const long long i0 = t * kTile;
@@ -344,19 +289,7 @@ __global__ void __launch_bounds__(kThreads, NARROW ? 3 : 2)
 
   // each warp ranks its 512 records within their bins, 32 at a time:
   // a record's rank among the warp's records of its bin before it
-  const int w0 = warp * kWarpSpan;
-  uint32_t* mine = whist + warp * p.parts;
-  for (int c = 0; c < kWarpSpan && w0 + c < cnt; c += 32) {
-    const int r = w0 + c + lane;
-    const bool valid = r < cnt;
-    const uint32_t key = valid ? id_of[r] : (uint32_t)p.parts;
-    const unsigned peers = peers_of(key, p.parts);
-    const uint32_t before = __popc(peers & ((1u << lane) - 1u));
-    if (valid) dest[r] = (uint16_t)(mine[key] + before);
-    __syncwarp();
-    if (valid && before == 0) mine[key] += __popc(peers);
-    __syncwarp();
-  }
+  tile_rank::rank_tile(id_of, cnt, p.parts, whist, dest);
   __syncthreads();
 
   // bin b's first position in the tile, and each warp's within it; the

@@ -562,9 +562,16 @@ class ShuffleExchange:
     # ------------------------------------------------------------------
     # the map side and the reduce-side tail
     # ------------------------------------------------------------------
+    def _count_key_sort(self, x: torch.Tensor) -> None:
+        """One sort by key (``lexsort_cols``): on the kernel's route for a
+        card tensor, else the plain one. A host int, no sync."""
+        self.metrics.counter("exchange.key_sorts_kernel" if x.is_cuda
+                             else "exchange.key_sorts_plain").inc()
+
     def _fuse_tail(self, out: torch.Tensor, total: int, out_capacity: int,
                    sort_key_words: int, aggregator: str = "",
-                   float_payload: bool = False, tight_out: bool = False
+                   float_payload: bool = False, tight_out: bool = False,
+                   dest: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, int]:
         """The optional reduce-side stage of one partition's output:
         combine-by-key for an aggregator (its output is key-sorted),
@@ -572,14 +579,18 @@ class ShuffleExchange:
 
         The key-ordering sort is the merge path where
         :meth:`_uses_fast_sort` holds, else the stable key sort of
-        ``lexsort_cols``; the reference's default there is unstable, so
-        equal keys may come out in another (equally valid) order."""
+        ``lexsort_cols`` over the received prefix, written into ``dest``
+        where given (a zeroed ``[W, out_capacity]``: its columns past the
+        prefix stay zero) and returned; the reference's default there is
+        unstable, so equal keys may come out in another (equally valid)
+        order."""
         if aggregator:
             # the valid rows are the received prefix, and a stable sort
             # keeps their order whether the rest is masked or cut off:
             # combine the prefix alone (a map-side combined read receives
             # a few rows into a capacity sized by the raw counts)
             n = min(total, out_capacity)
+            self._count_key_sort(out)
             part, unique = combine_by_key_cols(
                 out[:, :n], torch.ones(n, dtype=torch.bool,
                                        device=out.device),
@@ -604,15 +615,14 @@ class ShuffleExchange:
             return out, unique
         if not sort_key_words:
             return out, total
-        valid = None if tight_out else (
-            torch.arange(out_capacity, device=out.device) < total)
+        # the valid rows are the received prefix: sort only that
+        n = out_capacity if tight_out else min(total, out_capacity)
         if self._uses_fast_sort(out_capacity, sort_key_words):
-            # the valid rows are the received prefix: sort only that
-            out = merge_sort_cols(
-                out, run=self.conf.fast_sort_run,
-                n_valid=None if tight_out else min(total, out_capacity))
+            out = merge_sort_cols(out, run=self.conf.fast_sort_run,
+                                  n_valid=None if tight_out else n)
         else:
-            out = lexsort_cols(out, sort_key_words, valid)
+            self._count_key_sort(out)
+            out = lexsort_cols(out, sort_key_words, n=n, out=dest)
         return out, total
 
     def _map_side(self, records: torch.Tensor, partitioner: Callable,
@@ -633,6 +643,7 @@ class ShuffleExchange:
             recs = (records if keep_words is None
                     else records[list(keep_words)])
             if combine:
+                self._count_key_sort(recs)
                 sr, spids, _ = map_side_combine_cols(
                     recs, pids, num_parts, self.conf.key_words, aggregator,
                     float_payload)
@@ -1176,10 +1187,15 @@ class ShuffleExchange:
             new_totals = []
             for d, total in enumerate(totals.tolist()):
                 with span("shuffle:tail", dev):
+                    # a full-width read's key sort writes its records
+                    # straight into their place in ``out``
+                    dest = (out[:, d * oc:(d + 1) * oc] if keep_words is None
+                            else None)
                     part, total = self._fuse_tail(
                         acc[:, d * oc:(d + 1) * oc], total, oc,
-                        sort_key_words, aggregator, float_payload)
-                    out[rows, d * oc:(d + 1) * oc] = part
+                        sort_key_words, aggregator, float_payload, dest=dest)
+                    if part is not dest:
+                        out[rows, d * oc:(d + 1) * oc] = part
                 new_totals.append(total)
             tl.event("stream:tail")
         except BaseException:

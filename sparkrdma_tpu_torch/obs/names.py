@@ -49,6 +49,8 @@ COUNTERS = frozenset({
     "exchange.plan_passes_plain",
     "exchange.map_passes_kernel",
     "exchange.map_passes_plain",
+    "exchange.key_sorts_kernel",
+    "exchange.key_sorts_plain",
     "exchange.queue_blocks",
     "exchange.stream_chunks",
     "exchange.dispatches",
@@ -107,7 +109,10 @@ COUNTERS = frozenset({
 #: ``exchange.map_passes_kernel`` the reads' map sides bucketed by one
 #: ``bucket_scatter`` launch, ``exchange.map_passes_plain`` the source
 #: partitions bucketed by ``bucket_records`` (the map-side combine counts
-#: as neither).
+#: as neither). ``exchange.key_sorts_kernel`` / ``exchange.key_sorts_plain``
+#: count the sorts by key (``lexsort_cols``) of the reduce-side tail and
+#: of the map-side combine on the ``lexsort`` kernel's route (a card
+#: tensor) and on the plain one.
 #: ``exchange.reduce_combine_in_records`` / ``_out_records`` count the
 #: lines into the reduce-side combine (``_fuse_tail``) and the keys out
 #: of it, the source of the benchmark's ``reduce_fold``.
@@ -117,6 +122,8 @@ PORT_ONLY = frozenset({
     "exchange.plan_passes_plain",
     "exchange.map_passes_kernel",
     "exchange.map_passes_plain",
+    "exchange.key_sorts_kernel",
+    "exchange.key_sorts_plain",
     "exchange.reduce_combine_in_records",
     "exchange.reduce_combine_out_records",
 })

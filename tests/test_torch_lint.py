@@ -1438,9 +1438,10 @@ def test_idiom_fault_site_param_bad_twins(tmp_path):
 # ABI: copies of the real tables
 # ---------------------------------------------------------------------
 
-_ABI_REAL = ["_build.py", "csrc/bucket_scatter.cu", "csrc/merge_path.cu",
-             "csrc/partition_counts.cu", "csrc/ring_exchange.cu",
-             "hbm/host_staging.py", "native/staging.cpp"]
+_ABI_REAL = ["_build.py", "csrc/bucket_scatter.cu", "csrc/lexsort.cu",
+             "csrc/merge_path.cu", "csrc/partition_counts.cu",
+             "csrc/ring_exchange.cu", "hbm/host_staging.py",
+             "native/staging.cpp"]
 
 
 @pytest.fixture
@@ -1467,6 +1468,7 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
     pairs = {p.c_rel: p for p in abi_model(LintContext(abi_copy)).pairs}
     # every export of both pairs is compared with its table entry
     assert sorted(pairs) == [f"{PKG}/csrc/bucket_scatter.cu",
+                             f"{PKG}/csrc/lexsort.cu",
                              f"{PKG}/csrc/merge_path.cu",
                              f"{PKG}/csrc/partition_counts.cu",
                              f"{PKG}/csrc/ring_exchange.cu",
@@ -1481,6 +1483,10 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
     assert sorted(scatter.cfuncs) == sorted(scatter.decls) == [
         "sr_bucket_scatter"]
     assert len(scatter.cfuncs["sr_bucket_scatter"].params) == 21
+    lexsort = pairs[f"{PKG}/csrc/lexsort.cu"]
+    assert sorted(lexsort.cfuncs) == sorted(lexsort.decls) == [
+        "sr_lexsort", "sr_lexsort_meta_words", "sr_lexsort_scratch_words"]
+    assert len(lexsort.cfuncs["sr_lexsort"].params) == 14
     ring = pairs[f"{PKG}/csrc/ring_exchange.cu"]
     assert sorted(ring.cfuncs) == sorted(ring.decls) == [
         "sr_ipc_close", "sr_ipc_export", "sr_ipc_open", "sr_ring_push",
@@ -1506,6 +1512,18 @@ def test_abi_real_tables_are_read_and_clean(abi_copy):
      '"sr_bucket_scatter": ([_P, _L, _L, _I,',
      "sr_bucket_scatter parameter 3 is long long in C but argtypes[3] "
      "is c_int (expected c_longlong)"),
+    # sr_lexsort's records sorted declared int instead of long long
+    ("_build.py",
+     '"sr_lexsort": ([_P, _L, _L, _I,',
+     '"sr_lexsort": ([_P, _L, _I, _I,',
+     "sr_lexsort parameter 2 is long long in C but argtypes[2] is c_int "
+     "(expected c_longlong)"),
+    # a scratch size's int64_t return declared c_longlong
+    ("_build.py",
+     '"sr_lexsort_meta_words": ([_I, _I], ctypes.c_int64)',
+     '"sr_lexsort_meta_words": ([_I, _I], _L)',
+     "sr_lexsort_meta_words returns int64_t in C but restype is "
+     "c_longlong (expected c_int64)"),
     # sr_partition_counts' row stride declared int instead of long long
     ("_build.py",
      '"sr_partition_counts": ([_P, _L, _L, _L,',
